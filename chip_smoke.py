@@ -1,0 +1,388 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port of the streaming-PCA serving path on one GPU.
+
+    python3 chip_smoke.py
+
+Phases (each prints its lines; any failure raises and exits non-zero):
+  1. the card's name and power limit (nvidia-smi);
+  2. build the CUDA kernels from src/repro_torch/kernels/csrc (one nvcc per
+     source, in parallel, into build/repro_torch/);
+  3. each kernel against its plain PyTorch version on the card, at the
+     engine's widths (256 slots, p=1024, h=128, q=32, K*n=8*32 rows), with
+     its time (CUDA events, warmed up) beside its bound; plus a small
+     engine run on the card against the same run on the CPU;
+  4. the main path: StreamingPCAEngine with compression and detection on
+     256 slots at one wsn-1m region's width, serving 320 requests of 24
+     rounds (slots retire and readmit; the last 64 carry a liveness
+     schedule); the fused kernel's launch count must equal the engine's
+     step count with no plain call;
+  5. the band-only engine (no stages) on the same requests' first 16
+     rounds: the band-fold kernels, plain and masked.
+The line before the last is the kernels' JSON record; the last line is
+{"ok": true, "device": {...}}.  Without a CUDA card, or without the rest
+of the repository beside it, the script exits non-zero and prints no
+result.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+P, H, Q, K, N = 1024, 128, 32, 8, 32          # one wsn-1m region per slot
+SLOTS, REQUESTS, ROUNDS = 256, 320, 24        # 256 of wsn-1m's 1024 regions
+EPS = 1.0
+PEAK_FP32 = 67e12                             # H100 SXM, CUDA cores, dense
+PEAK_BYTES = 3.35e12                          # H100 SXM HBM3
+KERNELS = {
+    "fused_stream": ("src/repro_torch/kernels/csrc/fused_stream.cu",
+                     "src/repro/kernels/fused_stream.py:206"),
+    "band_fold": ("src/repro_torch/kernels/csrc/band_fold.cu",
+                  "src/repro/kernels/cov_update.py:171"),
+    "band_fold_masked": ("src/repro_torch/kernels/csrc/band_fold.cu",
+                         "src/repro/kernels/cov_update.py:228"),
+}
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def phase(name: str) -> None:
+    print(f"== {name}", flush=True)
+
+
+def time_ms(fn, iters: int, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    t_ops, t_mem = flops / PEAK_FP32, nbytes / PEAK_BYTES
+    return (max(t_ops, t_mem) * 1e3,
+            "operations" if t_ops >= t_mem else "bytes")
+
+
+def fold_flops(S, R, p, h):
+    """2 flops per multiply-add over R rows for each UNIQUE pair
+    (i, j), i <= j <= i + h, j < p: the band is symmetric
+    (band[h-d, i] = band[h+d, i-d]), so its lower diagonals are copies."""
+    h = min(h, p - 1)
+    pairs = (h + 1) * p - h * (h + 1) // 2
+    return 2.0 * S * R * pairs
+
+
+def signal(rng, R, n, p, rank, *, noise=0.05, spike_rate=3e-4):
+    """A spatially local field (``rank`` smooth bumps, so the covariance is
+    banded), small noise and rare +-5 spikes that the stages flag."""
+    j = np.arange(p)
+    centres = np.linspace(0.1, 0.9, rank) * p
+    U = np.exp(-0.5 * ((j[:, None] - centres[None, :]) / 1.2) ** 2)
+    U /= np.linalg.norm(U, axis=0)
+    scale = np.linspace(0.9, 0.4, rank)
+    g = rng.standard_normal((R, n, rank)).astype(np.float32) * scale
+    x = g @ U.T.astype(np.float32) + rng.standard_normal(p).astype(np.float32)
+    x += noise * rng.standard_normal(x.shape, dtype=np.float32)
+    spikes = rng.random(x.shape, dtype=np.float32) < spike_rate
+    x += spikes * np.where(rng.random(x.shape, dtype=np.float32) < 0.5,
+                           -5.0, 5.0).astype(np.float32)
+    return x.astype(np.float32)
+
+
+def compare(name, out, plain, rtol, atol):
+    err = (out - plain).abs()
+    ok = bool((err <= atol + rtol * plain.abs()).all())
+    print(f"   {name}: max_abs_err {err.max().item():.3e} "
+          f"(tol {atol:g} + {rtol:g}|plain|) {'ok' if ok else 'FAIL'}")
+    check(ok, f"{name} disagrees with its plain version")
+    return err.max().item()
+
+
+def profile_breakdown(run, top: int = 8) -> None:
+    """Where an engine run's device time goes: the kernels with the most
+    device time, and the device's busy share of the run's wall time (the
+    run is a repeat of the measured one, under torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    dev_time = lambda e: getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0.0))
+    rows = sorted((e for e in prof.key_averages() if dev_time(e) > 0),
+                  key=dev_time, reverse=True)
+    busy = sum(dev_time(e) for e in rows) / 1e6
+    print(f"   profile: device busy {busy:.3f} s of {wall:.3f} s wall "
+          f"({100 * busy / wall:.1f}%, idle {100 - 100 * busy / wall:.1f}%)")
+    for e in rows[:top]:
+        print(f"     {dev_time(e) / 1e3:10.1f} ms  {e.count:6d}x  "
+              f"{e.key[:90]}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "runs the port on a CUDA card", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: src/repro_torch is missing beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.serve.engine import StreamingPCAEngine, StreamRequest
+    from repro_torch.streaming import (CompressionConfig, DetectionConfig,
+                                       StreamConfig)
+    from repro_torch.streaming.driver import random_bases
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    phase("1 card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi)
+    kind = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]} device {kind}")
+
+    phase("2 build")
+    t0 = time.perf_counter()
+    logs = build.build_all()
+    print(f"   built {sorted(logs)} in {time.perf_counter() - t0:.1f} s "
+          f"into {build.BUILD_DIR.relative_to(ROOT)}")
+    for name, info in logs.items():
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"   {name}: {line.strip()}")
+
+    phase("3 kernels vs plain at slice width")
+    record: dict[str, dict] = {}
+    g = torch.Generator(device=dev).manual_seed(0)
+    S, R = SLOTS, K * N
+    x = torch.randn((S, K, N, P), device=dev, generator=g)
+    w = torch.rand((S, K), device=dev, generator=g) * 0.5 + 0.5
+    masks = (torch.rand((S, K, P), device=dev, generator=g) > 0.05).float()
+    basis = random_bases(S, P, Q, seed=1, device=dev)
+    mean = 0.1 * torch.randn((S, P), device=dev, generator=g)
+    il = torch.rand((S, Q), device=dev, generator=g) + 0.5
+    eps = 2.5                          # some of these N(0,1) readings flag
+    for stages in ("cm", "c", "m"):
+        wc, wm = "c" in stages, "m" in stages
+        run = lambda: ops.fused_stream_update(
+            x, w, basis, mean, il, halfwidth=H, epsilon=eps,
+            with_compress=wc, with_monitor=wm, mask=masks)
+        out = run()
+        torch.cuda.synchronize()
+        plain = ref.fused_stream(x, w, basis, mean, il, H, eps, masks)
+        errs = [compare(f"fused[{stages}] band", out[0], plain[0], 1e-4,
+                        1e-3),
+                compare(f"fused[{stages}] z", out[1], plain[1], 1e-4, 1e-3)]
+        if wc:
+            errs.append(compare(f"fused[{stages}] x_hat", out[2], plain[2],
+                                1e-4, 1e-3))
+            xv = x.reshape(S, R, P)
+            clear = ((xv - plain[2]).abs() - eps).abs() > 1e-3
+            bad = int(((out[3] != plain[3]) & clear).sum())
+            print(f"   fused[{stages}] flags: {int(out[3].sum())} set, "
+                  f"{bad} disagree away from eps (want 0)")
+            check(bad == 0, "fused flags disagree")
+        if wm:
+            errs.append(compare(f"fused[{stages}] t2", out[4], plain[4],
+                                1e-4, 1e-3))
+            errs.append(compare(f"fused[{stages}] spe", out[5], plain[5],
+                                1e-4, 1e-3))
+        ms = time_ms(run, 10)
+        plain_ms = time_ms(lambda: ref.fused_stream(x, w, basis, mean, il,
+                                                    H, eps, masks), 2, 1)
+        flops = fold_flops(S, R, P, H) + 2.0 * 2 * S * R * P * Q
+        nbytes = (4.0 * (x.numel() + w.numel() + masks.numel()
+                         + basis.numel() + mean.numel() + il.numel()
+                         + out[0].numel() + out[1].numel()
+                         + (S * R * P if wc else 0)          # x_hat
+                         + (2 * S * R if wm else 0))         # T2, SPE
+                  + (1.0 * S * R * P if wc else 0))          # bool flags
+        b_ms, b_by = bound(flops, nbytes)
+        print(f"   fused[{stages}] S={S} R={R} p={P} h={H} q={Q}: kernel "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e9:.3f} GB)")
+        if stages == "cm":
+            record["fused_stream"] = dict(max_abs_err=max(errs), ms=ms,
+                                          plain_ms=plain_ms, bound_ms=b_ms,
+                                          bound_by=b_by)
+        del out, plain
+    for p, Kb, Nb in ((P, K, N), (1021, 10, 25)):
+        xb = torch.randn((S, Kb, Nb, p), device=dev, generator=g)
+        wb = torch.rand((S, Kb), device=dev, generator=g)
+        mb = (torch.rand((S, Kb, p), device=dev, generator=g) > 0.05).float()
+        for name, m in (("band_fold", None), ("band_fold_masked", mb)):
+            run = lambda: ops.cov_band_update_chunk_batched(xb, wb, H,
+                                                            mask=m)
+            out = run()
+            torch.cuda.synchronize()
+            plain = ref.band_fold(xb, wb, H, m)
+            err = compare(f"{name} p={p} rows={Kb * Nb}", out, plain, 1e-4,
+                          1e-3)
+            ms = time_ms(run, 10)
+            plain_ms = time_ms(lambda: ref.band_fold(xb, wb, H, m), 2, 1)
+            nbytes = 4.0 * (xb.numel() + wb.numel() + out.numel()
+                            + (0 if m is None else m.numel()))
+            b_ms, b_by = bound(fold_flops(S, Kb * Nb, p, H), nbytes)
+            print(f"   {name} S={S} rows={Kb * Nb} p={p}: kernel {ms:.3f} "
+                  f"ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by})")
+            if p == P:
+                record[name] = dict(max_abs_err=err, ms=ms,
+                                    plain_ms=plain_ms, bound_ms=b_ms,
+                                    bound_by=b_by)
+        del xb, out, plain
+    del x, masks, basis
+    torch.cuda.empty_cache()
+
+    # a small engine on the card against the same engine on the CPU
+    small = StreamConfig(p=64, q=4, halfwidth=3, forgetting=0.98,
+                         warmup_rounds=3, drift_threshold=0.05,
+                         compression=CompressionConfig(epsilon=EPS),
+                         detection=DetectionConfig(alpha=1e-3,
+                                                   calib_rounds=2))
+    rng = np.random.default_rng(7)
+    sreqs = [signal(rng, r, 8, 64, 3) for r in (10, 13, 16, 9, 12, 14)]
+    live = np.ones((16, 64), np.float32)
+    live[6:, 20:28] = 0.0
+    bases = random_bases(4, 64, 4, seed=3, device="cpu")
+    results = {}
+    for where in ("cuda", "cpu"):
+        eng = StreamingPCAEngine(small, slots=4, chunk=4, device=where,
+                                 init_bases=bases)
+        reqs = [StreamRequest(rounds=a, liveness=live if i == 2 else None)
+                for i, a in enumerate(sreqs)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_done()
+        results[where] = [r.result for r in reqs]
+    for a, b in zip(results["cuda"], results["cpu"]):
+        check(a.rounds == b.rounds and a.refreshes == b.refreshes
+              and a.compression_extra_packets == b.compression_extra_packets
+              and a.detection_events == b.detection_events,
+              f"small engine counts differ card vs CPU: {a} {b}")
+        check(abs(a.comm_packets - b.comm_packets) <= 1e-5 * b.comm_packets
+              and abs(a.retained - b.retained) <= 1e-3 * abs(b.retained),
+              f"small engine books differ card vs CPU: {a} {b}")
+    print(f"   small engine (6 requests, 4 slots, p=64): card == CPU on "
+          f"rounds, refreshes, flags, alarms; comm_packets rtol 1e-5, "
+          f"retained rtol 1e-3")
+
+    phase("4 engine: compression + detection")
+    cfg = StreamConfig(p=P, q=Q, halfwidth=H, forgetting=0.99,
+                       warmup_rounds=K - 1, drift_threshold=0.05,
+                       compression=CompressionConfig(
+                           epsilon=EPS, emit_reconstruction=True),
+                       detection=DetectionConfig(alpha=1e-3,
+                                                 calib_rounds=2))
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(11)
+    data = [signal(rng, ROUNDS, N, P, 16) for _ in range(REQUESTS)]
+    sched = np.ones((ROUNDS, P), np.float32)
+    sched[ROUNDS // 2:, 100:140] = 0.0           # a death wave mid-stream
+    print(f"   made {REQUESTS} requests of {ROUNDS} rounds x {N} epochs x "
+          f"{P} sensors in {time.perf_counter() - t0:.1f} s")
+
+    def serve(config, rounds, label):
+        eng = StreamingPCAEngine(config, slots=SLOTS, chunk=K, seed=0,
+                                 device="cuda", telemetry=True)
+        reqs = [StreamRequest(rounds=d[:rounds],
+                              liveness=(sched[:rounds] if i >= SLOTS
+                                        else None))
+                for i, d in enumerate(data)]
+        for r in reqs:
+            eng.submit(r)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_counts()
+        t = time.perf_counter()
+        eng.run_until_done()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches, plain = dict(ops.LAUNCHES), dict(ops.PLAIN_CALLS)
+        steps = sum(1 for s in eng.telemetry.steps if s.live > 0)
+        folded = sum(s.rounds for s in eng.telemetry.steps)
+        res = [r.result for r in reqs]
+        print(f"   {label}: {steps} steps, {folded} rounds in {wall:.2f} s "
+              f"= {folded / wall:.1f} rounds/s ({folded * N / wall:.0f} "
+              f"epochs/s); refreshes {sum(r.refreshes for r in res)}; "
+              f"launches {launches}; plain calls {plain}; peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        check(all(r.done for r in reqs), f"{label}: not every request done")
+        check(all(r.rounds == rounds for r in res),
+              f"{label}: rounds streamed")
+        check(sum(plain.values()) == 0, f"{label}: plain path was taken")
+        for r in res:
+            check(r.components.shape == (P, Q)
+                  and np.isfinite(r.components).all()
+                  and np.isfinite([r.retained, r.comm_packets]).all()
+                  and r.refreshes >= 1 and r.retained > 0.0,
+                  f"{label}: bad result {r.retained} {r.refreshes}")
+        return steps, launches, res
+
+    steps, launches, res = serve(cfg, ROUNDS, "stages engine")
+    check(launches["fused_stream"] == steps,
+          f"fused launches {launches['fused_stream']} != steps {steps}")
+    worst = max(r.compression_max_err for r in res)
+    flagged = sum(r.compression_extra_packets for r in res)
+    alarms = sum(r.detection_events for r in res)
+    print(f"   worst sink error {worst:.4f} <= eps {EPS} over "
+          f"{flagged:.0f} flagged readings; {alarms:.0f} alarmed epochs")
+    check(worst <= EPS, "the eps guarantee was broken")
+    check(flagged > 0, "no reading flagged")
+    record["fused_stream"]["launches"] = launches["fused_stream"]
+    profile_breakdown(lambda: serve(cfg, ROUNDS, "profiled stages engine"))
+
+    phase("5 engine: band only")
+    band_cfg = StreamConfig(p=P, q=Q, halfwidth=H, forgetting=0.99,
+                            warmup_rounds=K - 1, drift_threshold=0.05)
+    steps, launches, _ = serve(band_cfg, 16, "band-only engine")
+    check(launches["band_fold"] >= 1 and launches["band_fold_masked"] >= 1
+          and launches["band_fold"] + launches["band_fold_masked"] == steps
+          and launches["fused_stream"] == 0,
+          f"band-only launches {launches} vs {steps} steps")
+    for name in ("band_fold", "band_fold_masked"):
+        record[name]["launches"] = launches[name]
+
+    print(f"   total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [
+        dict(name=name, route="cuda", source=KERNELS[name][0],
+             replaces=KERNELS[name][1], launches=rec["launches"],
+             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+             bound_by=rec["bound_by"], library_ms=None)
+        for name, rec in record.items()]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,66 @@
+// Banded, forgetting-weighted outer-product fold shared by band_fold.cu
+// (kernels 2 and 3) and fused_stream.cu (kernel 1).
+//
+//   band[s, k, i] = sum_r w[s, r / n] * (m x)[s, r, i] * (m x)[s, r, i + k - h]
+//
+// x is the slot's flattened chunk (R = K*n rows, p columns, fp32,
+// row-major; row r = t*n + e is epoch e of round t); w holds one weight
+// per ROUND; the optional 0/1 mask has one row per round ((K, p) liveness)
+// or, with per_reading set, one row per row of x ((K, n, p) dropout) — a
+// liveness mask is never broadcast to the chunk's size in device memory.
+//
+// One thread owns one output (k, i) and walks the rows in order, round by
+// round (so no integer division in the loop): no atomics, no cross-block
+// reduction, so the result is deterministic (the engine's replay
+// determinism depends on that).  The halo column i + k - h is read with a
+// bounds check instead of padding x in device memory.  Threads of a warp
+// share k and hold consecutive i, so both loads of a row are coalesced;
+// the 2h+1 blocks of one column tile re-read the same rows, which then
+// come from L1/L2.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace repro_torch {
+
+constexpr int kFoldThreads = 256;
+
+template <bool HAS_MASK>
+__device__ __forceinline__ void band_fold_block(
+    const float* __restrict__ x, const float* __restrict__ w,
+    const float* __restrict__ m, int K, int n, bool per_reading, int p,
+    int h, int block, float* __restrict__ band) {
+  const int col_blocks = (p + kFoldThreads - 1) / kFoldThreads;
+  const int k = block / col_blocks;
+  const int i = (block % col_blocks) * kFoldThreads + threadIdx.x;
+  if (i >= p) return;
+  const int j = i + k - h;
+  float acc = 0.0f;
+  if (j >= 0 && j < p) {
+    for (int t = 0; t < K; ++t) {
+      const float wt = w[t];
+      float mi = 1.0f, mj = 1.0f;
+      if (HAS_MASK && !per_reading) {
+        mi = m[(size_t)t * p + i];
+        mj = m[(size_t)t * p + j];
+      }
+      for (int e = 0; e < n; ++e) {
+        const size_t r = (size_t)t * n + e;
+        float xi = x[r * p + i];
+        float xj = x[r * p + j];
+        if (HAS_MASK && per_reading) {
+          mi = m[r * p + i];
+          mj = m[r * p + j];
+        }
+        if (HAS_MASK) {
+          xi *= mi;
+          xj *= mj;
+        }
+        acc += (xi * wt) * xj;
+      }
+    }
+  }
+  band[(size_t)k * p + i] = acc;
+}
+
+}  // namespace repro_torch

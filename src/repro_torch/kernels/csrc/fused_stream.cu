@@ -1,0 +1,214 @@
+// Kernel 1 of the port: the one-pass fused streaming chunk update.
+//
+// Replaces repro/kernels/fused_stream.py::fused_stream_pallas (pallas_call
+// at :206, body _fused_kernel :70).  One launch per engine step covers
+// every slot of the fleet (grid y) and has two parts along grid x:
+//
+//  * blocks [0, band_blocks): the masked, forgetting-weighted band fold,
+//    the same device function as kernels 2 and 3 (band_fold.cuh);
+//  * blocks [band_blocks, band_blocks + ceil(R / kRows)): the stages for
+//    kRows rows each, at the EXACT sensor count p —
+//      z   = ((x - mean) m) W                      (R, q)
+//      x^  = z W^T + mean                          (R, p)  [with_compress]
+//      flags = (|x - x^| > eps) & (m > 0), strict  (R, p)  [with_compress]
+//      T2  = sum_c z_c^2 inv_lam_c                 (R,)    [with_monitor]
+//      SPE = ||((x - mean) m - z W^T) m||^2        (R,)    [with_monitor]
+//    flags written as bytes (0/1, read as torch.bool), the rest as fp32.
+//    The mask is per round, (K, p): the chunk driver takes no per-reading
+//    dropout mask with stages.
+//
+// Design: a stage block stages its kRows centred, masked rows in dynamic
+// shared memory (kRows * p floats, 32 KB at p=1024; above 48 KB the launch
+// raises the block's limit with cudaFuncSetAttribute) and the kRows x q
+// scores beside them.  W (p x q, 128 KB per slot at the slice width) is
+// NOT staged: it is read through L1/L2 (__ldg), where every stage block of
+// the slot finds it.  Scores: one thread per (row, component), a warp
+// reading W row-contiguously.  Reconstruction: one warp per row, each lane
+// striding over sensors; SPE and T2 are warp-shuffle reductions in a fixed
+// order, so the outputs are deterministic.
+//
+// Bound at the slice shape (p=1024, h=128, q=32, R=256), per slot per
+// step: the band is symmetric (band[h-d, i] = band[h+d, i-d]), so the
+// fold needs only the unique pairs |i-j| <= h, (h+1)p - h(h+1)/2 =
+// 123,840 of them: 2*256*123,840 = 63 MFLOP, plus the two stage products
+// 2*2*256*1024*32 = 34 MFLOP, ~97 MFLOP; bytes: x 1 MB + mask 32 KB +
+// W 128 KB read, band 1.05 MB + x^ 1 MB + flags 256 KB + z 32 KB written,
+// ~3.5 MB.  At 256 slots that is 24.8 GFLOP against ~0.93 GB: 0.37 ms at
+// 67 TFLOP/s fp32 against 0.28 ms at 3.35 TB/s — bound by operations
+// (CUDA-core fp32; the fold has no tensor-core form in fp32 without TF32).
+// This kernel computes every in-range band entry, both halves: folding
+// half the band and mirroring it is later work.
+#include "band_fold.cuh"
+
+namespace repro_torch {
+
+constexpr int kRows = kFoldThreads / 32;   // one warp per staged row
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+template <bool HAS_MASK, bool WITH_C, bool WITH_M>
+__global__ void __launch_bounds__(kFoldThreads)
+fused_stream_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                    const float* __restrict__ m,
+                    const float* __restrict__ basis,
+                    const float* __restrict__ mean,
+                    const float* __restrict__ inv_lam, int K, int n,
+                    int p, int q, int h, float eps, int band_blocks,
+                    float* __restrict__ band, float* __restrict__ z,
+                    float* __restrict__ xh, unsigned char* __restrict__ flags,
+                    float* __restrict__ t2, float* __restrict__ spe) {
+  const size_t s = blockIdx.y;
+  const int R = K * n;
+  x += s * R * p;
+  if (HAS_MASK) m += s * K * (size_t)p;
+  if (blockIdx.x < band_blocks) {
+    band_fold_block<HAS_MASK>(x, w + s * K, m, K, n, false, p, h,
+                              blockIdx.x, band + s * (2 * h + 1) * p);
+    return;
+  }
+  basis += s * p * q;
+  mean += s * p;
+  inv_lam += s * q;
+  extern __shared__ float smem[];
+  float* xc_s = smem;               // (kRows, p) centred, masked rows
+  float* z_s = smem + kRows * p;    // (kRows, q) scores
+  const int r0 = (blockIdx.x - band_blocks) * kRows;
+  const int tid = threadIdx.x;
+
+  for (int idx = tid; idx < kRows * p; idx += blockDim.x) {
+    const int rr = idx / p, i = idx - rr * p, r = r0 + rr;
+    float v = 0.0f;
+    if (r < R) {
+      v = x[(size_t)r * p + i] - mean[i];
+      if (HAS_MASK) v *= m[(size_t)(r / n) * p + i];
+    }
+    xc_s[idx] = v;
+  }
+  __syncthreads();
+
+  for (int o = tid; o < kRows * q; o += blockDim.x) {
+    const int rr = o / q, c = o - rr * q;
+    const float* xr = xc_s + rr * p;
+    float acc = 0.0f;
+    for (int i = 0; i < p; ++i)
+      acc += xr[i] * __ldg(basis + (size_t)i * q + c);
+    z_s[o] = acc;
+    if (r0 + rr < R) z[((size_t)s * R + r0 + rr) * q + c] = acc;
+  }
+  __syncthreads();
+
+  const int warp = tid >> 5, lane = tid & 31;
+  const int r = r0 + warp;
+  if (r >= R) return;
+  const float* zr = z_s + warp * q;
+  const float* xr = xc_s + warp * p;
+  const size_t row = (s * R + r) * (size_t)p;
+  const float* mr = HAS_MASK ? m + (size_t)(r / n) * p : nullptr;
+  float spe_acc = 0.0f;
+  for (int i = lane; i < p; i += 32) {
+    const float* wi = basis + (size_t)i * q;
+    float xh_r = 0.0f;
+    for (int c = 0; c < q; ++c) xh_r += zr[c] * __ldg(wi + c);
+    const float mv = HAS_MASK ? mr[i] : 1.0f;
+    if (WITH_C) {
+      const float xhv = xh_r + mean[i];
+      const float err = fabsf(x[(size_t)r * p + i] - xhv);
+      xh[row + i] = xhv;
+      flags[row + i] = (err > eps && mv > 0.0f) ? 1 : 0;
+    }
+    if (WITH_M) {
+      const float res = (xr[i] - xh_r) * mv;
+      spe_acc += res * res;
+    }
+  }
+  if (WITH_M) {
+    float t2_acc = 0.0f;
+    for (int c = lane; c < q; c += 32) t2_acc += zr[c] * zr[c] * inv_lam[c];
+    t2_acc = warp_sum(t2_acc);
+    spe_acc = warp_sum(spe_acc);
+    if (lane == 0) {
+      t2[s * R + r] = t2_acc;
+      spe[s * R + r] = spe_acc;
+    }
+  }
+}
+
+template <bool HAS_MASK, bool WITH_C, bool WITH_M>
+static int launch(const float* x, const float* w, const float* m,
+                  const float* basis, const float* mean,
+                  const float* inv_lam, int S, int K, int n, int p, int q,
+                  int h, float eps, float* band, float* z, float* xh,
+                  unsigned char* flags, float* t2, float* spe,
+                  void* stream) {
+  const int R = K * n;
+  const int col_blocks = (p + kFoldThreads - 1) / kFoldThreads;
+  const int band_blocks = col_blocks * (2 * h + 1);
+  const int stage_blocks = (R + kRows - 1) / kRows;
+  const size_t smem = sizeof(float) * (size_t)kRows * (p + q);
+  auto kernel = fused_stream_kernel<HAS_MASK, WITH_C, WITH_M>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  dim3 grid(band_blocks + stage_blocks, S);
+  kernel<<<grid, kFoldThreads, smem, (cudaStream_t)stream>>>(
+      x, w, m, basis, mean, inv_lam, K, n, p, q, h, eps, band_blocks, band,
+      z, xh, flags, t2, spe);
+  return (int)cudaGetLastError();
+}
+
+template <bool HAS_MASK>
+static int dispatch(int with_c, int with_m, const float* x, const float* w,
+                    const float* m, const float* basis, const float* mean,
+                    const float* inv_lam, int S, int K, int n, int p,
+                    int q, int h, float eps, float* band, float* z,
+                    float* xh, unsigned char* flags, float* t2, float* spe,
+                    void* stream) {
+  if (with_c && with_m)
+    return launch<HAS_MASK, true, true>(
+        x, w, m, basis, mean, inv_lam, S, K, n, p, q, h, eps, band, z, xh,
+        flags, t2, spe, stream);
+  if (with_c)
+    return launch<HAS_MASK, true, false>(
+        x, w, m, basis, mean, inv_lam, S, K, n, p, q, h, eps, band, z, xh,
+        flags, t2, spe, stream);
+  if (with_m)
+    return launch<HAS_MASK, false, true>(
+        x, w, m, basis, mean, inv_lam, S, K, n, p, q, h, eps, band, z, xh,
+        flags, t2, spe, stream);
+  return (int)cudaErrorInvalidValue;   // band-only chunks use band_fold.cu
+}
+
+}  // namespace repro_torch
+
+extern "C" {
+
+// x (S, K*n, p); w (S, K); m (S, K, p) per-round liveness or NULL;
+// basis (S, p, q); mean (S, p); inv_lam (S, q).  Outputs band (S, 2h+1, p),
+// z (S, K*n, q), xh (S, K*n, p) fp32 and flags (S, K*n, p) bytes when
+// with_compress, t2/spe (S, K*n) when with_monitor (NULL otherwise).
+// fp32 unless stated, contiguous.
+int fused_stream_f32(const float* x, const float* w, const float* m,
+                     const float* basis, const float* mean,
+                     const float* inv_lam, int S, int K, int n, int p, int q,
+                     int h, float eps, int with_compress, int with_monitor,
+                     float* band, float* z, float* xh, unsigned char* flags,
+                     float* t2, float* spe, void* stream) {
+  if (m != nullptr)
+    return repro_torch::dispatch<true>(with_compress, with_monitor, x, w, m,
+                                       basis, mean, inv_lam, S, K, n, p, q, h,
+                                       eps, band, z, xh, flags, t2, spe,
+                                       stream);
+  return repro_torch::dispatch<false>(with_compress, with_monitor, x, w, m,
+                                      basis, mean, inv_lam, S, K, n, p, q, h,
+                                      eps, band, z, xh, flags, t2, spe,
+                                      stream);
+}
+
+}  // extern "C"

@@ -1,0 +1,109 @@
+"""Plain PyTorch versions of the port's kernels.
+
+Each function is the definition of one CUDA kernel in ``csrc/`` written
+with ordinary tensor ops; the wrappers in :mod:`repro_torch.kernels.ops`
+take it for CPU tensors, and ``chip_smoke.py`` holds each kernel against
+it on the card.  Counterpart of ``repro.kernels.ref``.
+
+Shapes: a chunk is ``xs`` (..., K, n, p) — K rounds of n epochs each —
+with per-round weights (..., K); a mask is (..., K, p) per-round liveness
+or (..., K, n, p) per-reading dropout.  Leading axes (the fleet's slot
+axis) broadcast through every function.  Band layout:
+``band[..., k, i] = C[i, i + k - h]``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.covariance import banded_matmul_ref
+
+__all__ = ["band_fold", "cov_band_update_chunk",
+           "cov_band_update_chunk_masked", "fused_stages", "fused_stream",
+           "banded_matmul"]
+
+
+def _row_mask(masks: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """A (..., K, p) or (..., K, n, p) mask as a (..., K, n, p) tensor."""
+    masks = masks.to(xs.dtype)
+    if masks.dim() == xs.dim() - 1:
+        masks = masks.unsqueeze(-2)
+    return masks.expand(xs.shape)
+
+
+def band_fold(xs: torch.Tensor, weights: torch.Tensor, halfwidth: int,
+              masks: torch.Tensor | None = None) -> torch.Tensor:
+    """``delta[..., k, i] = sum_{t,r} w[t] (m x)[t,r,i] (m x)[t,r,i+k-h]``:
+    the forgetting-weighted banded outer-product sum of a chunk (Eq. 10,
+    masked and weighted), one shifted product per diagonal."""
+    h = halfwidth
+    *lead, K, n, p = xs.shape
+    xm = xs.float() if masks is None else xs.float() * _row_mask(masks, xs)
+    xw = xm * weights.float()[..., :, None, None]
+    xm = xm.reshape(*lead, K * n, p)
+    xw = xw.reshape(*lead, K * n, p)
+    band = xs.new_zeros((*lead, 2 * h + 1, p), dtype=torch.float32)
+    for k in range(2 * h + 1):
+        off = k - h
+        lo, hi = max(0, -off), min(p, p - off)
+        if hi > lo:
+            band[..., k, lo:hi] = (xw[..., lo:hi]
+                                   * xm[..., lo + off:hi + off]).sum(-2)
+    return band
+
+
+def cov_band_update_chunk(xs: torch.Tensor, weights: torch.Tensor,
+                          halfwidth: int) -> torch.Tensor:
+    """Multi-round weighted Eq. 10 (``repro.kernels.ref`` line 70)."""
+    return band_fold(xs, weights, halfwidth)
+
+
+def cov_band_update_chunk_masked(xs: torch.Tensor, masks: torch.Tensor,
+                                 weights: torch.Tensor,
+                                 halfwidth: int) -> torch.Tensor:
+    """Masked chunk variant: ``delta = sum_t w[t] band(xs[t] * m[t])``."""
+    return band_fold(xs, weights, halfwidth, masks)
+
+
+def fused_stages(xs: torch.Tensor, w: torch.Tensor, mean: torch.Tensor,
+                 inv_lam: torch.Tensor, epsilon: float,
+                 masks: torch.Tensor | None = None,
+                 ) -> tuple[torch.Tensor, ...]:
+    """The per-row stages of the fused chunk pass, at the exact width p.
+
+    ``Z = ((X - mean) m) W``; ``X_hat = Z W^T + mean``;
+    ``flags = (|X - X_hat| > eps) & m`` (strict, bool);
+    ``T2 = sum_c Z_c^2 inv_lam_c``; ``SPE = ||((X - mean) m - Z W^T) m||^2``.
+    Returns ``(z, x_hat, flags, t2, spe)`` over the flattened rows
+    (..., K*n, ...)."""
+    *lead, K, n, p = xs.shape
+    x = xs.float().reshape(*lead, K * n, p)
+    m = (torch.ones_like(x) if masks is None
+         else _row_mask(masks, xs).reshape(*lead, K * n, p))
+    w = w.float()
+    mean = mean.float()[..., None, :]
+    xc = (x - mean) * m
+    z = xc @ w
+    xh_r = z @ w.transpose(-1, -2)
+    xh = xh_r + mean
+    flags = ((x - xh).abs() > epsilon) & (m > 0.0)
+    resid = (xc - xh_r) * m
+    t2 = (z * z * inv_lam.float()[..., None, :]).sum(-1)
+    spe = (resid * resid).sum(-1)
+    return z, xh, flags, t2, spe
+
+
+def fused_stream(xs: torch.Tensor, weights: torch.Tensor, w: torch.Tensor,
+                 mean: torch.Tensor, inv_lam: torch.Tensor, halfwidth: int,
+                 epsilon: float, masks: torch.Tensor | None = None,
+                 ) -> tuple[torch.Tensor, ...]:
+    """The one-pass fused chunk epoch, unfused: the band fold of
+    :func:`band_fold` plus :func:`fused_stages` — returns
+    ``(band, z, x_hat, flags, t2, spe)`` (``repro.kernels.ref`` line 156)."""
+    band = band_fold(xs, weights, halfwidth, masks)
+    return (band,) + fused_stages(xs, w, mean, inv_lam, epsilon, masks)
+
+
+def banded_matmul(band: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """``Y[i, c] = sum_k band[k, i] V[i + k - h, c]`` (blocked PIM form)."""
+    return banded_matmul_ref(band, V)

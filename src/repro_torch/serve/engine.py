@@ -1,0 +1,471 @@
+"""Streaming-PCA fleet engine (counterpart of
+``repro.serve.engine.StreamingPCAEngine``), synchronous form.
+
+Each slot holds one live sensor network.  Every engine step stages each
+active slot's next K rounds in ONE upload, folds them through
+:func:`repro_torch.streaming.driver.fleet_chunk_step` — one fused-kernel
+launch for the whole fleet when a stage is configured, one band-kernel
+launch otherwise — and retires exhausted streams with their final basis
+and Table-1 bill.  Admission runs through the priority queue
+(:mod:`repro_torch.serve.queue`), health through a per-slot
+:class:`HealthMonitor` on a logical clock (one tick per step), and the
+fleet mesh is re-planned by :func:`plan_mesh` when the live count
+changes — all as in the reference.
+
+The fleet state stays on the device and is replaced every step; the books
+accumulate on the device, and the only device-to-host copies are the
+retirement summaries.  Not ported yet: ``pipeline=True`` (double-buffered
+staging) and ``fleet_summary`` (the two-level merge) raise
+``NotImplementedError``; the LM ``Engine`` of the reference module has no
+counterpart here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core.faults import expected_transmissions
+from repro_torch.device import resolve_device
+from repro_torch.runtime.elastic import RescalePlan, plan_mesh
+from repro_torch.runtime.health import HealthMonitor, StragglerPolicy
+from repro_torch.serve.queue import AdmissionQueue, QueuePolicy
+from repro_torch.serve.telemetry import StepRecord, TelemetryRecorder
+from repro_torch.streaming.detector import detection_packet_split
+from repro_torch.streaming.driver import (StreamConfig, StreamState,
+                                          fleet_chunk_step, random_bases,
+                                          stream_init, tree_map)
+from repro_torch.streaming.hierarchy import region_energies
+from repro_torch.streaming.online_cov import (online_estimate,
+                                              online_total_variance)
+from repro_torch.streaming.scheduler import retained_fraction
+
+__all__ = ["StreamRequest", "StreamResult", "StreamingPCAEngine"]
+
+
+@dataclasses.dataclass(eq=False)   # identity equality: requests hold arrays
+class StreamRequest:
+    """One live sensor network: a finite stream of measurement rounds
+    (fields as in the reference)."""
+
+    rounds: np.ndarray               # (R, n, p) float32 measurement rounds
+    liveness: np.ndarray | None = None   # (R, p) per-round sensor liveness
+    region: int = 0                  # region id in the two-level fleet
+    priority: int = 0                # admission priority (higher first)
+    tenant: str | None = None        # quota bucket (None: unmetered)
+    result: "StreamResult | None" = None
+    done: bool = False
+    retirements: list = dataclasses.field(default_factory=list)
+    resume_at: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamResult:
+    """Final per-network summary returned when a stream retires."""
+
+    components: np.ndarray           # (p, q) final basis
+    retained: float                  # rho of the final basis on the live cov
+    refreshes: int                   # scheduled basis recomputations
+    comm_packets: float              # Table-1 communication bill (packets)
+    rounds: int                      # rounds streamed
+    reason: str = "completed"        # "completed" | "dead"
+    energies: np.ndarray | None = None    # (q,) subspace energies
+    total_variance: float | None = None   # trace(C) partial
+    compression_max_err: float | None = None
+    compression_extra_packets: float | None = None
+    compression_bits_on_air: float | None = None
+    detection_events: float | None = None
+    detection_alarm_packets: float | None = None
+    detection_t2_threshold: float | None = None
+    detection_spe_threshold: float | None = None
+
+
+@dataclasses.dataclass
+class _StagedChunk:
+    batch: torch.Tensor              # (slots, K, n, p) device copy
+    masks: torch.Tensor | None       # (slots, K, p) or None (no schedules)
+    rv: torch.Tensor                 # (slots, K) round validity
+    start: np.ndarray                # cursor snapshot at staging time
+    consumed: np.ndarray             # rounds each slot will fold
+
+
+class StreamingPCAEngine:
+    """Continuous batching over sensor-network streams, fault-aware.
+
+    Parameters as in the reference, plus ``init_bases`` — the (slots, p, q)
+    orthonormal bases every slot starts (and restarts) from, drawn from
+    ``torch.Generator(seed)`` when None — and ``device`` (``cuda`` unless
+    the caller asks for another; raises without a card).
+    """
+
+    def __init__(self, cfg: StreamConfig, slots: int = 8, seed: int = 0,
+                 health_policy: StragglerPolicy | None = None,
+                 min_alive_fraction: float = 0.25, chunk: int = 1,
+                 pipeline: bool = False,
+                 queue: QueuePolicy | AdmissionQueue | None = None,
+                 telemetry: TelemetryRecorder | bool | None = None, *,
+                 init_bases: torch.Tensor | None = None,
+                 device: str | torch.device = "cuda"):
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        if pipeline:
+            raise NotImplementedError(
+                "pipeline=True (double-buffered staging) is not ported yet")
+        cfg.check_ported()
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.slots = slots
+        self.chunk = chunk
+        self.min_alive_fraction = min_alive_fraction
+        self.health_policy = health_policy or StragglerPolicy(
+            stall_timeout=2.5)          # logical steps, not seconds
+        if init_bases is None:
+            init_bases = random_bases(slots, cfg.p, cfg.q, seed,
+                                      device=self.device)
+        # every admission re-initializes its slot from this fresh fleet
+        self._fresh_states: StreamState = stream_init(
+            cfg, slots, init_bases=init_bases, device=self.device)
+        self.states: StreamState = tree_map(torch.clone, self._fresh_states)
+        self.active: list[StreamRequest | None] = [None] * slots
+        self.cursor = np.zeros(slots, np.int64)
+        self.queue: AdmissionQueue = (
+            queue if isinstance(queue, AdmissionQueue)
+            else AdmissionQueue(queue))
+        self.telemetry: TelemetryRecorder | None = (
+            TelemetryRecorder() if telemetry is True else telemetry or None)
+        self.slot_region = np.full(slots, -1, np.int64)
+        self.region_results: dict[int, StreamResult] = {}
+        self._n: int | None = None
+        self._host_buf: np.ndarray | None = None
+        self._mask_buf: np.ndarray | None = None
+        self.pulls = {"hot": 0, "retire": 0}
+        zeros = lambda: torch.zeros(slots, device=self.device)
+        self._comp_max_err, self._comp_extras, self._comp_bits = (
+            zeros(), zeros(), zeros())
+        self.last_compression = None
+        self._det_events, self._det_alarm_packets = zeros(), zeros()
+        self.last_detection = None
+        if cfg.detection is not None:
+            _, per_alarm = detection_packet_split(cfg.q, cfg.c_max)
+            self._det_alarm_price = per_alarm * expected_transmissions(
+                cfg.link_loss, cfg.max_retries)
+        self._clock = 0
+        self.health: list[HealthMonitor | None] = [None] * slots
+        self.retired_log: list[tuple[StreamRequest, str]] = []
+        self._last_live = slots
+        self.plan: RescalePlan = plan_mesh(max(1, slots), prefer_model=1,
+                                           global_batch=max(1, slots))
+        self.plan_history: list[RescalePlan] = [self.plan]
+
+    # -- request lifecycle ----------------------------------------------------
+    def submit(self, req: StreamRequest) -> bool:
+        """Enqueue a stream; returns False when the bounded queue rejected
+        it (backpressure — the caller owns the retry)."""
+        r, n, p = req.rounds.shape
+        if p != self.cfg.p:
+            raise ValueError(f"stream p={p} != engine p={self.cfg.p}")
+        if r == 0:
+            raise ValueError("stream has no rounds")
+        if req.liveness is not None and req.liveness.shape != (r, p):
+            raise ValueError(
+                f"liveness shape {req.liveness.shape} != {(r, p)}")
+        if self._n is None:
+            self._n = n
+        elif n != self._n:
+            raise ValueError(f"stream n={n} != engine n={self._n}")
+        ok = self.queue.submit(req, priority=req.priority, tenant=req.tenant)
+        if not ok and self.telemetry is not None:
+            self.telemetry.record_event("rejected", step=self._clock,
+                                        priority=req.priority,
+                                        tenant=req.tenant,
+                                        queue_depth=len(self.queue))
+        return ok
+
+    def _tenant_load(self) -> dict:
+        load: dict = {}
+        for req in self.active:
+            if req is not None and req.tenant is not None:
+                load[req.tenant] = load.get(req.tenant, 0) + 1
+        return load
+
+    def _admit(self) -> int:
+        """Fill empty slots from the queue (priority order, tenant quotas),
+        then reset every admitted slot's device state in one select per
+        state leaf.  Returns the number admitted."""
+        newly: list[int] = []
+        load = self._tenant_load()
+        for slot in range(self.slots):
+            if self.active[slot] is not None:
+                continue
+            entry = self.queue.pop_admissible(load)
+            if entry is None:
+                break
+            req = entry.req
+            self.active[slot] = req
+            self.cursor[slot] = req.resume_at
+            self.slot_region[slot] = req.region
+            if req.tenant is not None:
+                load[req.tenant] = load.get(req.tenant, 0) + 1
+            newly.append(slot)
+            monitor = HealthMonitor(self.health_policy,
+                                    clock=lambda: float(self._clock))
+            monitor.heartbeat(step=self._clock, duration=1.0)
+            self.health[slot] = monitor
+            if self.telemetry is not None:
+                self.telemetry.record_event(
+                    "admitted", step=self._clock, slot=slot,
+                    priority=entry.priority, tenant=entry.tenant,
+                    resume_at=int(req.resume_at))
+        if not newly:
+            return 0
+        mask = np.zeros(self.slots, bool)
+        mask[newly] = True
+        mj = torch.tensor(mask, device=self.device)
+
+        def splice(full, fresh):
+            sel = mj.reshape((self.slots,) + (1,) * (fresh.dim() - 1))
+            return torch.where(sel, fresh, full)
+
+        self.states = tree_map(splice, self.states, self._fresh_states)
+        zero = torch.zeros((), device=self.device)
+        if self.cfg.compression is not None:
+            self._comp_max_err = torch.where(mj, zero, self._comp_max_err)
+            self._comp_extras = torch.where(mj, zero, self._comp_extras)
+            self._comp_bits = torch.where(mj, zero, self._comp_bits)
+        if self.cfg.detection is not None:
+            self._det_events = torch.where(mj, zero, self._det_events)
+            self._det_alarm_packets = torch.where(mj, zero,
+                                                  self._det_alarm_packets)
+        return len(newly)
+
+    # -- retirement -----------------------------------------------------------
+    def _result_slices(self, slot: int) -> dict:
+        """The retiring slot's summary as device tensors, computed before
+        any admission can overwrite the slot."""
+        st = tree_map(lambda a: a[slot], self.states)
+        out = dict(
+            W=st.sched.W,
+            rho=retained_fraction(online_estimate(st.cov), st.sched.W,
+                                  online_total_variance(st.cov)),
+            refreshes=st.sched.refreshes, comm_packets=st.sched.comm_packets,
+            rounds=st.rounds)
+        out["lam"], out["total"] = region_energies(st)
+        if self.cfg.compression is not None:
+            out.update(comp_max=self._comp_max_err[slot],
+                       comp_extra=self._comp_extras[slot],
+                       comp_bits=self._comp_bits[slot])
+        if self.cfg.detection is not None:
+            out.update(det_events=self._det_events[slot],
+                       det_alarms=self._det_alarm_packets[slot],
+                       det_t2=st.det.t2_threshold,
+                       det_spe=st.det.spe_threshold)
+        return out
+
+    def _finalize_result(self, slices: dict, reason: str) -> StreamResult:
+        """Copy a retiring slot's summary to the host in ONE transfer — the
+        loop's only device-to-host copy — and build its StreamResult (the
+        integer fields, round and refresh counts, are exact in fp32)."""
+        self.pulls["retire"] += 1
+        flat = torch.cat([v.reshape(-1).to(torch.float32)
+                          for v in slices.values()]).cpu().numpy()
+        out, at = {}, 0
+        for k, v in slices.items():
+            out[k] = flat[at:at + v.numel()].reshape(tuple(v.shape))
+            at += v.numel()
+        extra: dict = {}
+        if self.cfg.compression is not None:
+            extra = dict(
+                compression_max_err=float(out["comp_max"]),
+                compression_extra_packets=float(out["comp_extra"]),
+                compression_bits_on_air=float(out["comp_bits"]))
+        if self.cfg.detection is not None:
+            extra.update(
+                detection_events=float(out["det_events"]),
+                detection_alarm_packets=float(out["det_alarms"]),
+                detection_t2_threshold=float(out["det_t2"]),
+                detection_spe_threshold=float(out["det_spe"]))
+        return StreamResult(
+            components=out["W"], retained=float(out["rho"]),
+            refreshes=int(out["refreshes"]),
+            comm_packets=float(out["comm_packets"]),
+            rounds=int(out["rounds"]), reason=reason,
+            energies=out["lam"], total_variance=float(out["total"]),
+            **extra)
+
+    def _begin_retire(self, slot: int, reason: str) -> dict:
+        """Snapshot the slot's summary, free the slot, and — for a dead
+        retirement whose liveness schedule shows a revival — re-queue the
+        continuation (exempt from the queue bound)."""
+        req = self.active[slot]
+        pending = dict(req=req, reason=reason, slot=slot,
+                       region=int(self.slot_region[slot]),
+                       slices=self._result_slices(slot), revive=None)
+        self.active[slot] = None
+        self.slot_region[slot] = -1
+        self.health[slot] = None
+        if reason == "dead" and req.liveness is not None:
+            frac = req.liveness[int(self.cursor[slot]):].mean(axis=1)
+            ahead = np.nonzero(frac >= self.min_alive_fraction)[0]
+            if ahead.size:
+                pending["revive"] = int(self.cursor[slot]) + int(ahead[0])
+                req.resume_at = pending["revive"]
+                self.queue.submit(req, priority=req.priority,
+                                  tenant=req.tenant, internal=True)
+        return pending
+
+    def _finish_retire(self, pending: dict) -> None:
+        req, reason = pending["req"], pending["reason"]
+        result = self._finalize_result(pending["slices"], reason)
+        self.retired_log.append((req, reason))
+        if reason == "dead" and pending["revive"] is not None:
+            req.retirements.append(result)
+        else:
+            req.result = result
+            req.done = True
+            self.region_results[pending["region"]] = result
+        if self.telemetry is not None:
+            self.telemetry.record_event(
+                "retired", step=self._clock, slot=pending["slot"],
+                reason=reason, tenant=req.tenant,
+                rounds=result.rounds, comm_packets=result.comm_packets,
+                refreshes=result.refreshes, revive=pending["revive"])
+
+    def _replan(self, n_live: int) -> None:
+        """Elastic fleet mesh: one virtual device per live network."""
+        if n_live != self._last_live and n_live > 0:
+            self.plan = plan_mesh(n_live, prefer_model=1,
+                                  global_batch=n_live)
+            self.plan_history.append(self.plan)
+        self._last_live = n_live
+
+    # -- staging --------------------------------------------------------------
+    def _stage(self) -> _StagedChunk:
+        """Copy every active slot's next K rounds into the host buffer and
+        upload it (an owned device copy).  Idle slots carry a zero chunk
+        with zero round validity; the mask batch is built only when some
+        active request carries a liveness schedule."""
+        K, p = self.chunk, self.cfg.p
+        if self._host_buf is None:
+            self._host_buf = np.zeros((self.slots, K, self._n, p), np.float32)
+            self._mask_buf = np.ones((self.slots, K, p), np.float32)
+        buf = self._host_buf
+        rv = np.zeros((self.slots, K), np.float32)
+        consumed = np.zeros(self.slots, np.int64)
+        start = self.cursor.copy()
+        any_schedule = False
+        for s in range(self.slots):
+            req = self.active[s]
+            if req is None:
+                buf[s] = 0.0
+                continue
+            c = int(start[s])
+            take = min(K, req.rounds.shape[0] - c)
+            buf[s, :take] = req.rounds[c:c + take]
+            buf[s, take:] = 0.0
+            rv[s, :take] = 1.0
+            consumed[s] = take
+            any_schedule |= req.liveness is not None
+        masks = None
+        if any_schedule:
+            mbuf = self._mask_buf
+            for s in range(self.slots):
+                req = self.active[s]
+                mbuf[s] = 1.0
+                if req is not None and req.liveness is not None:
+                    c, take = int(start[s]), int(consumed[s])
+                    mbuf[s, :take] = req.liveness[c:c + take]
+            masks = self._upload(mbuf)
+        return _StagedChunk(batch=self._upload(buf), masks=masks,
+                            rv=self._upload(rv), start=start,
+                            consumed=consumed)
+
+    def _upload(self, host: np.ndarray) -> torch.Tensor:
+        """An owned device copy of a staging buffer (one copy; on the CPU
+        a clone, so the tensor never aliases the buffer refilled next
+        step)."""
+        t = torch.from_numpy(host)
+        return t.to(self.device) if self.device.type != "cpu" else t.clone()
+
+    def _accumulate_books(self, metrics, live: list[int]) -> None:
+        """Fold the step's stage outputs into the per-slot device accounts;
+        idle slots are selected out (where, not multiply)."""
+        lm = np.zeros(self.slots, bool)
+        lm[live] = True
+        lmj = torch.tensor(lm, device=self.device)
+        zero = torch.zeros((), device=self.device)
+        if self.cfg.compression is not None:
+            comp = metrics.compression
+            self.last_compression = comp
+            self._comp_max_err = torch.maximum(
+                self._comp_max_err, torch.where(lmj, comp.max_err, zero))
+            self._comp_extras = self._comp_extras + torch.where(
+                lmj, comp.extra_packets, zero)
+            self._comp_bits = self._comp_bits + torch.where(
+                lmj, comp.bits_on_air, zero)
+        if self.cfg.detection is not None:
+            det = metrics.detection
+            self.last_detection = det
+            alarms = torch.where(lmj, det.alarms, zero)
+            self._det_events = self._det_events + alarms
+            self._det_alarm_packets = (self._det_alarm_packets
+                                       + alarms * self._det_alarm_price)
+
+    # -- main loop ------------------------------------------------------------
+    def step(self) -> int:
+        """Fold the next K-round chunk for every active slot; returns the
+        number of active slots."""
+        t0 = time.perf_counter()
+        admitted = self._admit()
+        self._clock += 1
+        live = [s for s in range(self.slots) if self.active[s]]
+        self._replan(len(live))
+        if not live:
+            if self.telemetry is not None:
+                self.telemetry.record_step(StepRecord(
+                    step=self._clock, wall_s=time.perf_counter() - t0,
+                    stage_s=0.0, overlap_s=0.0, prestaged=False, live=0,
+                    rounds=0, queue_depth=len(self.queue),
+                    admitted=admitted, retired=0))
+            return 0
+        t_s = time.perf_counter()
+        staged = self._stage()
+        stage_s = time.perf_counter() - t_s
+        self.states, metrics = fleet_chunk_step(
+            self.cfg, self.states, staged.batch, staged.masks, staged.rv)
+        self._accumulate_books(metrics, live)
+        pendings: list[dict] = []
+        for s in live:
+            req = self.active[s]
+            c, take = int(staged.start[s]), int(staged.consumed[s])
+            frac = 1.0 if req.liveness is None \
+                else float(req.liveness[c:c + take].mean())
+            if frac >= self.min_alive_fraction:
+                self.health[s].heartbeat(step=self._clock, duration=1.0)
+            self.cursor[s] += take
+            if self.cursor[s] >= req.rounds.shape[0]:
+                pendings.append(self._begin_retire(s, "completed"))
+            elif self.health[s].stalled():
+                pendings.append(self._begin_retire(s, "dead"))
+        for pending in pendings:
+            self._finish_retire(pending)
+        if self.telemetry is not None:
+            self.telemetry.record_step(StepRecord(
+                step=self._clock, wall_s=time.perf_counter() - t0,
+                stage_s=stage_s, overlap_s=0.0, prestaged=False,
+                live=len(live), rounds=int(staged.consumed.sum()),
+                queue_depth=len(self.queue), admitted=admitted,
+                retired=len(pendings)))
+        return len(live)
+
+    def run_until_done(self, max_steps: int = 100_000) -> None:
+        for _ in range(max_steps):
+            if self.step() == 0 and not self.queue:
+                return
+
+    def fleet_summary(self, q_fleet: int | None = None,
+                      c_regions: int | None = None):
+        raise NotImplementedError(
+            "fleet_summary (the two-level merge_fleet) is not ported yet")

@@ -1,0 +1,385 @@
+"""Chunked stream drivers (counterpart of ``repro.streaming.driver``).
+
+* :func:`fleet_chunk_step` — K rounds for EVERY slot of a fleet in one
+  pass: the chunk fold (one kernel launch for the fleet), one scheduler
+  decision per slot, the compression/detection stages and the per-epoch
+  Table-1 books.  It replaces the reference's vmapped, jitted
+  ``engine_chunk_step_fn``: the slot axis is written out and the kernels
+  take it as a grid axis.
+* :func:`chunk_stream_step` — the same for ONE network (a fleet of one).
+* :func:`chunked_stream_run` — a Python loop of chunk steps over a
+  (rounds, n, p) stream, with the tail padded by invalid rounds.
+
+With a compression and/or detection stage configured the chunk body is
+the fused kernel (:func:`repro_torch.kernels.ops.fused_stream_update`):
+one launch emits the band delta and the stage outputs against the
+pre-decision basis; where the scheduler then fires, the stages are
+recomputed against the rotated basis in plain torch and selected per slot
+with ``torch.where``.  A band-only configuration folds through the band
+kernel (:func:`repro_torch.streaming.online_cov.online_update_chunk`).
+
+Not ported yet (they raise ``NotImplementedError`` naming the kernel they
+need): the split stage path (``fused=False`` with stages — kernels
+``supervised_compress_pallas``/``pca_monitor_pallas``), quantized scores
+(``score_bits > 0`` — ``pca_project_pallas``/``pca_reconstruct_pallas``),
+``precision="bf16"``, per-reading dropout masks with stages, and the
+per-round ``stream_step``/``stream_run`` drivers.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core.faults import expected_transmissions
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.streaming.compressor import (CompressionConfig,
+                                              RoundCompression,
+                                              compression_books,
+                                              compression_round_cost,
+                                              epoch_packet_split)
+from repro_torch.streaming.detector import (DetectionConfig, DetectorState,
+                                            RoundDetection, detect_apply,
+                                            detection_packet_split,
+                                            detector_init, inv_lambda,
+                                            row_liveness)
+from repro_torch.streaming.online_cov import (OnlineCovariance,
+                                              online_apply_chunk,
+                                              online_chunk_stats, online_init,
+                                              online_update_chunk)
+from repro_torch.streaming.scheduler import RecomputeScheduler, SchedulerState
+
+__all__ = ["StreamConfig", "StreamState", "RoundMetrics", "random_bases",
+           "stream_init", "fleet_chunk_step", "chunk_stream_step",
+           "chunked_stream_run", "tree_map"]
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamConfig:
+    """Static configuration shared by every network of a fleet (the same
+    fields as ``repro.streaming.driver.StreamConfig``; ``interpret`` is
+    accepted and ignored — there is no interpret mode on this side)."""
+
+    p: int
+    q: int
+    halfwidth: int
+    forgetting: float = 1.0
+    drift_threshold: float = 0.02
+    refresh_iters: int = 8
+    warmup_rounds: int = 10
+    n_max: int = 8
+    c_max: int = 4
+    link_loss: float = 0.0
+    max_retries: int = 3
+    interpret: bool | None = None
+    compression: CompressionConfig | None = None
+    detection: DetectionConfig | None = None
+    fused: bool = True
+    precision: str = "fp32"
+
+    def __post_init__(self):
+        if self.precision not in ("fp32", "bf16"):
+            raise ValueError(
+                f"precision must be 'fp32' or 'bf16', got {self.precision!r}")
+
+    def scheduler(self) -> RecomputeScheduler:
+        return RecomputeScheduler(
+            q=self.q, drift_threshold=self.drift_threshold,
+            refresh_iters=self.refresh_iters,
+            warmup_rounds=self.warmup_rounds,
+            n_max=self.n_max, c_max=self.c_max,
+            link_loss=self.link_loss, max_retries=self.max_retries)
+
+    def check_ported(self) -> None:
+        """Raise for a configuration whose chunk body needs a kernel the
+        port does not have yet — never fall back to plain torch."""
+        has_stage = self.compression is not None or self.detection is not None
+        if has_stage and not self.fused:
+            raise NotImplementedError(
+                "fused=False with stages needs kernels "
+                "supervised_compress_pallas / pca_monitor_pallas, which are "
+                "not ported yet")
+        if self.compression is not None and self.compression.score_bits > 0:
+            raise NotImplementedError(
+                "score_bits > 0 needs kernels pca_project_pallas / "
+                "pca_reconstruct_pallas, which are not ported yet")
+        if self.precision == "bf16":
+            raise NotImplementedError(
+                "precision='bf16' needs the bf16 form of kernel "
+                "fused_stream_pallas, which is not ported yet")
+
+
+class StreamState(NamedTuple):
+    cov: OnlineCovariance
+    sched: SchedulerState
+    rounds: torch.Tensor             # (...) int32 rounds streamed so far
+    alive: torch.Tensor              # (..., p) liveness seen last round
+    det: DetectorState | None = None
+
+
+class RoundMetrics(NamedTuple):
+    """Per-chunk record (leading axes: the slots)."""
+
+    rho: torch.Tensor                # retained fraction before any refresh
+    did_refresh: torch.Tensor        # bool — the scheduler fired
+    refreshes: torch.Tensor          # cumulative refresh count
+    comm_packets: torch.Tensor       # cumulative communication (packets)
+    compression: RoundCompression | None = None
+    detection: RoundDetection | None = None
+
+
+def tree_map(fn, tree, *rest):
+    """Map ``fn`` over the tensors of (nested) NamedTuples of one
+    structure, leaf by leaf; None stays None."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, *leaves)
+                            for leaves in zip(tree, *rest)))
+    return fn(tree, *rest)
+
+
+def _tree_stack(trees: list):
+    """Stack a list of same-structure NamedTuples leaf by leaf."""
+    first = trees[0]
+    if first is None:
+        return None
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        return type(first)(*(_tree_stack([t[i] for t in trees])
+                             for i in range(len(first))))
+    return torch.stack(trees)
+
+
+def random_bases(slots: int | None, p: int, q: int, seed: int = 0,
+                 device="cuda") -> torch.Tensor:
+    """Orthonormal initial bases (slots, p, q) — or (p, q) for ``slots``
+    None — from ``torch.Generator(seed)``, returned on ``device`` (drawn
+    on the CPU so a seed gives the same bases on every device)."""
+    dev = resolve_device(device)
+    g = torch.Generator().manual_seed(int(seed))
+    shape = (p, q) if slots is None else (slots, p, q)
+    A = torch.randn(shape, generator=g, dtype=torch.float32)
+    return torch.linalg.qr(A).Q.to(dev)
+
+
+def stream_init(cfg: StreamConfig, slots: int | None = None, *,
+                init_bases: torch.Tensor | None = None, seed: int = 0,
+                device="cuda") -> StreamState:
+    """Fresh state for one network (``slots`` None) or a fleet of
+    ``slots``: the initial bases are ``init_bases`` ((slots,) p, q) or
+    drawn by :func:`random_bases`.  Switches fp32 matrix products to full
+    fp32 (``torch.backends.cuda.matmul.allow_tf32 = False``)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = resolve_device(device)
+    lead = () if slots is None else (slots,)
+    if init_bases is None:
+        init_bases = random_bases(slots, cfg.p, cfg.q, seed, device=dev)
+    W0 = init_bases.to(device=dev, dtype=torch.float32)
+    if W0.shape != lead + (cfg.p, cfg.q):
+        raise ValueError(f"init_bases shape {tuple(W0.shape)} != "
+                         f"{lead + (cfg.p, cfg.q)}")
+    return StreamState(
+        cov=online_init(cfg.p, cfg.halfwidth, lead, device=dev),
+        sched=cfg.scheduler().init(W0),
+        rounds=torch.zeros(lead, device=dev, dtype=torch.int32),
+        alive=torch.ones(lead + (cfg.p,), device=dev),
+        det=(detector_init(lead, device=dev)
+             if cfg.detection is not None else None))
+
+
+def _churn(state_alive, masks, rv):
+    """Any liveness change across the chunk (vs. the last-seen liveness),
+    counting only valid rounds; returns (churn, alive)."""
+    alive = state_alive
+    churn = torch.zeros(alive.shape[:-1], dtype=torch.bool,
+                        device=alive.device)
+    for t in range(masks.shape[-2]):
+        changed = (masks[..., t, :] != alive).any(-1)
+        if rv is None:
+            churn = churn | changed
+            alive = masks[..., t, :]
+        else:
+            v_t = rv[..., t] > 0
+            churn = churn | (v_t & changed)
+            alive = torch.where(v_t[..., None], masks[..., t, :], alive)
+    return churn, alive
+
+
+def fleet_chunk_step(cfg: StreamConfig, state: StreamState, x: torch.Tensor,
+                     masks: torch.Tensor | None = None,
+                     round_valid: torch.Tensor | None = None,
+                     ) -> tuple[StreamState, RoundMetrics]:
+    """K rounds for every slot: ``x`` (S, K, n, p) chunks, ``masks``
+    (S, K, p) per-round liveness or None, ``round_valid`` (S, K) or None
+    (every round real).  ``state`` leaves carry the leading slot axis.
+
+    Invalid rounds (stream tail padding, idle slots) contribute nothing to
+    the fold, the stages, the books or the round counter."""
+    cfg.check_ported()
+    S, K, n, p = x.shape
+    dev = x.device
+    x = x.to(torch.float32)
+    if masks is not None:
+        if masks.shape != (S, K, p):
+            raise NotImplementedError(
+                f"the chunk driver takes (slots, K, p) liveness masks, got "
+                f"{tuple(masks.shape)}; per-reading dropout with stages "
+                "needs the split-path kernels, not ported yet")
+        masks = masks.to(state.alive.dtype)
+    has_stage = cfg.compression is not None or cfg.detection is not None
+    with_c = cfg.compression is not None
+    with_m = cfg.detection is not None
+    if round_valid is None:
+        rv = None
+        live = torch.full((S,), float(K), device=dev)
+    else:
+        rv = round_valid.to(torch.float32)
+        live = rv.sum(-1)
+    live_i = live.to(torch.int32)
+    if masks is None:
+        churn = torch.zeros((S,), dtype=torch.bool, device=dev)
+        alive = state.alive
+    else:
+        churn, alive = _churn(state.alive, masks, rv)
+    # the stages' per-round validity: liveness x round validity (a padded
+    # round is a dead round: no record, no flag); None = all live
+    stage_mask = None
+    if has_stage and (masks is not None or rv is not None):
+        stage_mask = (torch.ones((S, K, p), device=dev) if masks is None
+                      else masks)
+        if rv is not None:
+            stage_mask = stage_mask * rv[..., None]
+
+    sched_cfg = cfg.scheduler()
+    z = x_hat = flags = t2 = spe = None
+    if has_stage:
+        w, beta_eff, delta_s, delta_tb = online_chunk_stats(
+            state.cov, x, forgetting=cfg.forgetting, masks=masks,
+            round_valid=rv)
+        s_new = beta_eff[..., None] * state.cov.s + delta_s
+        t_i_new = (beta_eff[..., None, None] * state.cov.t_band
+                   + delta_tb)[..., cfg.halfwidth, :]
+        mean_est = s_new / t_i_new.clamp(min=1.0)
+        il = (inv_lambda(state.sched.lam, cfg.detection) if with_m
+              else torch.ones((S, cfg.q), device=dev))
+        eps = cfg.compression.epsilon if with_c else 0.0
+        # ONE launch: band fold + stages against the pre-decision basis
+        band_delta, z, x_hat, flags, t2, spe = ops.fused_stream_update(
+            x, w, state.sched.W, mean_est, il, halfwidth=cfg.halfwidth,
+            epsilon=eps, with_compress=with_c, with_monitor=with_m,
+            mask=stage_mask, precision=cfg.precision)
+        cov = online_apply_chunk(state.cov, band_delta, w, beta_eff,
+                                 delta_s, delta_tb, n)
+    else:
+        cov = online_update_chunk(state.cov, x, forgetting=cfg.forgetting,
+                                  masks=masks, round_valid=rv)
+    # one decision at the boundary, indexed at the LAST folded round
+    sched, rho, fired = sched_cfg.step(state.sched, cov,
+                                       state.rounds + (live_i - 1), churn)
+    # step() booked one per-round record; book the chunk's other rounds
+    sched = sched._replace(comm_packets=sched.comm_packets
+                           + (live - 1) * sched_cfg.round_cost())
+    factor = expected_transmissions(cfg.link_loss, cfg.max_retries)
+    if has_stage:
+        # where the decision fired the stages must see the rotated basis
+        # (and its λ̂): recompute for every slot, select per slot
+        il2 = inv_lambda(sched.lam, cfg.detection) if with_m else il
+        re = ops.fused_stream_stages_blocked(
+            x, sched.W, mean_est, il2, epsilon=eps, with_compress=with_c,
+            with_monitor=with_m, mask=stage_mask, precision=cfg.precision)
+        pick = lambda new, old: None if old is None else torch.where(
+            fired.reshape((S,) + (1,) * (old.dim() - 1)), new, old)
+        z, x_hat, flags, t2, spe = (pick(a, b) for a, b in
+                                    zip(re, (z, x_hat, flags, t2, spe)))
+    compression = None
+    if with_c:
+        xv = x.reshape(S, K * n, p)
+        mask2d = (1.0 if stage_mask is None else
+                  stage_mask[:, :, None, :].expand(S, K, n, p)
+                  .reshape(S, K * n, p))
+        compression = compression_books(xv, z, x_hat, flags, mask2d,
+                                        cfg.compression, cfg.q, cfg.c_max)
+        flagfree = compression_round_cost(cfg.q, cfg.c_max, cfg.compression)
+        bill = (flagfree * live + compression.extra_packets) * factor
+        sched = sched._replace(comm_packets=sched.comm_packets + bill)
+        # the fixed A/F record covers one epoch round: scale to the live
+        # rounds of the chunk, as the reference does
+        a_pk, f_pk = epoch_packet_split(cfg.q, cfg.c_max, cfg.compression)
+        compression = compression._replace(
+            score_packets=compression.score_packets * live,
+            feedback_packets=compression.feedback_packets * live,
+            bits_on_air=compression.bits_on_air
+            + (live - 1) * (a_pk + f_pk) * cfg.compression.word_bits)
+    det_state, detection = state.det, None
+    if with_m:
+        row_live = row_liveness(stage_mask, K, (S,), device=dev) \
+            .repeat_interleave(n, dim=-1)
+        det_state, detection = detect_apply(t2, spe, row_live, cfg.q,
+                                            state.det, cfg.detection,
+                                            refreshed=fired)
+        flagfree, per_alarm = detection_packet_split(cfg.q, cfg.c_max)
+        bill = (flagfree * live + detection.alarms * per_alarm) * factor
+        sched = sched._replace(comm_packets=sched.comm_packets + bill)
+    new = StreamState(cov=cov, sched=sched, rounds=state.rounds + live_i,
+                      alive=alive, det=det_state)
+    metrics = RoundMetrics(rho=rho, did_refresh=fired,
+                           refreshes=sched.refreshes,
+                           comm_packets=sched.comm_packets,
+                           compression=compression, detection=detection)
+    return new, metrics
+
+
+def chunk_stream_step(cfg: StreamConfig, state: StreamState,
+                      x_chunk: torch.Tensor,
+                      masks: torch.Tensor | None = None,
+                      round_valid: torch.Tensor | None = None,
+                      ) -> tuple[StreamState, RoundMetrics]:
+    """K rounds for ONE network: ``x_chunk`` (K, n, p), ``masks`` (K, p),
+    ``round_valid`` (K,) — :func:`fleet_chunk_step` with a fleet of one."""
+    add = lambda t: t[None]
+    new, metrics = fleet_chunk_step(
+        cfg, tree_map(add, state), x_chunk[None],
+        None if masks is None else masks[None],
+        None if round_valid is None else round_valid[None])
+    drop = lambda t: t[0]
+    return tree_map(drop, new), tree_map(drop, metrics)
+
+
+def chunked_stream_run(cfg: StreamConfig, state: StreamState,
+                       xs: torch.Tensor, masks: torch.Tensor | None = None,
+                       *, chunk: int = 8, probe_every: int | None = None,
+                       ) -> tuple[StreamState, RoundMetrics]:
+    """Stream ``xs`` (rounds, n, p) through :func:`chunk_stream_step`,
+    ``probe_every`` rounds per decision (default: the whole chunk); a
+    tail shorter than the step is padded with invalid rounds.  Metrics
+    come back stacked, one row per decision."""
+    R = xs.shape[0]
+    step_rounds = chunk if probe_every is None else probe_every
+    if chunk < 1 or step_rounds < 1:
+        raise ValueError(f"chunk/probe_every must be >= 1, got "
+                         f"{chunk}/{probe_every}")
+    if chunk % step_rounds != 0:
+        raise ValueError(
+            f"probe_every ({step_rounds}) must divide chunk ({chunk})")
+    S = step_rounds
+    n_steps = -(-R // S)
+    pad = n_steps * S - R
+    rv = None
+    if pad:
+        xs = torch.cat([xs, xs.new_zeros((pad,) + xs.shape[1:])])
+        if masks is not None:
+            masks = torch.cat([masks, masks.new_zeros((pad,)
+                                                      + masks.shape[1:])])
+        rv = torch.cat([torch.ones(R), torch.zeros(pad)]).to(xs.device)
+    rows = []
+    for i in range(n_steps):
+        sl = slice(i * S, (i + 1) * S)
+        state, m = chunk_stream_step(
+            cfg, state, xs[sl], None if masks is None else masks[sl],
+            None if rv is None else rv[sl])
+        rows.append(m)
+    stacked = _tree_stack(rows)
+    return state, stacked

@@ -1,0 +1,21 @@
+"""The region merge record of the two-level fleet (counterpart of
+``repro.streaming.hierarchy.region_energies``); the merge itself
+(``merge_fleet``) is not ported yet."""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.covariance import band_to_dense
+from repro_torch.streaming.online_cov import (online_estimate,
+                                              online_total_variance)
+
+__all__ = ["region_energies"]
+
+
+def region_energies(state) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (..., q) live subspace energies ``diag(W^T C W)`` of a region's
+    basis plus its trace partial — what a region head sends up."""
+    C = band_to_dense(online_estimate(state.cov))
+    W = state.sched.W
+    return (W * (C @ W)).sum(-2), online_total_variance(state.cov)

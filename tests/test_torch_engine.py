@@ -1,0 +1,158 @@
+"""The PyTorch port's ``StreamingPCAEngine`` against the JAX reference.
+
+The reference engine serves 6 requests on 4 slots (one request carrying a
+liveness schedule whose sensors die mid-stream) in a child process
+(tests/torch_ref_child.py, see tests/test_torch_streaming.py for why);
+the port's engine serves the same requests from the same initial bases on
+the CPU, and every ``StreamResult`` field is compared.
+
+Tolerances, and why: counts (rounds, refreshes, flagged readings, alarms,
+steps) exactly — the data keep flags and alarms far from their thresholds;
+comm_packets and bits rtol 1e-6 (fp32 books, as in the reference); the
+retained fraction, energies and total variance rtol 1e-4, the bases
+(sign-aligned) atol 1e-3 and the worst sink error (the max of |x - x̂|)
+rtol 1e-3 — a whole run carries refresh after refresh through Cholesky
+and ``eigh``, whose fp32 differences compound; the
+detector thresholds rtol 1e-3 (moment sums of squared statistics).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.serve.engine import StreamingPCAEngine, StreamRequest
+from repro_torch.serve.queue import QueuePolicy
+from repro_torch.streaming import StreamConfig
+
+from torch_parity import config_from_json, run_reference
+
+N_REQ, SLOTS, K = 6, 4, 4
+
+
+@pytest.fixture(scope="module")
+def ref(tmp_path_factory):
+    return run_reference("engine", tmp_path_factory.mktemp("ref") / "e.npz")
+
+
+def _requests(ref):
+    return [StreamRequest(rounds=ref[f"req{i}/rounds"],
+                          liveness=ref.get(f"req{i}/liveness"))
+            for i in range(N_REQ)]
+
+
+@pytest.fixture(scope="module")
+def served(ref):
+    cfg = config_from_json(ref["cfg"])
+    eng = StreamingPCAEngine(cfg, slots=SLOTS, seed=0, chunk=K,
+                             init_bases=torch.from_numpy(ref["init_bases"]),
+                             device="cpu", telemetry=True)
+    reqs = _requests(ref)
+    for r in reqs:
+        eng.submit(r)
+    ops.reset_counts()
+    eng.run_until_done()
+    counts = (dict(ops.PLAIN_CALLS), dict(ops.LAUNCHES))
+    return eng, reqs, counts
+
+
+def test_engine_steps_and_retirements_match(ref, served):
+    eng, reqs, _ = served
+    assert eng._clock == int(ref["steps"])
+    assert all(r.done for r in reqs)
+
+
+@pytest.mark.parametrize("i", range(N_REQ))
+def test_stream_result_matches_reference(ref, served, i):
+    _, reqs, _ = served
+    res = reqs[i].result
+    g = lambda f: ref[f"req{i}/result.{f}"]
+    assert res.rounds == int(g("rounds"))
+    assert res.reason == str(g("reason"))
+    assert res.refreshes == int(g("refreshes"))
+    np.testing.assert_allclose(res.comm_packets, g("comm_packets"),
+                               rtol=1e-6)
+    np.testing.assert_allclose(res.retained, g("retained"), rtol=1e-4)
+    np.testing.assert_allclose(res.energies, g("energies"), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(res.total_variance, g("total_variance"),
+                               rtol=1e-4)
+    W, W_r = res.components, g("components")
+    sgn = np.sign(np.sum(W * W_r, axis=0))
+    np.testing.assert_allclose(W * sgn, W_r, atol=1e-3)
+    assert res.compression_extra_packets == float(
+        g("compression_extra_packets"))
+    np.testing.assert_allclose(res.compression_bits_on_air,
+                               g("compression_bits_on_air"), rtol=1e-6)
+    np.testing.assert_allclose(res.compression_max_err,
+                               g("compression_max_err"), rtol=1e-3)
+    assert res.detection_events == float(g("detection_events"))
+    np.testing.assert_allclose(res.detection_alarm_packets,
+                               g("detection_alarm_packets"), rtol=1e-6)
+    for f in ("detection_t2_threshold", "detection_spe_threshold"):
+        np.testing.assert_allclose(getattr(res, f), g(f), rtol=1e-3)
+
+
+def test_run_covers_flags_and_refreshes(ref):
+    """The request set exercises what the comparison claims to cover."""
+    refreshes = [int(ref[f"req{i}/result.refreshes"]) for i in range(N_REQ)]
+    assert max(refreshes) >= 2
+    assert sum(float(ref[f"req{i}/result.compression_extra_packets"])
+               for i in range(N_REQ)) > 0
+
+
+def test_cpu_engine_takes_plain_path_every_step(served):
+    eng, _, (plain, launches) = served
+    folded = sum(1 for r in eng.telemetry.steps if r.live > 0)
+    assert plain["fused_stream"] == folded > 0
+    assert sum(launches.values()) == 0
+    summary = eng.telemetry.summary()
+    assert summary["retired"] == N_REQ
+    assert summary["rounds"] == sum(r.rounds.shape[0] for r in
+                                    served[1])
+
+
+def test_band_only_engine_uses_band_kernels(ref):
+    cfg = StreamConfig(p=64, q=4, halfwidth=3, warmup_rounds=3)
+    eng = StreamingPCAEngine(cfg, slots=SLOTS, chunk=K, device="cpu",
+                             telemetry=True)
+    for r in _requests(ref):
+        eng.submit(r)
+    ops.reset_counts()
+    eng.run_until_done()
+    assert ops.PLAIN_CALLS["fused_stream"] == 0
+    assert ops.PLAIN_CALLS["band_fold"] + ops.PLAIN_CALLS[
+        "band_fold_masked"] == sum(1 for r in eng.telemetry.steps
+                                   if r.live > 0)
+    assert ops.PLAIN_CALLS["band_fold_masked"] >= 1
+
+
+def test_priority_admission_and_backpressure(ref):
+    cfg = config_from_json(ref["cfg"])
+    eng = StreamingPCAEngine(cfg, slots=1, chunk=K, device="cpu",
+                             queue=QueuePolicy(capacity=2))
+    reqs = _requests(ref)[:3]
+    reqs[1].priority = 5
+    assert eng.submit(reqs[0]) and eng.submit(reqs[1])
+    assert not eng.submit(reqs[2])
+    eng.step()
+    assert eng.active[0] is reqs[1]
+
+
+class TestNotPorted:
+    def test_pipeline_raises(self, ref):
+        with pytest.raises(NotImplementedError, match="pipeline"):
+            StreamingPCAEngine(config_from_json(ref["cfg"]), pipeline=True,
+                               device="cpu")
+
+    def test_fleet_summary_raises(self, ref):
+        eng = StreamingPCAEngine(config_from_json(ref["cfg"]), slots=2,
+                                 device="cpu")
+        with pytest.raises(NotImplementedError, match="merge_fleet"):
+            eng.fleet_summary()
+
+    def test_cuda_without_card_raises(self, ref):
+        if torch.cuda.is_available():
+            pytest.skip("a card is present")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            StreamingPCAEngine(config_from_json(ref["cfg"]), slots=2)

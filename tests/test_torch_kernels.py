@@ -1,0 +1,263 @@
+"""The PyTorch port's kernels against the JAX reference's kernels.
+
+The port's wrappers (``repro_torch.kernels.ops``) take their plain PyTorch
+versions on CPU tensors; here those are held against the reference's Pallas
+kernels run in interpret mode on the same numpy inputs (``repro.kernels``
+imports without touching ``jax.core``).  Shapes follow
+tests/test_fused_stream.py: divisible, non-divisible, prime p, masked,
+zero-weight tails.  The CUDA kernels themselves run only on a card:
+tests/test_torch_cuda.py holds them against the plain versions there.
+
+Tolerances: band and stage outputs rtol 1e-5, atol 1e-5 — the same fp32
+products summed in another order.  Flags are compared exactly wherever the
+reconstruction error is more than 1e-4 from ε (a 1-ulp difference in x̂
+may flip a flag sitting on the boundary).
+"""
+
+import ast
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core.covariance import banded_matmul_ref as ref_banded_matmul
+from repro.kernels import ops as ref_ops
+from repro_torch.core.covariance import band_to_dense, banded_matmul_ref
+from repro_torch.kernels import build, ops, ref
+
+ROOT = Path(__file__).resolve().parents[1]
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+# rows, p, q, masked, zero-weight tail (tests/test_fused_stream.py SHAPES)
+SHAPES = [
+    (32, 24, 4, False, False),
+    (32, 24, 4, True, False),
+    (15, 17, 3, False, False),
+    (15, 17, 3, True, True),
+    (8, 8, 2, False, True),
+    (1, 8, 2, False, False),
+    (40, 12, 3, True, False),
+    (32, 64, 4, True, False),
+    (32, 37, 4, True, True),
+]
+
+
+def _operands(rows, p, q, seed=0, masked=False, zero_tail=False):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(rows, p)).astype(np.float32)
+    w = rng.uniform(0.2, 1.0, size=(rows,)).astype(np.float32)
+    if zero_tail:
+        w[-max(rows // 4, 1):] = 0.0
+    basis = np.linalg.qr(rng.normal(size=(p, q)))[0].astype(np.float32)
+    mean = rng.normal(size=(p,)).astype(np.float32)
+    il = rng.uniform(0.5, 2.0, size=(q,)).astype(np.float32)
+    mask = ((rng.random((rows, p)) > 0.2).astype(np.float32)
+            if masked else None)
+    return x, w, basis, mean, il, mask
+
+
+def _close(a, b, **tol):
+    np.testing.assert_allclose(np.asarray(a), np.asarray(b), **(tol or TOL))
+
+
+def _flags_agree(fl_port, fl_ref, err, eps, margin=1e-4):
+    fl_port, fl_ref = np.asarray(fl_port), np.asarray(fl_ref)
+    clear = np.abs(np.asarray(err) - eps) > margin
+    np.testing.assert_array_equal(fl_port[clear], fl_ref[clear])
+
+
+def _port_fused(x, w, basis, mean, il, mask, h, eps, with_c, with_m):
+    """The port's fused wrapper on a (rows, p) chunk written as K=rows
+    rounds of n=1 epoch, so per-row weights and masks are per-round."""
+    t = lambda a: None if a is None else torch.from_numpy(a)[None]
+    return ops.fused_stream_update(
+        t(x)[:, :, None, :], t(w), t(basis), t(mean), t(il), halfwidth=h,
+        epsilon=eps, with_compress=with_c, with_monitor=with_m, mask=t(mask))
+
+
+class TestFusedPlainVsReference:
+    @pytest.mark.parametrize("rows,p,q,masked,zt", SHAPES)
+    @pytest.mark.parametrize("stages", ["cm", "c", "m"])
+    def test_fused_matches_pallas(self, rows, p, q, masked, zt, stages):
+        h, eps = 3, 0.5
+        x, w, basis, mean, il, mask = _operands(rows, p, q, masked=masked,
+                                                zero_tail=zt)
+        with_c, with_m = "c" in stages, "m" in stages
+        r = ref_ops.fused_stream_update(
+            x, w, basis, mean, il, halfwidth=h, epsilon=eps,
+            with_compress=with_c, with_monitor=with_m, mask=mask,
+            interpret=True)
+        o = _port_fused(x, w, basis, mean, il, mask, h, eps, with_c, with_m)
+        _close(o[0][0], r[0])
+        _close(o[1][0], r[1])
+        if with_c:
+            _close(o[2][0], r[2])
+            _flags_agree(o[3][0], r[3], np.abs(x - np.asarray(r[2])), eps)
+        else:
+            assert o[2] is None and o[3] is None
+        if with_m:
+            _close(o[4][0], r[4])
+            _close(o[5][0], r[5])
+        else:
+            assert o[4] is None and o[5] is None
+
+    @pytest.mark.parametrize("p", [64, 37])
+    def test_fleet_per_round_mask_matches_per_slot_reference(self, p):
+        """A (S, K, n, p) fleet chunk with (S, K, p) liveness masks and
+        per-round weights equals the reference per slot on its flattened
+        (K*n, p) view with the mask and weights repeated per row."""
+        S, K, n, q, h, eps = 3, 4, 8, 4, 3, 0.5
+        rng = np.random.default_rng(p)
+        x = rng.normal(size=(S, K, n, p)).astype(np.float32)
+        w = rng.uniform(0.2, 1.0, size=(S, K)).astype(np.float32)
+        w[1, -1] = 0.0
+        masks = (rng.random((S, K, p)) > 0.2).astype(np.float32)
+        basis = np.stack([np.linalg.qr(rng.normal(size=(p, q)))[0]
+                          for _ in range(S)]).astype(np.float32)
+        mean = rng.normal(size=(S, p)).astype(np.float32)
+        il = rng.uniform(0.5, 2.0, size=(S, q)).astype(np.float32)
+        T = torch.from_numpy
+        o = ops.fused_stream_update(T(x), T(w), T(basis), T(mean), T(il),
+                                    halfwidth=h, epsilon=eps,
+                                    with_compress=True, with_monitor=True,
+                                    mask=T(masks))
+        for s in range(S):
+            rows_mask = np.repeat(masks[s], n, axis=0)
+            r = ref_ops.fused_stream_update(
+                x[s].reshape(K * n, p), np.repeat(w[s], n), basis[s],
+                mean[s], il[s], halfwidth=h, epsilon=eps, with_compress=True,
+                with_monitor=True, mask=rows_mask, interpret=True)
+            for i in (0, 1, 2, 4, 5):
+                _close(o[i][s], r[i])
+            err = np.abs(x[s].reshape(K * n, p) - np.asarray(r[2]))
+            _flags_agree(o[3][s], r[3], err, eps)
+
+    def test_stages_blocked_equals_fused_stages(self):
+        x, w, basis, mean, il, mask = _operands(32, 37, 4, masked=True)
+        o = _port_fused(x, w, basis, mean, il, mask, 3, 0.5, True, True)
+        t = lambda a: torch.from_numpy(a)[None]
+        s = ops.fused_stream_stages_blocked(
+            t(x)[:, :, None, :], t(basis), t(mean), t(il), epsilon=0.5,
+            with_compress=True, with_monitor=True, mask=t(mask))
+        for a, b in zip(s, o[1:]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+    def test_band_only_rejected(self):
+        x, w, basis, mean, il, _ = _operands(8, 8, 2)
+        with pytest.raises(ValueError, match="band-only"):
+            _port_fused(x, w, basis, mean, il, None, 1, 0.5, False, False)
+
+    def test_bf16_raises_not_implemented(self):
+        x, w, basis, mean, il, _ = _operands(8, 8, 2)
+        t = lambda a: torch.from_numpy(a)[None]
+        with pytest.raises(NotImplementedError, match="fused_stream_pallas"):
+            ops.fused_stream_update(
+                t(x)[:, :, None, :], t(w), t(basis), t(mean), t(il),
+                halfwidth=1, with_compress=True, with_monitor=True,
+                precision="bf16")
+
+
+class TestBandFoldPlainVsReference:
+    @pytest.mark.parametrize("K,n,p,h", [(4, 8, 64, 3), (4, 8, 37, 3),
+                                         (3, 5, 17, 2), (1, 8, 24, 4),
+                                         (2, 4, 8, 7)])
+    @pytest.mark.parametrize("mask_kind", [None, "round", "reading"])
+    def test_chunk_fold_matches_pallas(self, K, n, p, h, mask_kind):
+        rng = np.random.default_rng(K * 100 + p)
+        xs = rng.normal(size=(K, n, p)).astype(np.float32)
+        w = rng.uniform(0.2, 1.0, size=(K,)).astype(np.float32)
+        w[-1] = 0.0 if K > 1 else w[-1]
+        mask = None
+        if mask_kind == "round":
+            mask = (rng.random((K, p)) > 0.2).astype(np.float32)
+        elif mask_kind == "reading":
+            mask = (rng.random((K, n, p)) > 0.2).astype(np.float32)
+        r = ref_ops.cov_band_update_chunk(xs, w, h, mask=mask,
+                                          interpret=True)
+        T = torch.from_numpy
+        o = ops.cov_band_update_chunk(T(xs), T(w), h,
+                                      mask=None if mask is None else T(mask))
+        _close(o, r)
+
+    def test_fleet_form_is_per_network_form(self):
+        rng = np.random.default_rng(1)
+        xs = torch.from_numpy(rng.normal(size=(3, 4, 8, 37))
+                              .astype(np.float32))
+        w = torch.from_numpy(rng.uniform(0.2, 1.0, size=(3, 4))
+                             .astype(np.float32))
+        m = torch.from_numpy((rng.random((3, 4, 37)) > 0.2)
+                             .astype(np.float32))
+        out = ops.cov_band_update_chunk_batched(xs, w, 3, mask=m)
+        for s in range(3):
+            torch.testing.assert_close(
+                out[s], ops.cov_band_update_chunk(xs[s], w[s], 3, mask=m[s]),
+                **TOL)
+
+    def test_plain_path_counts(self):
+        ops.reset_counts()
+        xs = torch.zeros((2, 4, 16))
+        ops.cov_band_update_chunk(xs, torch.ones(2), 2)
+        ops.cov_band_update_chunk(xs, torch.ones(2), 2,
+                                  mask=torch.ones((2, 16)))
+        assert ops.PLAIN_CALLS["band_fold"] == 1
+        assert ops.PLAIN_CALLS["band_fold_masked"] == 1
+        assert sum(ops.LAUNCHES.values()) == 0
+
+    def test_bad_mask_shape_rejected(self):
+        with pytest.raises(ValueError):
+            ops.cov_band_update_chunk_batched(
+                torch.zeros((1, 2, 4, 8)), torch.ones(2), 1,
+                mask=torch.ones((1, 3, 8)))
+
+
+class TestBandedProduct:
+    @pytest.mark.parametrize("p,h,q", [(64, 3, 4), (37, 3, 4), (16, 7, 2)])
+    def test_dense_product_matches_reference_banded_matmul(self, p, h, q):
+        """The refresh's dense (p, p) product against the reference's
+        per-diagonal ``banded_matmul_ref`` (fp32, other summation order)."""
+        rng = np.random.default_rng(p)
+        band = rng.normal(size=(2 * h + 1, p)).astype(np.float32)
+        V = rng.normal(size=(p, q)).astype(np.float32)
+        r = np.asarray(ref_banded_matmul(band, V))
+        T = torch.from_numpy
+        _close(band_to_dense(T(band)) @ T(V), r)
+        _close(banded_matmul_ref(T(band), T(V)), r)
+        _close(ref.banded_matmul(T(band), T(V)), r)
+
+
+class TestBuild:
+    def test_sources_and_entry_points_declared(self):
+        srcs = {p.stem for p in build.CSRC.glob("*.cu")}
+        assert srcs == set(build.SOURCES)
+        for name, fns in build.SOURCES.items():
+            text = (build.CSRC / f"{name}.cu").read_text()
+            for fn, argtypes in fns.items():
+                m = re.search(rf"int {fn}\(([^)]*)\)", text)
+                assert m, fn
+                assert len(m.group(1).split(",")) == len(argtypes), fn
+
+    def test_targets_sm90a_into_ignored_build_dir(self):
+        assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+        assert build.BUILD_DIR == ROOT / "build" / "repro_torch"
+        assert "build/" in (ROOT / ".gitignore").read_text().split()
+
+
+class TestNoJaxInPort:
+    def test_port_and_chip_smoke_import_neither_jax_nor_repro(self):
+        files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+        files.append(ROOT / "chip_smoke.py")
+        bad = []
+        for f in files:
+            for node in ast.walk(ast.parse(f.read_text())):
+                names = []
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.module:
+                    names = [node.module]
+                for nm in names:
+                    top = nm.split(".")[0]
+                    if top in ("jax", "jaxlib", "repro"):
+                        bad.append(f"{f.relative_to(ROOT)}: {nm}")
+        assert not bad, bad

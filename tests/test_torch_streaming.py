@@ -1,0 +1,355 @@
+"""The PyTorch port's streaming path against the JAX reference.
+
+The reference cannot be imported into this process (``repro.streaming``
+needs names jax moved out of ``jax.core``; aliasing them here would change
+other tests' outcomes with import order), so a module fixture runs it in a
+child process (tests/torch_ref_child.py) that writes its inputs, states
+and metrics to an ``.npz``.  Each chunk of each scenario is then replayed
+by the port from the SAME state (carried over by
+``repro_torch.convert.state_from_numpy``) and compared field by field.
+
+Tolerances, and why:
+* band, sums, counts, rho and the stage outputs: rtol 1e-5, atol 1e-5 —
+  the same fp32 sums in another order;
+* after a refresh (``did_refresh``) the basis comes out of Cholesky and
+  ``eigh``: columns are compared after sign alignment at atol 1e-4, the
+  stage outputs that depend on it at rtol/atol 1e-4, λ̂ at rtol 1e-4;
+* flags and alarms: exact wherever the reconstruction error is more than
+  1e-4 from ε (or the statistic more than 1e-4 relative from its
+  threshold); the packet books then differ by exactly the entries allowed
+  to flip, and are compared at rtol 1e-6 after that correction;
+* the detector's window moments and thresholds: rtol 1e-4, and 1e-3 on
+  refresh chunks (they sum squares of statistics of the refreshed basis);
+* refreshes, rounds, did_refresh, liveness: exact (the data keep a margin
+  from the drift threshold);
+* comm_packets: rtol 1e-6, accumulated in fp32 as in the reference.
+"""
+
+import ast
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro.core.costs as ref_costs
+from repro.core.events import _norm_quantile as ref_norm_quantile
+from repro.core.faults import expected_transmissions as ref_expected_tx
+from repro_torch.convert import state_from_numpy, state_to_numpy
+from repro_torch.core import costs
+from repro_torch.core.events import _norm_quantile
+from repro_torch.core.faults import expected_transmissions
+from repro_torch.kernels import ops
+from repro_torch.streaming import (CompressionConfig, DetectionConfig,
+                                   StreamConfig, chunk_stream_step,
+                                   chunked_stream_run, fleet_chunk_step,
+                                   stream_init)
+from repro_torch.streaming.detector import (detection_packet_split,
+                                            detector_init, row_liveness)
+from repro_torch.streaming.driver import random_bases, tree_map
+from repro_torch.streaming.online_cov import online_init
+
+from torch_parity import config_from_json, run_reference
+
+ROOT = Path(__file__).resolve().parents[1]
+SCENARIOS = ["fused", "fused_masked", "compress_masked", "monitor", "band",
+             "band_masked"]
+N_CHUNKS = 6
+TOL = dict(rtol=1e-5, atol=1e-5)
+TOL_REFRESH = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def ref(tmp_path_factory):
+    return run_reference("streaming",
+                         tmp_path_factory.mktemp("ref") / "streaming.npz")
+
+
+def _close(a, b, **tol):
+    np.testing.assert_allclose(np.asarray(a), np.asarray(b), **(tol or TOL))
+
+
+def _chunk_inputs(ref, name, c):
+    K = 4
+    x = torch.from_numpy(ref[f"{name}/x"][c * K:(c + 1) * K])
+    masks = (torch.from_numpy(ref[f"{name}/masks"][c * K:(c + 1) * K])
+             if f"{name}/masks" in ref else None)
+    rv = (torch.from_numpy(ref[f"{name}/rv"][c])
+          if bool(ref[f"{name}/c{c}/has_rv"]) else None)
+    return x, masks, rv
+
+
+def _sign_align(W_port, W_ref):
+    sgn = np.sign(np.sum(W_port * W_ref, axis=0))
+    sgn[sgn == 0] = 1.0
+    return sgn
+
+
+def _flip_budget(x, fl_p, fl_r, sink_p, sink_r, eps, margin=1e-4):
+    """Entries whose flag differs must sit within ``margin`` of ε on the
+    side that did not flag; returns port-minus-reference flag count."""
+    diff = fl_p != fl_r
+    if diff.any():
+        unflagged_sink = np.where(fl_p > 0, sink_r, sink_p)
+        err = np.abs(x - unflagged_sink)[diff]
+        assert np.all(err > eps - margin), (err, eps)
+    return float(fl_p.sum() - fl_r.sum())
+
+
+def _event_budget(stat_p, thr, ev_p, ev_r, margin=1e-4):
+    diff = ev_p != ev_r
+    if diff.any():
+        assert np.all(np.abs(stat_p[diff] - thr) <= margin * abs(thr) + 1e-6)
+    return float(ev_p.sum() - ev_r.sum())
+
+
+@pytest.mark.parametrize("c", range(N_CHUNKS))
+@pytest.mark.parametrize("name", SCENARIOS)
+def test_chunk_step_matches_reference(ref, name, c):
+    cfg = config_from_json(ref[f"{name}/cfg"])
+    pre = state_from_numpy(ref, device="cpu", prefix=f"{name}/c{c}/pre.")
+    x, masks, rv = _chunk_inputs(ref, name, c)
+    ops.reset_counts()
+    new, m = chunk_stream_step(cfg, pre, x, masks, rv)
+    has_stage = cfg.compression is not None or cfg.detection is not None
+    kernel = "fused_stream" if has_stage else (
+        "band_fold" if masks is None else "band_fold_masked")
+    assert ops.PLAIN_CALLS[kernel] == 1
+    got = state_to_numpy(new)
+    post = lambda k: ref[f"{name}/c{c}/post.{k}"]
+    met = lambda k: ref[f"{name}/c{c}/m.{k}"]
+
+    fired = bool(met("did_refresh"))
+    assert bool(m.did_refresh) == fired
+    assert int(m.refreshes) == int(met("refreshes"))
+    for k in ("rounds", "sched.refreshes", "alive"):
+        np.testing.assert_array_equal(got[k], post(k))
+    for k in ("cov.t", "cov.s", "cov.band", "cov.t_band"):
+        _close(got[k], post(k))
+    _close(m.rho, met("rho"))
+    W_p, W_r = got["sched.W"], post("sched.W")
+    sgn = _sign_align(W_p, W_r)
+    _close(W_p * sgn, W_r, **(TOL_REFRESH if fired else dict(rtol=0, atol=0)))
+    _close(got["sched.lam"], post("sched.lam"), rtol=1e-4, atol=1e-6)
+    _close(got["sched.rho_ref"], post("sched.rho_ref"))
+    tol = TOL_REFRESH if fired else TOL
+
+    d_extra = d_alarms = 0.0
+    if cfg.compression is not None:
+        xv = x.reshape(-1, cfg.p).numpy()
+        cp = m.compression
+        _close(cp.z.numpy() * sgn[None, :], met("compression.z"), **tol)
+        fl_p, fl_r = cp.flagged.numpy(), met("compression.flagged")
+        sink_p, sink_r = cp.x_sink.numpy(), met("compression.x_sink")
+        d_extra = _flip_budget(xv, fl_p, fl_r, sink_p, sink_r,
+                               cfg.compression.epsilon)
+        same = fl_p == fl_r
+        _close(sink_p[same], sink_r[same], **tol)
+        _close(float(cp.extra_packets) - d_extra,
+               met("compression.extra_packets"), rtol=1e-6, atol=0)
+        for k in ("score_packets", "feedback_packets"):
+            _close(getattr(cp, k), met(f"compression.{k}"), rtol=1e-6)
+        _close(float(cp.bits_on_air)
+               - d_extra * cfg.compression.word_bits,
+               met("compression.bits_on_air"), rtol=1e-6)
+        if d_extra == 0:
+            _close(cp.max_err, met("compression.max_err"), **tol)
+    if cfg.detection is not None:
+        dt = m.detection
+        _close(dt.t2, met("detection.t2"), **tol)
+        _close(dt.spe, met("detection.spe"), **tol)
+        thr_t2 = float(met("detection.t2_threshold"))
+        thr_spe = float(met("detection.spe_threshold"))
+        _close(dt.t2_threshold, thr_t2, rtol=1e-4)   # set before this chunk
+        _close(dt.spe_threshold, thr_spe, rtol=1e-4)
+        assert bool(dt.calibrating) == bool(met("detection.calibrating"))
+        ev_p, ev_r = dt.events.numpy(), met("detection.events")
+        diff = ev_p != ev_r
+        if diff.any():
+            rel = lambda s, thr: np.abs(s[diff] - thr) / abs(thr)
+            near = np.minimum(rel(dt.t2.numpy(), thr_t2),
+                              rel(dt.spe.numpy(), thr_spe))
+            assert np.all(near <= 1e-4), near
+        d_alarms = float(ev_p.sum() - ev_r.sum())
+        _close(float(dt.alarms) - d_alarms, met("detection.alarms"),
+               rtol=1e-6, atol=0)
+        for k in ("t2_threshold", "spe_threshold", "t2_sum", "spe_sum",
+                  "t2_sumsq", "spe_sumsq", "count"):
+            # squares of statistics of a refreshed basis: the eigh-level
+            # differences of z enter twice (rtol 1e-3 on refresh chunks)
+            _close(got[f"det.{k}"], post(f"det.{k}"),
+                   rtol=1e-3 if fired else 1e-4, atol=1e-5)
+        np.testing.assert_array_equal(got["det.calib_left"],
+                                      post("det.calib_left"))
+    _, per_alarm = (detection_packet_split(cfg.q, cfg.c_max)
+                    if cfg.detection is not None else (0.0, 0.0))
+    factor = expected_transmissions(cfg.link_loss, cfg.max_retries)
+    _close(float(m.comm_packets) - (d_extra + d_alarms * per_alarm) * factor,
+           met("comm_packets"), rtol=1e-6, atol=0)
+
+
+def test_scenarios_cover_refreshes_flags_and_alarms(ref):
+    """The data exercise what the comparisons claim to cover: drift and
+    churn refreshes beyond the first, flagged readings and alarms."""
+    fired = {n: [bool(ref[f"{n}/c{c}/m.did_refresh"])
+                 for c in range(N_CHUNKS)] for n in SCENARIOS}
+    assert all(sum(v) >= 2 for v in fired.values()), fired
+    assert ref["fused/c5/m.compression.extra_packets"] > 0
+    total_alarms = sum(float(ref[f"{n}/c{c}/m.detection.alarms"])
+                       for n in ("fused", "fused_masked", "monitor")
+                       for c in range(N_CHUNKS))
+    assert total_alarms > 0
+
+
+@pytest.mark.parametrize("name", ["fused", "fused_masked", "band_masked"])
+def test_whole_run_matches_reference(ref, name):
+    """``chunked_stream_run`` from the reference's initial state over the
+    whole stream, against the reference's chunk-by-chunk trajectory."""
+    cfg = config_from_json(ref[f"{name}/cfg"])
+    st = state_from_numpy(ref, device="cpu", prefix=f"{name}/c0/pre.")
+    R = int(ref[f"{name}/rv"].sum())
+    xs = torch.from_numpy(ref[f"{name}/x"][:R])
+    masks = (torch.from_numpy(ref[f"{name}/masks"][:R])
+             if f"{name}/masks" in ref else None)
+    new, m = chunked_stream_run(cfg, st, xs, masks, chunk=4)
+    last = N_CHUNKS - 1
+    np.testing.assert_array_equal(
+        m.did_refresh.numpy(),
+        [bool(ref[f"{name}/c{c}/m.did_refresh"]) for c in range(N_CHUNKS)])
+    np.testing.assert_array_equal(
+        m.refreshes.numpy(),
+        [int(ref[f"{name}/c{c}/m.refreshes"]) for c in range(N_CHUNKS)])
+    _close(m.rho.numpy(),
+           [float(ref[f"{name}/c{c}/m.rho"]) for c in range(N_CHUNKS)],
+           rtol=1e-4, atol=1e-5)
+    _close(m.comm_packets.numpy(),
+           [float(ref[f"{name}/c{c}/m.comm_packets"])
+            for c in range(N_CHUNKS)], rtol=1e-6)
+    assert int(new.rounds) == int(ref[f"{name}/c{last}/post.rounds"]) == R
+    _close(new.cov.band, ref[f"{name}/c{last}/post.cov.band"], rtol=1e-4,
+           atol=1e-4)
+
+
+def test_fleet_step_is_per_network_step(ref):
+    """One fleet step over three networks equals three single-network
+    steps: the slot axis adds nothing (floats at rtol/atol 1e-5 — batched
+    and single products may sum in another order — the rest exactly)."""
+    name = "fused_masked"
+    cfg = config_from_json(ref[f"{name}/cfg"])
+    states = [state_from_numpy(ref, device="cpu", prefix=f"{name}/c{c}/pre.")
+              for c in (1, 3, 5)]
+    ins = [_chunk_inputs(ref, name, c) for c in (1, 3, 5)]
+    rvs = [torch.ones(4) if rv is None else rv for _, _, rv in ins]
+    fleet = tree_map(lambda *a: torch.stack(a), *states)
+    new, m = fleet_chunk_step(cfg, fleet, torch.stack([i[0] for i in ins]),
+                              torch.stack([i[1] for i in ins]),
+                              torch.stack(rvs))
+    def same(a, b):
+        tol = TOL if a.is_floating_point() else dict(rtol=0, atol=0)
+        torch.testing.assert_close(a[s], b, **tol)
+
+    for s, (st, (x, mk, _)) in enumerate(zip(states, ins)):
+        one, m1 = chunk_stream_step(cfg, st, x, mk, rvs[s])
+        tree_map(same, new, one)
+        tree_map(same, m, m1)
+
+
+def test_refresh_select_keeps_quiet_slots_unchanged(ref):
+    """A slot whose scheduler does not fire keeps its basis, λ̂ and
+    ρ_ref exactly while another slot of the same step refreshes."""
+    name = "fused"
+    cfg = config_from_json(ref[f"{name}/cfg"])
+    fires = [c for c in range(N_CHUNKS)
+             if bool(ref[f"{name}/c{c}/m.did_refresh"])]
+    quiet = [c for c in range(N_CHUNKS)
+             if not bool(ref[f"{name}/c{c}/m.did_refresh"])]
+    cs = (fires[-1], quiet[-1])
+    states = [state_from_numpy(ref, device="cpu", prefix=f"{name}/c{c}/pre.")
+              for c in cs]
+    fleet = tree_map(lambda *a: torch.stack(a), *states)
+    xs = torch.stack([_chunk_inputs(ref, name, c)[0] for c in cs])
+    new, m = fleet_chunk_step(cfg, fleet, xs)
+    assert m.did_refresh.tolist() == [True, False]
+    for k in ("W", "lam", "rho_ref"):
+        torch.testing.assert_close(getattr(new.sched, k)[1],
+                                   getattr(states[1].sched, k),
+                                   rtol=0, atol=0)
+
+
+class TestNotPortedRaises:
+    BASE = dict(p=8, q=2, halfwidth=1)
+
+    @pytest.mark.parametrize("kw,kernel", [
+        (dict(fused=False, compression=CompressionConfig(epsilon=0.5)),
+         "supervised_compress_pallas"),
+        (dict(compression=CompressionConfig(epsilon=0.5, score_bits=8)),
+         "pca_project_pallas"),
+        (dict(precision="bf16", detection=DetectionConfig()),
+         "fused_stream_pallas"),
+    ])
+    def test_unported_kernel_configs_raise(self, kw, kernel):
+        cfg = StreamConfig(**self.BASE, **kw)
+        st = stream_init(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match=kernel):
+            chunk_stream_step(cfg, st, torch.zeros((2, 3, 8)))
+
+    def test_cuda_without_card_raises(self):
+        if torch.cuda.is_available():
+            pytest.skip("a card is present")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            stream_init(StreamConfig(**self.BASE))
+
+    @pytest.mark.parametrize("entry", [
+        lambda: online_init(8, 1),
+        lambda: detector_init((2,)),
+        lambda: row_liveness(None, 4),
+        lambda: random_bases(2, 8, 2),
+    ], ids=["online_init", "detector_init", "row_liveness", "random_bases"])
+    def test_state_entry_points_default_to_cuda(self, entry):
+        """Each state constructor runs on the card unless given
+        ``device='cpu'``; without a card that default raises."""
+        if torch.cuda.is_available():
+            pytest.skip("a card is present")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry()
+
+
+class TestCopiesEqualReference:
+    """The pure-Python modules copied into the port stay equal to the
+    reference: same values, and the same code up to docstrings and the
+    package name."""
+
+    @pytest.mark.parametrize("rel", [
+        "core/costs.py", "runtime/health.py", "runtime/elastic.py",
+        "serve/queue.py", "serve/telemetry.py"])
+    def test_same_code(self, rel):
+        def code(path, pkg):
+            tree = ast.parse(path.read_text().replace(pkg, "repro"))
+            for node in ast.walk(tree):
+                body = getattr(node, "body", None)
+                if (isinstance(body, list) and body
+                        and isinstance(body[0], ast.Expr)
+                        and isinstance(body[0].value, ast.Constant)
+                        and isinstance(body[0].value.value, str)):
+                    node.body = body[1:] or [ast.Pass()]
+            return ast.dump(tree)
+        assert (code(ROOT / "src/repro_torch" / rel, "repro_torch")
+                == code(ROOT / "src/repro" / rel, "repro"))
+
+    def test_cost_values(self):
+        args = dict(p=64, q=4, n_max=8, c_max=4, iters=8)
+        for lr in (0.0, 0.1):
+            a = costs.lossy_refresh_cost(64, 4, 8, 4, 8, lr, 3)
+            b = ref_costs.lossy_refresh_cost(64, 4, 8, 4, 8, lr, 3)
+            assert dataclasses.astuple(a) == dataclasses.astuple(b)
+            assert expected_transmissions(lr, 3) == ref_expected_tx(lr, 3)
+        assert (dataclasses.astuple(costs.streaming_round_cost(8, 4, 4))
+                == dataclasses.astuple(ref_costs.streaming_round_cost(8, 4, 4)))
+        rows = lambda mod: {k: dataclasses.astuple(v) for k, v in
+                            mod.table1(64, 10, 4, 8, 4, args["iters"]).items()}
+        assert rows(costs) == rows(ref_costs)
+
+    @pytest.mark.parametrize("u", [1e-5, 0.01, 0.3, 0.5, 0.9, 0.999])
+    def test_norm_quantile(self, u):
+        assert _norm_quantile(u) == ref_norm_quantile(u)

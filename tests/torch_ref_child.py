@@ -1,0 +1,192 @@
+"""Reference runs for the PyTorch port's parity tests, in a child process.
+
+Run as ``python tests/torch_ref_child.py {streaming|engine} OUT.npz`` with
+``JAX_PLATFORMS=cpu`` and ``src`` on ``PYTHONPATH``.  The installed jax
+moved ``ClosedJaxpr``, ``Jaxpr`` and ``Literal`` from ``jax.core`` to
+``jax.extend.core``; ``repro.analysis`` (imported at the bottom of
+``repro.streaming.driver`` and ``repro.serve.engine``) still reads them from
+``jax.core``.  This process aliases the three names before importing the
+reference — so the alias never exists inside the pytest process, where it
+would change which reference tests pass depending on import order.
+
+The inputs are made here with numpy from fixed seeds and written to the
+output beside the reference's results, so the parent runs the port on
+exactly the same data.  Keys: ``{scenario}/cfg`` (JSON of the config),
+``{scenario}/x``, ``/masks``, ``/rv`` (inputs), ``{scenario}/c{i}/pre.*``
+(state before chunk i), ``/post.*`` (state after), ``/m.*`` (metrics).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import sys
+
+import jax
+import jax.extend.core as _jec
+
+for _name in ("ClosedJaxpr", "Jaxpr", "Literal"):
+    if not hasattr(jax.core, _name):
+        setattr(jax.core, _name, getattr(_jec, _name))
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.streaming.compressor import CompressionConfig  # noqa: E402
+from repro.streaming.detector import DetectionConfig  # noqa: E402
+from repro.streaming.driver import (StreamConfig, chunk_stream_step,  # noqa: E402
+                                    stream_init)
+
+
+def signal(rng, rounds, n, p, *, rank=3, noise=0.05, spike_rate=3e-4,
+           rotate_at=None):
+    """A spatially local sensor field — ``rank`` smooth bumps a few sensors
+    wide, so the covariance is banded as the paper assumes — plus small
+    noise and rare large spikes (the readings the compression stage must
+    flag and the detector must alarm on).  From round ``rotate_at`` on the
+    bumps sit elsewhere (drift).  Readings stay well inside ε = 1 of the
+    mean unless spiked, so flags keep a margin from ε."""
+    j = np.arange(p)
+
+    def bumps(centres):
+        U = np.exp(-0.5 * ((j[:, None] - centres[None, :]) / 1.2) ** 2)
+        return U / np.linalg.norm(U, axis=0)
+    centres = np.linspace(0.15, 0.85, rank) * p
+    U, U2 = bumps(centres), bumps(centres + p / (2 * rank))
+    scale = np.array([0.9, 0.7, 0.5])[:rank]
+    mean = rng.normal(size=(p,))
+    g = rng.normal(size=(rounds, n, rank)) * scale
+    x = np.einsum("tnr,pr->tnp", g, U)
+    if rotate_at is not None:
+        x[rotate_at:] = np.einsum("tnr,pr->tnp", g[rotate_at:], U2)
+    x = x + mean + noise * rng.normal(size=x.shape)
+    spikes = rng.random(x.shape) < spike_rate
+    x = x + spikes * rng.choice([-5.0, 5.0], size=x.shape)
+    return x.astype(np.float32)
+
+
+def flatten(node, prefix):
+    out = {}
+    if node is None:
+        return out
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        for f, v in zip(node._fields, node):
+            out.update(flatten(v, f"{prefix}.{f}"))
+        return out
+    out[prefix] = np.asarray(node)
+    return out
+
+
+def cfg_json(cfg):
+    d = dataclasses.asdict(cfg)
+    return json.dumps(d)
+
+
+STREAM_SCENARIOS = {
+    # name: (p, stages, masked, rounds)
+    "fused": (64, "cm", False, 24),
+    "fused_masked": (37, "cm", True, 22),
+    "compress_masked": (64, "c", True, 22),
+    "monitor": (37, "m", False, 24),
+    "band": (64, "", False, 24),
+    "band_masked": (37, "", True, 22),
+}
+Q, H, K, N = 4, 3, 4, 8
+
+
+def stream_cfg(p, stages):
+    return StreamConfig(
+        p=p, q=Q, halfwidth=H, forgetting=0.97, warmup_rounds=6,
+        drift_threshold=0.05,
+        compression=CompressionConfig(epsilon=1.0) if "c" in stages else None,
+        detection=(DetectionConfig(alpha=1e-2, calib_rounds=1)
+                   if "m" in stages else None))
+
+
+def run_streaming(out):
+    for si, (name, (p, stages, masked, rounds)) in enumerate(
+            STREAM_SCENARIOS.items()):
+        rng = np.random.default_rng(100 + si)
+        cfg = stream_cfg(p, stages)
+        x = signal(rng, rounds, N, p, rotate_at=12)
+        masks = None
+        if masked:
+            masks = np.ones((rounds, p), np.float32)
+            masks[5:, 3] = 0.0                      # a death
+            masks[9:14, p - 5:] = 0.0               # an outage and revival
+            masks[17:, 10:12] = 0.0
+        n_chunks = -(-rounds // K)
+        pad = n_chunks * K - rounds
+        rv = np.concatenate([np.ones(rounds), np.zeros(pad)]) \
+            .astype(np.float32).reshape(n_chunks, K)
+        xp = np.concatenate([x, np.zeros((pad, N, p), np.float32)])
+        mp = None if masks is None else np.concatenate(
+            [masks, np.zeros((pad, p), np.float32)])
+        out[f"{name}/cfg"] = np.array(cfg_json(cfg))
+        out[f"{name}/x"] = xp
+        out[f"{name}/rv"] = rv
+        if mp is not None:
+            out[f"{name}/masks"] = mp
+        step = jax.jit(lambda s, xc, mc, rc: chunk_stream_step(
+            cfg, s, xc, mc, rc))
+        st = stream_init(cfg, jax.random.PRNGKey(si))
+        for c in range(n_chunks):
+            sl = slice(c * K, (c + 1) * K)
+            # pass round_valid only where the chunk is partial, exercising
+            # both branches of the reference
+            rc = jnp.asarray(rv[c]) if rv[c].min() < 1 else None
+            mc = None if mp is None else jnp.asarray(mp[sl])
+            out.update(flatten(st, f"{name}/c{c}/pre"))
+            out[f"{name}/c{c}/has_rv"] = np.array(rc is not None)
+            st, m = step(st, jnp.asarray(xp[sl]), mc, rc)
+            out.update(flatten(st, f"{name}/c{c}/post"))
+            out.update(flatten(m, f"{name}/c{c}/m"))
+        out[f"{name}/n_chunks"] = np.array(n_chunks)
+
+
+ENGINE_P, ENGINE_SLOTS = 64, 4
+
+
+def engine_cfg():
+    return StreamConfig(
+        p=ENGINE_P, q=Q, halfwidth=H, forgetting=0.98, warmup_rounds=K - 1,
+        drift_threshold=0.05,
+        compression=CompressionConfig(epsilon=1.0),
+        detection=DetectionConfig(alpha=1e-3, calib_rounds=2))
+
+
+def run_engine(out):
+    from repro.serve.engine import StreamingPCAEngine, StreamRequest
+    cfg = engine_cfg()
+    rng = np.random.default_rng(7)
+    lengths = [10, 13, 16, 9, 12, 14]
+    reqs = []
+    for i, R in enumerate(lengths):
+        x = signal(rng, R, N, ENGINE_P)
+        live = None
+        if i == 2:
+            live = np.ones((R, ENGINE_P), np.float32)
+            live[6:, 20:28] = 0.0
+        out[f"req{i}/rounds"] = x
+        if live is not None:
+            out[f"req{i}/liveness"] = live
+        reqs.append(StreamRequest(rounds=x, liveness=live))
+    eng = StreamingPCAEngine(cfg, slots=ENGINE_SLOTS, seed=0, chunk=K)
+    out["init_bases"] = np.asarray(eng.states.sched.W)
+    out["cfg"] = np.array(cfg_json(cfg))
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_done()
+    out["steps"] = np.array(eng._clock)
+    for i, r in enumerate(reqs):
+        for f in dataclasses.fields(r.result):
+            v = getattr(r.result, f.name)
+            if v is not None:
+                out[f"req{i}/result.{f.name}"] = np.asarray(v)
+
+
+if __name__ == "__main__":
+    mode, path = sys.argv[1], sys.argv[2]
+    results: dict = {}
+    {"streaming": run_streaming, "engine": run_engine}[mode](results)
+    np.savez(path, **results)
