@@ -8,16 +8,23 @@ Phases (each prints its lines; any failure raises and exits non-zero):
   2. build the CUDA kernels from src/repro_torch/kernels/csrc (one nvcc per
      source, in parallel, into build/repro_torch/);
   3. each kernel against its plain PyTorch version on the card, at the
-     engine's widths (256 slots, p=1024, h=128, q=32, K*n=8*32 rows), with
-     its time (CUDA events, warmed up) beside its bound; plus a small
-     engine run on the card against the same run on the CPU;
+     engine's widths (256 slots, p=1024, h=128, q=32, K*n=8*32 rows, masks
+     per round), with its time (CUDA events, warmed up) beside its bound
+     and, for the projection and reconstruction kernels, torch.bmm's time
+     on the same inputs (TF32 off); plus a small engine run on the card
+     against the same run on the CPU;
   4. the main path: StreamingPCAEngine with compression and detection on
      256 slots at one wsn-1m region's width, serving 320 requests of 24
      rounds (slots retire and readmit; the last 64 carry a liveness
      schedule); the fused kernel's launch count must equal the engine's
      step count with no plain call;
   5. the band-only engine (no stages) on the same requests' first 16
-     rounds: the band-fold kernels, plain and masked.
+     rounds: the band-fold kernels, plain and masked;
+  6. the split stage engine (fused=False) on the same requests: one
+     band-fold, one supervised-compression and one monitoring launch per
+     step;
+  7. the quantized-score engine (score_bits=8): one band-fold, one
+     projection, one reconstruction and one monitoring launch per step.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card, or without the rest
 of the repository beside it, the script exits non-zero and prints no
@@ -26,6 +33,7 @@ result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -41,6 +49,7 @@ SLOTS, REQUESTS, ROUNDS = 256, 320, 24        # 256 of wsn-1m's 1024 regions
 EPS = 1.0
 PEAK_FP32 = 67e12                             # H100 SXM, CUDA cores, dense
 PEAK_BYTES = 3.35e12                          # H100 SXM HBM3
+_SPLIT = "src/repro_torch/kernels/csrc/pca_project.cu"
 KERNELS = {
     "fused_stream": ("src/repro_torch/kernels/csrc/fused_stream.cu",
                      "src/repro/kernels/fused_stream.py:206"),
@@ -48,6 +57,10 @@ KERNELS = {
                   "src/repro/kernels/cov_update.py:171"),
     "band_fold_masked": ("src/repro_torch/kernels/csrc/band_fold.cu",
                          "src/repro/kernels/cov_update.py:228"),
+    "supervised_compress": (_SPLIT, "src/repro/kernels/pca_project.py:216"),
+    "pca_monitor": (_SPLIT, "src/repro/kernels/pca_project.py:171"),
+    "pca_project": (_SPLIT, "src/repro/kernels/pca_project.py:61"),
+    "pca_reconstruct": (_SPLIT, "src/repro/kernels/pca_project.py:89"),
 }
 
 
@@ -135,6 +148,71 @@ def profile_breakdown(run, top: int = 8) -> None:
     for e in rows[:top]:
         print(f"     {dev_time(e) / 1e3:10.1f} ms  {e.count:6d}x  "
               f"{e.key[:90]}")
+
+
+def split_kernels(record, xv, masks, basis, mean, il, eps) -> None:
+    """Kernels 4, 5, 8 and 9 against their plain versions at the slice
+    shape, per-round masks read at row r // N; times beside bounds, and
+    torch.bmm (TF32 off) beside the projection and reconstruction."""
+    from repro_torch.kernels import ops, ref
+    S, R, p = xv.shape
+    q = basis.shape[-1]
+    rows_mask = masks.repeat_interleave(N, dim=1)
+    xc = (xv - mean[:, None, :]) * rows_mask
+    f32 = 4.0
+    x_b, w_b, m_b = S * R * p * f32, S * p * q * f32, masks.numel() * f32
+    z_b, stat_b = S * R * q * f32, 2 * S * R * f32
+    prod = 2.0 * S * R * p * q
+    cases = {
+        "supervised_compress": (
+            lambda: ops.supervised_compress(xv, basis, mean, epsilon=eps,
+                                            mask=masks, n=N),
+            lambda: ref.supervised_compress(xv, basis, mean, rows_mask, eps),
+            2 * prod, x_b + m_b + w_b + S * p * f32 + z_b + x_b + S * R * p,
+            None),
+        "pca_monitor": (
+            lambda: ops.pca_monitor(xv, basis, mean, il, mask=masks, n=N),
+            lambda: ref.pca_monitor(xv, basis, mean, il, rows_mask),
+            2 * prod, x_b + m_b + w_b + S * (p + q) * f32 + z_b + stat_b,
+            None),
+        "pca_project": (
+            lambda: (ops.pca_project(xc, basis),),
+            lambda: (ref.pca_project(xc, basis),),
+            prod, x_b + w_b + z_b, lambda: torch.bmm(xc, basis)),
+    }
+    z8 = cases["pca_project"][1]()[0]
+    bt = basis.transpose(1, 2)
+    cases["pca_reconstruct"] = (
+        lambda: (ops.pca_reconstruct(z8, basis),),
+        lambda: (ref.pca_reconstruct(z8, basis),),
+        prod, z_b + w_b + x_b, lambda: torch.bmm(z8, bt))
+    for name, (run, plain_fn, flops, nbytes, lib) in cases.items():
+        out = run()
+        torch.cuda.synchronize()
+        plain = plain_fn()
+        errs = []
+        for i, (a, b) in enumerate(zip(out, plain)):
+            if a.dtype == torch.bool:
+                xh = plain[1]
+                clear = ((xv - xh).abs() - eps).abs() > 1e-3
+                bad = int(((a != b) & clear).sum())
+                print(f"   {name} flags: {int(a.sum())} set, {bad} disagree "
+                      f"away from eps (want 0)")
+                check(bad == 0, f"{name} flags disagree")
+                continue
+            errs.append(compare(f"{name}[{i}]", a, b, 1e-4, 1e-3))
+        del out, plain
+        ms = time_ms(run, 10)
+        plain_ms = time_ms(plain_fn, 3, 1)
+        lib_ms = None if lib is None else time_ms(lib, 10)
+        b_ms, b_by = bound(flops, nbytes)
+        lib_txt = "" if lib is None else f", torch.bmm {lib_ms:.3f} ms"
+        print(f"   {name} S={S} R={R} p={p} q={q}: kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms{lib_txt}, bound {b_ms:.4f} ms "
+              f"({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e9:.3f} GB)")
+        record[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    del xc, rows_mask, z8
 
 
 def main() -> int:
@@ -258,6 +336,7 @@ def main() -> int:
                                     plain_ms=plain_ms, bound_ms=b_ms,
                                     bound_by=b_by)
         del xb, out, plain
+    split_kernels(record, x.reshape(S, R, P), masks, basis, mean, il, eps)
     del x, masks, basis
     torch.cuda.empty_cache()
 
@@ -370,13 +449,57 @@ def main() -> int:
     for name in ("band_fold", "band_fold_masked"):
         record[name]["launches"] = launches[name]
 
+    def sink_books(res, label):
+        worst = max(r.compression_max_err for r in res)
+        flagged = sum(r.compression_extra_packets for r in res)
+        bits = sum(r.compression_bits_on_air for r in res)
+        alarms = sum(r.detection_events for r in res)
+        print(f"   {label}: worst sink error {worst:.4f} <= eps {EPS}; "
+              f"{flagged:.0f} flagged readings, {bits:.6g} bits on air, "
+              f"{alarms:.0f} alarmed epochs")
+        check(worst <= EPS, f"{label}: the eps guarantee was broken")
+        return flagged, bits
+
+    def stage_launches(launches, steps, kernels, label):
+        folds = launches["band_fold"] + launches["band_fold_masked"]
+        check(folds == steps and launches["fused_stream"] == 0
+              and all(launches[k] == steps for k in kernels),
+              f"{label}: launches {launches} vs {steps} steps")
+
+    phase("6 engine: split stages")
+    split_cfg = dataclasses.replace(cfg, fused=False)
+    steps, launches, res = serve(split_cfg, ROUNDS, "split stages engine")
+    stage_launches(launches, steps, ("supervised_compress", "pca_monitor"),
+                   "split")
+    check(launches["pca_project"] == launches["pca_reconstruct"] == 0,
+          "split engine launched the quantized-score kernels")
+    split_books = sink_books(res, "split")
+    for name in ("supervised_compress", "pca_monitor"):
+        record[name]["launches"] = launches[name]
+
+    phase("7 engine: quantized scores")
+    quant_cfg = dataclasses.replace(cfg, compression=CompressionConfig(
+        epsilon=EPS, score_bits=8, emit_reconstruction=True))
+    steps, launches, res = serve(quant_cfg, ROUNDS,
+                                 "quantized-score engine")
+    stage_launches(launches, steps,
+                   ("pca_project", "pca_reconstruct", "pca_monitor"), "quant")
+    check(launches["supervised_compress"] == 0,
+          "quantized engine launched the supervised-compression kernel")
+    flagged, bits = sink_books(res, "quantized (score_bits=8)")
+    print(f"   flagged readings {flagged:.0f} (unquantized split "
+          f"{split_books[0]:.0f}); bits on air {bits:.6g} (unquantized "
+          f"split {split_books[1]:.6g})")
+    for name in ("pca_project", "pca_reconstruct"):
+        record[name]["launches"] = launches[name]
+
     print(f"   total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1], launches=rec["launches"],
              max_abs_err=rec["max_abs_err"], ms=rec["ms"],
              plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
-             bound_by=rec["bound_by"], library_ms=None)
+             bound_by=rec["bound_by"], library_ms=rec.get("library_ms"))
         for name, rec in record.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

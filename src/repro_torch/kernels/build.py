@@ -37,8 +37,17 @@ SOURCES: dict[str, dict[str, list]] = {
         "band_fold_masked_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     },
     "fused_stream": {
-        "fused_stream_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _I, _F, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+        "fused_stream_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _F, _I, _I, _P, _P, _P, _P, _P, _P,
+                             _P],
+    },
+    "pca_project": {
+        "supervised_compress_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                    _F, _P, _P, _P, _P],
+        "pca_monitor_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                            _P, _P, _P],
+        "pca_project_f32": [_P, _P, _I, _I, _I, _I, _P, _P],
+        "pca_reconstruct_f32": [_P, _P, _I, _I, _I, _I, _P, _P],
     },
 }
 

@@ -17,15 +17,12 @@
 //    The mask is per round, (K, p): the chunk driver takes no per-reading
 //    dropout mask with stages.
 //
-// Design: a stage block stages its kRows centred, masked rows in dynamic
-// shared memory (kRows * p floats, 32 KB at p=1024; above 48 KB the launch
-// raises the block's limit with cudaFuncSetAttribute) and the kRows x q
-// scores beside them.  W (p x q, 128 KB per slot at the slice width) is
-// NOT staged: it is read through L1/L2 (__ldg), where every stage block of
-// the slot finds it.  Scores: one thread per (row, component), a warp
-// reading W row-contiguously.  Reconstruction: one warp per row, each lane
-// striding over sensors; SPE and T2 are warp-shuffle reductions in a fixed
-// order, so the outputs are deterministic.
+// Design: the stage half is the device function of stages.cuh, which
+// kernels 4 and 5 (pca_project.cu) call too: a stage block stages its
+// kRows centred, masked rows and their scores in dynamic shared memory
+// (kRows * (p + q) floats, 34 KB at p=1024; above 48 KB the launch raises
+// the block's limit with cudaFuncSetAttribute) and reads W (128 KB per
+// slot at the slice width) and its transpose through L1/L2.
 //
 // Bound at the slice shape (p=1024, h=128, q=32, R=256), per slot per
 // step: the band is symmetric (band[h-d, i] = band[h+d, i-d]), so the
@@ -39,23 +36,19 @@
 // This kernel computes every in-range band entry, both halves: folding
 // half the band and mirroring it is later work.
 #include "band_fold.cuh"
+#include "stages.cuh"
 
 namespace repro_torch {
 
-constexpr int kRows = kFoldThreads / 32;   // one warp per staged row
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
+static_assert(kFoldThreads == kStageThreads,
+              "fold and stage blocks share one launch's block size");
 
 template <bool HAS_MASK, bool WITH_C, bool WITH_M>
 __global__ void __launch_bounds__(kFoldThreads)
 fused_stream_kernel(const float* __restrict__ x, const float* __restrict__ w,
                     const float* __restrict__ m,
                     const float* __restrict__ basis,
+                    const float* __restrict__ basis_t,
                     const float* __restrict__ mean,
                     const float* __restrict__ inv_lam, int K, int n,
                     int p, int q, int h, float eps, int band_blocks,
@@ -71,80 +64,23 @@ fused_stream_kernel(const float* __restrict__ x, const float* __restrict__ w,
                               blockIdx.x, band + s * (2 * h + 1) * p);
     return;
   }
-  basis += s * p * q;
-  mean += s * p;
-  inv_lam += s * q;
   extern __shared__ float smem[];
-  float* xc_s = smem;               // (kRows, p) centred, masked rows
-  float* z_s = smem + kRows * p;    // (kRows, q) scores
-  const int r0 = (blockIdx.x - band_blocks) * kRows;
-  const int tid = threadIdx.x;
-
-  for (int idx = tid; idx < kRows * p; idx += blockDim.x) {
-    const int rr = idx / p, i = idx - rr * p, r = r0 + rr;
-    float v = 0.0f;
-    if (r < R) {
-      v = x[(size_t)r * p + i] - mean[i];
-      if (HAS_MASK) v *= m[(size_t)(r / n) * p + i];
-    }
-    xc_s[idx] = v;
-  }
-  __syncthreads();
-
-  for (int o = tid; o < kRows * q; o += blockDim.x) {
-    const int rr = o / q, c = o - rr * q;
-    const float* xr = xc_s + rr * p;
-    float acc = 0.0f;
-    for (int i = 0; i < p; ++i)
-      acc += xr[i] * __ldg(basis + (size_t)i * q + c);
-    z_s[o] = acc;
-    if (r0 + rr < R) z[((size_t)s * R + r0 + rr) * q + c] = acc;
-  }
-  __syncthreads();
-
-  const int warp = tid >> 5, lane = tid & 31;
-  const int r = r0 + warp;
-  if (r >= R) return;
-  const float* zr = z_s + warp * q;
-  const float* xr = xc_s + warp * p;
-  const size_t row = (s * R + r) * (size_t)p;
-  const float* mr = HAS_MASK ? m + (size_t)(r / n) * p : nullptr;
-  float spe_acc = 0.0f;
-  for (int i = lane; i < p; i += 32) {
-    const float* wi = basis + (size_t)i * q;
-    float xh_r = 0.0f;
-    for (int c = 0; c < q; ++c) xh_r += zr[c] * __ldg(wi + c);
-    const float mv = HAS_MASK ? mr[i] : 1.0f;
-    if (WITH_C) {
-      const float xhv = xh_r + mean[i];
-      const float err = fabsf(x[(size_t)r * p + i] - xhv);
-      xh[row + i] = xhv;
-      flags[row + i] = (err > eps && mv > 0.0f) ? 1 : 0;
-    }
-    if (WITH_M) {
-      const float res = (xr[i] - xh_r) * mv;
-      spe_acc += res * res;
-    }
-  }
-  if (WITH_M) {
-    float t2_acc = 0.0f;
-    for (int c = lane; c < q; c += 32) t2_acc += zr[c] * zr[c] * inv_lam[c];
-    t2_acc = warp_sum(t2_acc);
-    spe_acc = warp_sum(spe_acc);
-    if (lane == 0) {
-      t2[s * R + r] = t2_acc;
-      spe[s * R + r] = spe_acc;
-    }
-  }
+  const size_t rows = s * R;
+  stage_block<HAS_MASK, WITH_C, WITH_M>(
+      x, m, n, basis + s * p * q, basis_t + s * p * q, mean + s * p,
+      inv_lam + s * q, R, p, q, eps, (blockIdx.x - band_blocks) * kRows,
+      z + rows * q, WITH_C ? xh + rows * p : nullptr,
+      WITH_C ? flags + rows * p : nullptr, WITH_M ? t2 + rows : nullptr,
+      WITH_M ? spe + rows : nullptr, smem);
 }
 
 template <bool HAS_MASK, bool WITH_C, bool WITH_M>
 static int launch(const float* x, const float* w, const float* m,
-                  const float* basis, const float* mean,
-                  const float* inv_lam, int S, int K, int n, int p, int q,
-                  int h, float eps, float* band, float* z, float* xh,
-                  unsigned char* flags, float* t2, float* spe,
-                  void* stream) {
+                  const float* basis, const float* basis_t,
+                  const float* mean, const float* inv_lam, int S, int K,
+                  int n, int p, int q, int h, float eps, float* band,
+                  float* z, float* xh, unsigned char* flags, float* t2,
+                  float* spe, void* stream) {
   const int R = K * n;
   const int col_blocks = (p + kFoldThreads - 1) / kFoldThreads;
   const int band_blocks = col_blocks * (2 * h + 1);
@@ -158,30 +94,31 @@ static int launch(const float* x, const float* w, const float* m,
   }
   dim3 grid(band_blocks + stage_blocks, S);
   kernel<<<grid, kFoldThreads, smem, (cudaStream_t)stream>>>(
-      x, w, m, basis, mean, inv_lam, K, n, p, q, h, eps, band_blocks, band,
-      z, xh, flags, t2, spe);
+      x, w, m, basis, basis_t, mean, inv_lam, K, n, p, q, h, eps,
+      band_blocks, band, z, xh, flags, t2, spe);
   return (int)cudaGetLastError();
 }
 
 template <bool HAS_MASK>
 static int dispatch(int with_c, int with_m, const float* x, const float* w,
-                    const float* m, const float* basis, const float* mean,
+                    const float* m, const float* basis,
+                    const float* basis_t, const float* mean,
                     const float* inv_lam, int S, int K, int n, int p,
                     int q, int h, float eps, float* band, float* z,
                     float* xh, unsigned char* flags, float* t2, float* spe,
                     void* stream) {
   if (with_c && with_m)
     return launch<HAS_MASK, true, true>(
-        x, w, m, basis, mean, inv_lam, S, K, n, p, q, h, eps, band, z, xh,
-        flags, t2, spe, stream);
+        x, w, m, basis, basis_t, mean, inv_lam, S, K, n, p, q, h, eps, band,
+        z, xh, flags, t2, spe, stream);
   if (with_c)
     return launch<HAS_MASK, true, false>(
-        x, w, m, basis, mean, inv_lam, S, K, n, p, q, h, eps, band, z, xh,
-        flags, t2, spe, stream);
+        x, w, m, basis, basis_t, mean, inv_lam, S, K, n, p, q, h, eps, band,
+        z, xh, flags, t2, spe, stream);
   if (with_m)
     return launch<HAS_MASK, false, true>(
-        x, w, m, basis, mean, inv_lam, S, K, n, p, q, h, eps, band, z, xh,
-        flags, t2, spe, stream);
+        x, w, m, basis, basis_t, mean, inv_lam, S, K, n, p, q, h, eps, band,
+        z, xh, flags, t2, spe, stream);
   return (int)cudaErrorInvalidValue;   // band-only chunks use band_fold.cu
 }
 
@@ -190,25 +127,25 @@ static int dispatch(int with_c, int with_m, const float* x, const float* w,
 extern "C" {
 
 // x (S, K*n, p); w (S, K); m (S, K, p) per-round liveness or NULL;
-// basis (S, p, q); mean (S, p); inv_lam (S, q).  Outputs band (S, 2h+1, p),
-// z (S, K*n, q), xh (S, K*n, p) fp32 and flags (S, K*n, p) bytes when
-// with_compress, t2/spe (S, K*n) when with_monitor (NULL otherwise).
-// fp32 unless stated, contiguous.
+// basis (S, p, q) and basis_t (S, q, p) its transpose; mean (S, p);
+// inv_lam (S, q).  Outputs band (S, 2h+1, p), z (S, K*n, q), xh
+// (S, K*n, p) fp32 and flags (S, K*n, p) bytes when with_compress, t2/spe
+// (S, K*n) when with_monitor (NULL otherwise).  fp32 unless stated,
+// contiguous.
 int fused_stream_f32(const float* x, const float* w, const float* m,
-                     const float* basis, const float* mean,
-                     const float* inv_lam, int S, int K, int n, int p, int q,
-                     int h, float eps, int with_compress, int with_monitor,
-                     float* band, float* z, float* xh, unsigned char* flags,
-                     float* t2, float* spe, void* stream) {
+                     const float* basis, const float* basis_t,
+                     const float* mean, const float* inv_lam, int S, int K,
+                     int n, int p, int q, int h, float eps,
+                     int with_compress, int with_monitor, float* band,
+                     float* z, float* xh, unsigned char* flags, float* t2,
+                     float* spe, void* stream) {
   if (m != nullptr)
-    return repro_torch::dispatch<true>(with_compress, with_monitor, x, w, m,
-                                       basis, mean, inv_lam, S, K, n, p, q, h,
-                                       eps, band, z, xh, flags, t2, spe,
-                                       stream);
-  return repro_torch::dispatch<false>(with_compress, with_monitor, x, w, m,
-                                      basis, mean, inv_lam, S, K, n, p, q, h,
-                                      eps, band, z, xh, flags, t2, spe,
-                                      stream);
+    return repro_torch::dispatch<true>(
+        with_compress, with_monitor, x, w, m, basis, basis_t, mean, inv_lam,
+        S, K, n, p, q, h, eps, band, z, xh, flags, t2, spe, stream);
+  return repro_torch::dispatch<false>(
+      with_compress, with_monitor, x, w, m, basis, basis_t, mean, inv_lam, S,
+      K, n, p, q, h, eps, band, z, xh, flags, t2, spe, stream);
 }
 
 }  // extern "C"

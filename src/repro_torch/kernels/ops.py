@@ -21,13 +21,18 @@ from repro_torch.kernels.build import load_library
 
 __all__ = ["LAUNCHES", "PLAIN_CALLS", "reset_counts",
            "cov_band_update_chunk", "cov_band_update_chunk_batched",
-           "fused_stream_update", "fused_stream_stages_blocked"]
+           "fused_stream_update", "fused_stream_stages_blocked",
+           "supervised_compress", "pca_monitor", "pca_project",
+           "pca_reconstruct"]
 
-LAUNCHES = {"fused_stream": 0, "band_fold": 0, "band_fold_masked": 0}
-PLAIN_CALLS = {"fused_stream": 0, "band_fold": 0, "band_fold_masked": 0}
+_KERNELS = ("fused_stream", "band_fold", "band_fold_masked",
+            "supervised_compress", "pca_monitor", "pca_project",
+            "pca_reconstruct")
+LAUNCHES = dict.fromkeys(_KERNELS, 0)
+PLAIN_CALLS = dict.fromkeys(_KERNELS, 0)
 
 _MAX_SLOTS = 65535              # grid y
-_STAGE_ROWS = 8                 # kRows in fused_stream.cu
+_STAGE_ROWS = 8                 # kRows in stages.cuh
 _MAX_SMEM = 232448              # bytes of shared memory a Hopper block can use
 
 
@@ -51,6 +56,28 @@ def _cuda_f32(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     if t.device != device:
         raise ValueError(f"operand on {t.device}, kernel input on {device}")
     return t.to(torch.float32).contiguous()
+
+
+def _transposed(basis: torch.Tensor) -> torch.Tensor:
+    """(S, q, p) contiguous copy of a (S, p, q) basis: the stage kernels'
+    reconstruction loop reads it so that a warp's loads are consecutive."""
+    return basis.transpose(1, 2).contiguous()
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _cuda_checks(S, R, p, q, stage=True):
+    """What a stage-kernel launch cannot take: more slots than grid y, no
+    rows, or (``stage``) rows too wide for the block's shared memory."""
+    if S > _MAX_SLOTS:
+        raise ValueError(f"{S} slots exceed the grid's {_MAX_SLOTS}")
+    if R < 1:
+        raise ValueError("no rows to launch over")
+    if stage and 4 * _STAGE_ROWS * (p + q) > _MAX_SMEM:
+        raise ValueError(f"p={p}, q={q} exceed the stage block's shared "
+                         f"memory")
 
 
 def _mask_rows(mask: torch.Tensor, B: int, K: int, n: int, p: int,
@@ -189,11 +216,7 @@ def fused_stream_update(x: torch.Tensor, weights: torch.Tensor,
         band, z, xh, fl, t2, spe = ref.fused_stream(
             x, weights, basis, mean, inv_lam, h, float(epsilon), mask)
     else:
-        if S > _MAX_SLOTS:
-            raise ValueError(f"{S} slots exceed the grid's {_MAX_SLOTS}")
-        if 4 * _STAGE_ROWS * (p + q) > _MAX_SMEM:
-            raise ValueError(f"p={p} exceeds the stage block's shared "
-                             f"memory")
+        _cuda_checks(S, K * n, p, q)
         dev = x.device
         xx, w = _cuda_f32(x, dev), _cuda_f32(weights, dev)
         bs, mu, il = (_cuda_f32(basis, dev), _cuda_f32(mean, dev),
@@ -208,12 +231,13 @@ def fused_stream_update(x: torch.Tensor, weights: torch.Tensor,
         t2 = torch.empty((S, R), **f32) if with_monitor else None
         spe = torch.empty((S, R), **f32) if with_monitor else None
         m = None if mask is None else _cuda_f32(mask, dev)
-        ptr = lambda t: None if t is None else t.data_ptr()
+        bt = _transposed(bs)
         ret = load_library("fused_stream").fused_stream_f32(
-            xx.data_ptr(), w.data_ptr(), ptr(m), bs.data_ptr(), mu.data_ptr(),
-            il.data_ptr(), S, K, n, p, q, h, float(epsilon),
-            int(with_compress), int(with_monitor), band.data_ptr(),
-            z.data_ptr(), ptr(xh), ptr(fl), ptr(t2), ptr(spe), _stream())
+            xx.data_ptr(), w.data_ptr(), _ptr(m), bs.data_ptr(),
+            bt.data_ptr(), mu.data_ptr(), il.data_ptr(), S, K, n, p, q, h,
+            float(epsilon), int(with_compress), int(with_monitor),
+            band.data_ptr(), z.data_ptr(), _ptr(xh), _ptr(fl), _ptr(t2),
+            _ptr(spe), _stream())
         _check(ret, "fused_stream")
         LAUNCHES["fused_stream"] += 1
     return (band, z, xh if with_compress else None,
@@ -240,3 +264,150 @@ def fused_stream_stages_blocked(x: torch.Tensor, basis: torch.Tensor,
     return (z, xh if with_compress else None,
             fl if with_compress else None,
             t2 if with_monitor else None, spe if with_monitor else None)
+
+
+def _stage_operands(x, basis, mean, inv_lam=None):
+    """Shape checks and fp32 defaults shared by the split-path wrappers:
+    ``x`` (S, R, p), ``basis`` (S, p, q), ``mean`` (S, p) or None (zero),
+    ``inv_lam`` (S, q) or None (ones)."""
+    if x.dim() != 3:
+        raise ValueError(f"expected (slots, rows, p), got {tuple(x.shape)}")
+    S, R, p = x.shape
+    q = basis.shape[-1]
+    mean = (x.new_zeros((S, p), dtype=torch.float32) if mean is None
+            else mean.to(torch.float32))
+    inv_lam = (x.new_ones((S, q), dtype=torch.float32) if inv_lam is None
+               else inv_lam.to(torch.float32))
+    if basis.shape != (S, p, q) or mean.shape != (S, p) \
+            or inv_lam.shape != (S, q):
+        raise ValueError(
+            f"operand shapes basis {tuple(basis.shape)}, mean "
+            f"{tuple(mean.shape)}, inv_lam {tuple(inv_lam.shape)} do not "
+            f"match x {(S, R, p)}")
+    return S, R, p, q, mean, inv_lam
+
+
+def _stage_mask(mask, S, R, p, n):
+    """A stage mask and the row divisor the kernel reads it with: (S, R, p)
+    per row (``n`` None, divisor 1), or (S, R / n, p) per round (divisor
+    n: row r reads mask row r // n); None means every reading live."""
+    if mask is None:
+        return None, 1
+    div = 1 if n is None else int(n)
+    if div < 1 or R % div or mask.shape != (S, R // div, p):
+        raise ValueError(f"mask shape {tuple(mask.shape)} with n={n} does "
+                         f"not fit rows {(S, R, p)}")
+    return mask, div
+
+
+def _plain_mask(m, div):
+    return m if m is None or div == 1 else m.repeat_interleave(div, dim=-2)
+
+
+def supervised_compress(x: torch.Tensor, basis: torch.Tensor,
+                        mean: torch.Tensor | None = None, *,
+                        epsilon: float, mask: torch.Tensor | None = None,
+                        n: int | None = None):
+    """ONE launch over every slot: ``z = ((x - mean) m) W``,
+    ``x_hat = z W^T + mean``, ``flags = (|x - x_hat| > eps) & m``
+    (kernel 4, ``csrc/pca_project.cu``).  ``x`` (S, R, p), ``basis``
+    (S, p, q), ``mean`` (S, p); ``mask`` (S, R, p) per row, (S, R / n, p)
+    per round with ``n`` given, or None.  Returns ``(z, x_hat, flagged)``:
+    (S, R, q), (S, R, p) fp32 and (S, R, p) bool."""
+    S, R, p, q, mean, _ = _stage_operands(x, basis, mean)
+    m, div = _stage_mask(mask, S, R, p, n)
+    if not x.is_cuda:
+        PLAIN_CALLS["supervised_compress"] += 1
+        return ref.supervised_compress(x, basis, mean, _plain_mask(m, div),
+                                       float(epsilon))
+    _cuda_checks(S, R, p, q)
+    dev = x.device
+    xx, bs, mu = (_cuda_f32(t, dev) for t in (x, basis, mean))
+    mm = None if m is None else _cuda_f32(m, dev)
+    bt = _transposed(bs)
+    z = torch.empty((S, R, q), device=dev, dtype=torch.float32)
+    xh = torch.empty((S, R, p), device=dev, dtype=torch.float32)
+    fl = torch.empty((S, R, p), device=dev, dtype=torch.bool)
+    ret = load_library("pca_project").supervised_compress_f32(
+        xx.data_ptr(), _ptr(mm), bs.data_ptr(), bt.data_ptr(),
+        mu.data_ptr(), S, R, p, q,
+        div, float(epsilon), z.data_ptr(), xh.data_ptr(), fl.data_ptr(),
+        _stream())
+    _check(ret, "supervised_compress")
+    LAUNCHES["supervised_compress"] += 1
+    return z, xh, fl
+
+
+def pca_monitor(x: torch.Tensor, basis: torch.Tensor,
+                mean: torch.Tensor | None = None,
+                inv_lam: torch.Tensor | None = None, *,
+                mask: torch.Tensor | None = None, n: int | None = None):
+    """ONE launch over every slot: ``z``, ``T2 = sum_c z_c^2 inv_lam_c``
+    and ``SPE = ||((x - mean) m - z W^T) m||^2``; x̂ never reaches device
+    memory (kernel 5, ``csrc/pca_project.cu``).  Operands as
+    :func:`supervised_compress`, ``inv_lam`` (S, q) (default ones).
+    Returns ``(z, t2, spe)``: (S, R, q), (S, R), (S, R) fp32."""
+    S, R, p, q, mean, inv_lam = _stage_operands(x, basis, mean, inv_lam)
+    m, div = _stage_mask(mask, S, R, p, n)
+    if not x.is_cuda:
+        PLAIN_CALLS["pca_monitor"] += 1
+        return ref.pca_monitor(x, basis, mean, inv_lam, _plain_mask(m, div))
+    _cuda_checks(S, R, p, q)
+    dev = x.device
+    xx, bs, mu, il = (_cuda_f32(t, dev) for t in (x, basis, mean, inv_lam))
+    mm = None if m is None else _cuda_f32(m, dev)
+    bt = _transposed(bs)
+    f32 = dict(device=dev, dtype=torch.float32)
+    z = torch.empty((S, R, q), **f32)
+    t2, spe = torch.empty((S, R), **f32), torch.empty((S, R), **f32)
+    ret = load_library("pca_project").pca_monitor_f32(
+        xx.data_ptr(), _ptr(mm), bs.data_ptr(), bt.data_ptr(),
+        mu.data_ptr(), il.data_ptr(),
+        S, R, p, q, div, z.data_ptr(), t2.data_ptr(), spe.data_ptr(),
+        _stream())
+    _check(ret, "pca_monitor")
+    LAUNCHES["pca_monitor"] += 1
+    return z, t2, spe
+
+
+def pca_project(x: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
+    """``Z = X W`` for every slot in ONE launch, fp32 accumulation over p
+    (kernel 8, ``csrc/pca_project.cu``): ``x`` (S, R, p) rows, already
+    centred and masked, ``basis`` (S, p, q) -> (S, R, q)."""
+    S, R, p, q, _, _ = _stage_operands(x, basis, None)
+    if not x.is_cuda:
+        PLAIN_CALLS["pca_project"] += 1
+        return ref.pca_project(x, basis)
+    _cuda_checks(S, R, p, q)
+    dev = x.device
+    xx, bs = _cuda_f32(x, dev), _cuda_f32(basis, dev)
+    z = torch.empty((S, R, q), device=dev, dtype=torch.float32)
+    ret = load_library("pca_project").pca_project_f32(
+        xx.data_ptr(), bs.data_ptr(), S, R, p, q, z.data_ptr(), _stream())
+    _check(ret, "pca_project")
+    LAUNCHES["pca_project"] += 1
+    return z
+
+
+def pca_reconstruct(z: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
+    """``X_hat = Z W^T`` for every slot in ONE launch (kernel 9,
+    ``csrc/pca_project.cu``): ``z`` (S, R, q), ``basis`` (S, p, q) ->
+    (S, R, p) fp32."""
+    if z.dim() != 3 or basis.dim() != 3 or basis.shape[0] != z.shape[0] \
+            or basis.shape[2] != z.shape[2]:
+        raise ValueError(f"scores {tuple(z.shape)} do not match basis "
+                         f"{tuple(basis.shape)}")
+    S, R, q = z.shape
+    p = basis.shape[1]
+    if not z.is_cuda:
+        PLAIN_CALLS["pca_reconstruct"] += 1
+        return ref.pca_reconstruct(z, basis)
+    _cuda_checks(S, R, p, q, stage=False)
+    dev = z.device
+    zz, bt = _cuda_f32(z, dev), _transposed(_cuda_f32(basis, dev))
+    xh = torch.empty((S, R, p), device=dev, dtype=torch.float32)
+    ret = load_library("pca_project").pca_reconstruct_f32(
+        zz.data_ptr(), bt.data_ptr(), S, R, p, q, xh.data_ptr(), _stream())
+    _check(ret, "pca_reconstruct")
+    LAUNCHES["pca_reconstruct"] += 1
+    return xh

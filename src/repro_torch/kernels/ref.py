@@ -19,8 +19,9 @@ import torch
 from repro_torch.core.covariance import banded_matmul_ref
 
 __all__ = ["band_fold", "cov_band_update_chunk",
-           "cov_band_update_chunk_masked", "fused_stages", "fused_stream",
-           "banded_matmul"]
+           "cov_band_update_chunk_masked", "supervised_compress",
+           "pca_monitor", "pca_project", "pca_reconstruct", "fused_stages",
+           "fused_stream", "banded_matmul"]
 
 
 def _row_mask(masks: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
@@ -65,31 +66,82 @@ def cov_band_update_chunk_masked(xs: torch.Tensor, masks: torch.Tensor,
     return band_fold(xs, weights, halfwidth, masks)
 
 
+def _project_back(x, w, mean, m):
+    """The expressions every stage shares: ``xc = (x - mean) m``,
+    ``z = xc W`` and ``xh_r = z W^T`` (x̂ before the mean is added back)."""
+    w = w.float()
+    xc = (x.float() - mean.float()[..., None, :]) * m
+    z = xc @ w
+    return xc, z, z @ w.transpose(-1, -2)
+
+
+def _compress_tail(x, mean, m, xh_r, epsilon):
+    xh = xh_r + mean.float()[..., None, :]
+    return xh, ((x.float() - xh).abs() > epsilon) & (m > 0.0)
+
+
+def _monitor_tail(xc, z, xh_r, m, inv_lam):
+    resid = (xc - xh_r) * m
+    t2 = (z * z * inv_lam.float()[..., None, :]).sum(-1)
+    return t2, (resid * resid).sum(-1)
+
+
+def _ones_or(mask, x):
+    return torch.ones_like(x, dtype=torch.float32) if mask is None \
+        else mask.float()
+
+
+def supervised_compress(x: torch.Tensor, w: torch.Tensor, mean: torch.Tensor,
+                        mask: torch.Tensor | None, epsilon: float,
+                        ) -> tuple[torch.Tensor, ...]:
+    """The supervised-compression epoch (``repro.kernels.ref`` line 107):
+    ``Z = ((X - mean) m) W``; ``X_hat = Z W^T + mean``;
+    ``flags = (|X - X_hat| > eps) & m`` (strict, bool).  ``x`` (..., R, p),
+    ``w`` (..., p, q), ``mean`` (..., p), ``mask`` (..., R, p) or None."""
+    m = _ones_or(mask, x)
+    _, z, xh_r = _project_back(x, w, mean, m)
+    xh, flags = _compress_tail(x, mean, m, xh_r, epsilon)
+    return z, xh, flags
+
+
+def pca_monitor(x: torch.Tensor, w: torch.Tensor, mean: torch.Tensor,
+                inv_lam: torch.Tensor, mask: torch.Tensor | None,
+                ) -> tuple[torch.Tensor, ...]:
+    """The monitoring epoch (``repro.kernels.ref`` line 130): ``Z``,
+    ``T2 = sum_c Z_c^2 inv_lam_c`` and ``SPE = ||((X - mean) m - Z W^T)
+    m||^2``; shapes as :func:`supervised_compress`, ``inv_lam`` (..., q)."""
+    m = _ones_or(mask, x)
+    xc, z, xh_r = _project_back(x, w, mean, m)
+    t2, spe = _monitor_tail(xc, z, xh_r, m, inv_lam)
+    return z, t2, spe
+
+
+def pca_project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``Z = X W`` over any leading axes (``repro.kernels.ref`` line 97)."""
+    return x.float() @ w.float()
+
+
+def pca_reconstruct(z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``X_hat = Z W^T`` over any leading axes (``repro.kernels.ref``
+    line 102)."""
+    return z.float() @ w.float().transpose(-1, -2)
+
+
 def fused_stages(xs: torch.Tensor, w: torch.Tensor, mean: torch.Tensor,
                  inv_lam: torch.Tensor, epsilon: float,
                  masks: torch.Tensor | None = None,
                  ) -> tuple[torch.Tensor, ...]:
-    """The per-row stages of the fused chunk pass, at the exact width p.
-
-    ``Z = ((X - mean) m) W``; ``X_hat = Z W^T + mean``;
-    ``flags = (|X - X_hat| > eps) & m`` (strict, bool);
-    ``T2 = sum_c Z_c^2 inv_lam_c``; ``SPE = ||((X - mean) m - Z W^T) m||^2``.
-    Returns ``(z, x_hat, flags, t2, spe)`` over the flattened rows
-    (..., K*n, ...)."""
+    """The per-row stages of the fused chunk pass, at the exact width p:
+    :func:`supervised_compress` and :func:`pca_monitor` on the flattened
+    rows (..., K*n, ...), sharing their projection.  Returns
+    ``(z, x_hat, flags, t2, spe)``."""
     *lead, K, n, p = xs.shape
     x = xs.float().reshape(*lead, K * n, p)
     m = (torch.ones_like(x) if masks is None
          else _row_mask(masks, xs).reshape(*lead, K * n, p))
-    w = w.float()
-    mean = mean.float()[..., None, :]
-    xc = (x - mean) * m
-    z = xc @ w
-    xh_r = z @ w.transpose(-1, -2)
-    xh = xh_r + mean
-    flags = ((x - xh).abs() > epsilon) & (m > 0.0)
-    resid = (xc - xh_r) * m
-    t2 = (z * z * inv_lam.float()[..., None, :]).sum(-1)
-    spe = (resid * resid).sum(-1)
+    xc, z, xh_r = _project_back(x, w, mean, m)
+    xh, flags = _compress_tail(x, mean, m, xh_r, epsilon)
+    t2, spe = _monitor_tail(xc, z, xh_r, m, inv_lam)
     return z, xh, flags, t2, spe
 
 

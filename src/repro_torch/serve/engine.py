@@ -4,9 +4,12 @@
 Each slot holds one live sensor network.  Every engine step stages each
 active slot's next K rounds in ONE upload, folds them through
 :func:`repro_torch.streaming.driver.fleet_chunk_step` — one fused-kernel
-launch for the whole fleet when a stage is configured, one band-kernel
-launch otherwise — and retires exhausted streams with their final basis
-and Table-1 bill.  Admission runs through the priority queue
+launch for the whole fleet on the fused stage path; on the split path
+(``fused=False``, or quantized scores) one band-fold launch plus one
+launch of each stage kernel (supervised compression, or projection and
+reconstruction around the quantizer; monitoring); one band-fold launch
+when no stage is configured — and retires exhausted streams with their
+final basis and Table-1 bill.  Admission runs through the priority queue
 (:mod:`repro_torch.serve.queue`), health through a per-slot
 :class:`HealthMonitor` on a logical clock (one tick per step), and the
 fleet mesh is re-planned by :func:`plan_mesh` when the live count
@@ -15,9 +18,9 @@ changes — all as in the reference.
 The fleet state stays on the device and is replaced every step; the books
 accumulate on the device, and the only device-to-host copies are the
 retirement summaries.  Not ported yet: ``pipeline=True`` (double-buffered
-staging) and ``fleet_summary`` (the two-level merge) raise
-``NotImplementedError``; the LM ``Engine`` of the reference module has no
-counterpart here.
+staging), ``fleet_summary`` (the two-level merge) and
+``precision="bf16"`` raise ``NotImplementedError``; the LM ``Engine`` of
+the reference module has no counterpart here.
 """
 
 from __future__ import annotations

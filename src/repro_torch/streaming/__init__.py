@@ -1,6 +1,7 @@
 """Streaming distributed PCA in PyTorch (counterpart of
 ``repro.streaming``): online banded covariance, drift-triggered refresh
-scheduler, compression and detection stages, chunked drivers."""
+scheduler, compression (full-precision or quantized scores) and detection
+stages, chunked drivers with the fused or the split stage body."""
 
 from repro_torch.streaming.compressor import CompressionConfig
 from repro_torch.streaming.detector import DetectionConfig

@@ -4,11 +4,15 @@
 Each round of readings is projected on the slot's current basis, the
 scores are fed back, and every node whose reconstruction error strictly
 exceeds ε ships its raw reading, so the sink is within ``|x - x̂| <= ε``.
-On the port's slice the stage runs inside the fused chunk kernel
-(:func:`repro_torch.kernels.ops.fused_stream_update`); this module holds
-the policy and the packet books.  Quantized scores (``score_bits > 0``)
-need the split path's kernels, which are not ported yet:
-:func:`repro_torch.streaming.driver.fleet_chunk_step` raises for them.
+On the fused chunk path the stage runs inside the fused chunk kernel
+(:func:`repro_torch.kernels.ops.fused_stream_update`) and this module only
+books it; on the split path :func:`compress_round` runs it through the
+supervised-compression kernel, or — for quantized scores — through the
+projection and reconstruction kernels around :func:`quantize_scores`.
+
+The ε guarantee does not depend on the quantizer: nodes flag against the
+same dequantized reconstruction the sink computes, so coarser scores only
+raise the notification rate.
 """
 
 from __future__ import annotations
@@ -19,8 +23,10 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import costs
+from repro_torch.kernels import ops
 
-__all__ = ["CompressionConfig", "RoundCompression", "compression_books",
+__all__ = ["CompressionConfig", "RoundCompression", "quantize_scores",
+           "row_mask", "compress_round", "compression_books",
            "compression_round_cost", "epoch_packet_split"]
 
 
@@ -77,6 +83,29 @@ class RoundCompression(NamedTuple):
     bits_on_air: torch.Tensor        # (...) score+extra bits, highest node
 
 
+def quantize_scores(z: torch.Tensor, bits: int,
+                    ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Uniform symmetric per-component quantizer over the rows of each
+    slot: ``z`` (..., rows, q).
+
+    ``scale[..., c] = max_rows |z[..., :, c]| / (2^(bits-1) - 1)``, floored
+    at the smallest normal float; codes are ``round(z / scale)`` (half to
+    even, as ``jnp.round``) clipped to the signed range.  Returns the
+    *dequantized* scores ``codes * scale`` (what both the node and the
+    sink reconstruct from) and the (..., q) scales.  ``bits == 0`` is the
+    identity (scale None)."""
+    if bits == 0:
+        return z, None
+    if bits == 1 or bits < 0:
+        raise ValueError(f"bits must be 0 or >= 2, got {bits}")
+    levels = (1 << (bits - 1)) - 1
+    scale = z.abs().amax(-2) / levels
+    scale = scale.clamp(min=torch.finfo(z.dtype).tiny)
+    codes = torch.clamp(torch.round(z / scale[..., None, :]), -levels,
+                        levels)
+    return codes * scale[..., None, :], scale
+
+
 def epoch_packet_split(q: int, c_max: int, cfg: CompressionConfig,
                        ) -> tuple[float, float]:
     """(A packets up, F packets down) of one flag-free compressed epoch at
@@ -104,6 +133,48 @@ def compression_round_cost(q: int, c_max: int, cfg: CompressionConfig,
     (the cost model is the source of truth; see epoch_packet_split)."""
     return costs.quantized_supervised_round_cost(
         q, c_max, cfg.score_bits, cfg.word_bits).communication
+
+
+def row_mask(mask: torch.Tensor, n: int | None) -> torch.Tensor:
+    """A stage mask as (..., rows, p): a per-round (..., K, p) mask with
+    ``n`` epochs per round is repeated row by row; ``n`` None means the
+    mask already has one row per reading row."""
+    return mask if n is None else mask.repeat_interleave(n, dim=-2)
+
+
+def compress_round(W: torch.Tensor, mean: torch.Tensor | None,
+                   x: torch.Tensor, cfg: CompressionConfig, c_max: int,
+                   mask: torch.Tensor | None = None,
+                   n: int | None = None) -> RoundCompression:
+    """Compress every slot's (R, p) rows against its basis: ``W``
+    (S, p, q), ``mean`` (S, p) or None, ``x`` (S, R, p); ``mask`` (S, R, p)
+    per row, (S, R / n, p) per round with ``n`` given, or None.
+
+    Unquantized (``score_bits == 0``): one supervised-compression launch
+    emits scores, reconstruction and flags.  Quantized: the projection
+    kernel, the quantizer, the reconstruction kernel, then the mean and
+    the flag test in plain torch (the quantizer needs every row's scores
+    to set the per-component scales, so one pass cannot do it).  Dead
+    sensors contribute no score record, raise no notification and are
+    excluded from ``max_err``.  The packet books as
+    :func:`compression_books`."""
+    S, R, p = x.shape
+    q = W.shape[-1]
+    x = x.to(torch.float32)
+    mask2d = 1.0 if mask is None else row_mask(mask.to(torch.float32), n)
+    if cfg.score_bits == 0:
+        z, x_hat, flagged = ops.supervised_compress(
+            x, W, mean, epsilon=cfg.epsilon, mask=mask, n=n)
+    else:
+        mean_row = (x.new_zeros((S, 1, p)) if mean is None
+                    else mean.to(torch.float32)[:, None, :])
+        z, _ = quantize_scores(ops.pca_project((x - mean_row) * mask2d, W),
+                               cfg.score_bits)
+        x_hat = ops.pca_reconstruct(z, W) + mean_row
+        flagged = (x - x_hat).abs() > cfg.epsilon
+        if mask is not None:
+            flagged = flagged & (mask2d > 0.0)
+    return compression_books(x, z, x_hat, flagged, mask2d, cfg, q, c_max)
 
 
 def compression_books(x: torch.Tensor, z: torch.Tensor,

@@ -1,11 +1,12 @@
 """Streaming event-detection stage: T²/SPE monitoring (counterpart of
 ``repro.streaming.detector``).
 
-The per-epoch statistics come out of the fused chunk kernel; this module
-holds the detector state machine — healthy-window moments after every
-refresh, moment-matched ``g·χ²_h`` thresholds by the Wilson-Hilferty cube,
-alarms outside the window — and the Sec.-2.4.3 packet books.  Every
-function takes leading axes (the fleet's slots).
+The per-epoch statistics come out of the fused chunk kernel, or — on the
+split path — out of the monitoring kernel through :func:`detect_round`;
+this module holds the detector state machine — healthy-window moments
+after every refresh, moment-matched ``g·χ²_h`` thresholds by the
+Wilson-Hilferty cube, alarms outside the window — and the Sec.-2.4.3
+packet books.  Every function takes leading axes (the fleet's slots).
 """
 
 from __future__ import annotations
@@ -19,10 +20,11 @@ import torch
 from repro_torch.core import costs
 from repro_torch.core.events import _norm_quantile
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 
 __all__ = ["DetectionConfig", "DetectorState", "RoundDetection",
-           "detector_init", "detect_apply", "inv_lambda", "row_liveness",
-           "wilson_hilferty", "detection_packet_split"]
+           "detector_init", "detect_round", "detect_apply", "inv_lambda",
+           "row_liveness", "wilson_hilferty", "detection_packet_split"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,6 +154,28 @@ def row_liveness(mask: torch.Tensor | None, rows: int, lead: tuple = (),
         return torch.ones(tuple(lead) + (rows,),
                           device=resolve_device(device), dtype=dtype)
     return (mask.amax(-1) > 0).to(dtype)
+
+
+def detect_round(W: torch.Tensor, mean: torch.Tensor, lam: torch.Tensor,
+                 x: torch.Tensor, state: DetectorState, cfg: DetectionConfig,
+                 refreshed: torch.Tensor, mask: torch.Tensor | None = None,
+                 n: int | None = None,
+                 ) -> tuple[DetectorState, RoundDetection]:
+    """Monitor every slot's (R, p) rows against its basis ``W`` (S, p, q):
+    one monitoring-kernel launch for T²/SPE, then :func:`detect_apply`.
+    ``lam`` (S, q) are the scheduler's per-component variances (clamped
+    before inversion); ``refreshed`` (S,) opens a fresh healthy window
+    before this chunk's statistics are folded.  ``mask`` is (S, R, p) per
+    row, (S, R / n, p) per round with ``n`` given, or None."""
+    S, R, _ = x.shape
+    _, t2, spe = ops.pca_monitor(x.to(torch.float32), W, mean,
+                                 inv_lambda(lam, cfg), mask=mask, n=n)
+    if mask is None or n is None:
+        row_live = row_liveness(mask, R, (S,), device=x.device)
+    else:
+        row_live = row_liveness(mask, R // n).repeat_interleave(n, dim=-1)
+    return detect_apply(t2, spe, row_live, W.shape[-1], state, cfg,
+                        refreshed)
 
 
 def detect_apply(t2: torch.Tensor, spe: torch.Tensor, row_live: torch.Tensor,

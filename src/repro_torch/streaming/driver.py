@@ -10,19 +10,22 @@
 * :func:`chunked_stream_run` — a Python loop of chunk steps over a
   (rounds, n, p) stream, with the tail padded by invalid rounds.
 
-With a compression and/or detection stage configured the chunk body is
-the fused kernel (:func:`repro_torch.kernels.ops.fused_stream_update`):
-one launch emits the band delta and the stage outputs against the
-pre-decision basis; where the scheduler then fires, the stages are
-recomputed against the rotated basis in plain torch and selected per slot
-with ``torch.where``.  A band-only configuration folds through the band
-kernel (:func:`repro_torch.streaming.online_cov.online_update_chunk`).
+With a compression and/or detection stage configured the chunk body is,
+by default (``cfg.fused``), the fused kernel
+(:func:`repro_torch.kernels.ops.fused_stream_update`): one launch emits
+the band delta and the stage outputs against the pre-decision basis;
+where the scheduler then fires, the stages are recomputed against the
+rotated basis in plain torch and selected per slot with ``torch.where``.
+The split body (``fused=False``, and always for quantized scores,
+``score_bits > 0``, whose quantizer needs every row's scores between
+projection and reconstruction) folds through the band kernel, decides,
+and then runs the stages once against the post-decision basis: the
+supervised-compression kernel (or projection, quantizer, reconstruction)
+and the monitoring kernel.  A band-only configuration folds through the
+band kernel (:func:`repro_torch.streaming.online_cov.online_update_chunk`).
 
-Not ported yet (they raise ``NotImplementedError`` naming the kernel they
-need): the split stage path (``fused=False`` with stages — kernels
-``supervised_compress_pallas``/``pca_monitor_pallas``), quantized scores
-(``score_bits > 0`` — ``pca_project_pallas``/``pca_reconstruct_pallas``),
-``precision="bf16"``, per-reading dropout masks with stages, and the
+Not ported yet: ``precision="bf16"`` (raises ``NotImplementedError``
+naming the kernel it needs), per-reading (K, n, p) dropout masks, and the
 per-round ``stream_step``/``stream_run`` drivers.
 """
 
@@ -38,11 +41,13 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.streaming.compressor import (CompressionConfig,
                                               RoundCompression,
+                                              compress_round,
                                               compression_books,
                                               compression_round_cost,
-                                              epoch_packet_split)
+                                              epoch_packet_split, row_mask)
 from repro_torch.streaming.detector import (DetectionConfig, DetectorState,
                                             RoundDetection, detect_apply,
+                                            detect_round,
                                             detection_packet_split,
                                             detector_init, inv_lambda,
                                             row_liveness)
@@ -93,19 +98,19 @@ class StreamConfig:
             n_max=self.n_max, c_max=self.c_max,
             link_loss=self.link_loss, max_retries=self.max_retries)
 
+    @property
+    def use_fused(self) -> bool:
+        """The chunk body is the fused kernel: stages configured,
+        ``fused`` set, and no quantizer (whose scales need every row's
+        scores between projection and reconstruction)."""
+        has_stage = self.compression is not None or self.detection is not None
+        quantized = (self.compression is not None
+                     and self.compression.score_bits > 0)
+        return self.fused and has_stage and not quantized
+
     def check_ported(self) -> None:
         """Raise for a configuration whose chunk body needs a kernel the
         port does not have yet — never fall back to plain torch."""
-        has_stage = self.compression is not None or self.detection is not None
-        if has_stage and not self.fused:
-            raise NotImplementedError(
-                "fused=False with stages needs kernels "
-                "supervised_compress_pallas / pca_monitor_pallas, which are "
-                "not ported yet")
-        if self.compression is not None and self.compression.score_bits > 0:
-            raise NotImplementedError(
-                "score_bits > 0 needs kernels pca_project_pallas / "
-                "pca_reconstruct_pallas, which are not ported yet")
         if self.precision == "bf16":
             raise NotImplementedError(
                 "precision='bf16' needs the bf16 form of kernel "
@@ -226,8 +231,8 @@ def fleet_chunk_step(cfg: StreamConfig, state: StreamState, x: torch.Tensor,
         if masks.shape != (S, K, p):
             raise NotImplementedError(
                 f"the chunk driver takes (slots, K, p) liveness masks, got "
-                f"{tuple(masks.shape)}; per-reading dropout with stages "
-                "needs the split-path kernels, not ported yet")
+                f"{tuple(masks.shape)}; per-reading dropout masks wait for "
+                "batched_stream_run, which is not ported yet")
         masks = masks.to(state.alive.dtype)
     has_stage = cfg.compression is not None or cfg.detection is not None
     with_c = cfg.compression is not None
@@ -254,8 +259,9 @@ def fleet_chunk_step(cfg: StreamConfig, state: StreamState, x: torch.Tensor,
             stage_mask = stage_mask * rv[..., None]
 
     sched_cfg = cfg.scheduler()
+    use_fused = cfg.use_fused
     z = x_hat = flags = t2 = spe = None
-    if has_stage:
+    if use_fused:
         w, beta_eff, delta_s, delta_tb = online_chunk_stats(
             state.cov, x, forgetting=cfg.forgetting, masks=masks,
             round_valid=rv)
@@ -276,6 +282,8 @@ def fleet_chunk_step(cfg: StreamConfig, state: StreamState, x: torch.Tensor,
     else:
         cov = online_update_chunk(state.cov, x, forgetting=cfg.forgetting,
                                   masks=masks, round_valid=rv)
+        if has_stage:
+            mean_est = cov.s / cov.t_i.clamp(min=1.0)
     # one decision at the boundary, indexed at the LAST folded round
     sched, rho, fired = sched_cfg.step(state.sched, cov,
                                        state.rounds + (live_i - 1), churn)
@@ -283,7 +291,7 @@ def fleet_chunk_step(cfg: StreamConfig, state: StreamState, x: torch.Tensor,
     sched = sched._replace(comm_packets=sched.comm_packets
                            + (live - 1) * sched_cfg.round_cost())
     factor = expected_transmissions(cfg.link_loss, cfg.max_retries)
-    if has_stage:
+    if use_fused:
         # where the decision fired the stages must see the rotated basis
         # (and its λ̂): recompute for every slot, select per slot
         il2 = inv_lambda(sched.lam, cfg.detection) if with_m else il
@@ -294,14 +302,19 @@ def fleet_chunk_step(cfg: StreamConfig, state: StreamState, x: torch.Tensor,
             fired.reshape((S,) + (1,) * (old.dim() - 1)), new, old)
         z, x_hat, flags, t2, spe = (pick(a, b) for a, b in
                                     zip(re, (z, x_hat, flags, t2, spe)))
+    xv = x.reshape(S, K * n, p)
     compression = None
     if with_c:
-        xv = x.reshape(S, K * n, p)
-        mask2d = (1.0 if stage_mask is None else
-                  stage_mask[:, :, None, :].expand(S, K, n, p)
-                  .reshape(S, K * n, p))
-        compression = compression_books(xv, z, x_hat, flags, mask2d,
-                                        cfg.compression, cfg.q, cfg.c_max)
+        if use_fused:
+            mask2d = 1.0 if stage_mask is None else row_mask(stage_mask, n)
+            compression = compression_books(xv, z, x_hat, flags, mask2d,
+                                            cfg.compression, cfg.q,
+                                            cfg.c_max)
+        else:
+            # the split body: against the POST-decision basis, once
+            compression = compress_round(sched.W, mean_est, xv,
+                                         cfg.compression, cfg.c_max,
+                                         mask=stage_mask, n=n)
         flagfree = compression_round_cost(cfg.q, cfg.c_max, cfg.compression)
         bill = (flagfree * live + compression.extra_packets) * factor
         sched = sched._replace(comm_packets=sched.comm_packets + bill)
@@ -314,12 +327,17 @@ def fleet_chunk_step(cfg: StreamConfig, state: StreamState, x: torch.Tensor,
             bits_on_air=compression.bits_on_air
             + (live - 1) * (a_pk + f_pk) * cfg.compression.word_bits)
     det_state, detection = state.det, None
-    if with_m:
+    if with_m and use_fused:
         row_live = row_liveness(stage_mask, K, (S,), device=dev) \
             .repeat_interleave(n, dim=-1)
         det_state, detection = detect_apply(t2, spe, row_live, cfg.q,
                                             state.det, cfg.detection,
                                             refreshed=fired)
+    elif with_m:
+        det_state, detection = detect_round(
+            sched.W, mean_est, sched.lam, xv, state.det, cfg.detection,
+            refreshed=fired, mask=stage_mask, n=n)
+    if with_m:
         flagfree, per_alarm = detection_packet_split(cfg.q, cfg.c_max)
         bill = (flagfree * live + detection.alarms * per_alarm) * factor
         sched = sched._replace(comm_packets=sched.comm_packets + bill)

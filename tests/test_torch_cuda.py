@@ -5,13 +5,22 @@
 Every test here carries the ``cuda`` marker and skips without a card (a
 CUDA kernel has no CPU mode).  This file imports no JAX, so it runs on a
 machine that has only PyTorch.  Tolerance rtol/atol 1e-5 at these small
-widths: the same fp32 products summed in another order.
+widths (1e-4 at p=1024, where each score sums 1024 products): the same
+fp32 products summed in another order.  Flags are compared exactly
+wherever the error is more than 1e-4 from ε.
 """
 
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.serve.engine import StreamingPCAEngine, StreamRequest
+from repro_torch.streaming import (CompressionConfig, DetectionConfig,
+                                   StreamConfig)
+from repro_torch.streaming.driver import random_bases
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -57,3 +66,121 @@ class TestCudaKernels:
         clear = (err - 0.5).abs() > 1e-4
         assert torch.equal(gpu[3].cpu()[clear], cpu[3][clear])
         torch.testing.assert_close(band.cpu(), cpu[0], **TOL)
+
+
+def _split_operands(S, R, p, q, masked, n):
+    g = torch.Generator().manual_seed(p + S)
+    x = torch.randn((S, R, p), generator=g)
+    basis = torch.linalg.qr(torch.randn((S, p, q), generator=g)).Q
+    mean = 0.1 * torch.randn((S, p), generator=g)
+    il = torch.rand((S, q), generator=g) + 0.5
+    m = ((torch.rand((S, R // n, p), generator=g) > 0.2).float()
+         if masked else None)
+    return x, basis, mean, il, m
+
+
+@pytest.mark.cuda
+class TestCudaSplitKernels:
+    """Kernels 4, 5, 8 and 9 against their plain versions, on the card."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+
+    @pytest.mark.parametrize("p,masked", [(64, False), (37, True),
+                                          (1024, True)])
+    def test_split_kernels_match_plain(self, p, masked):
+        S, K, n, q, eps = 3, 4, 8, 4, 0.5
+        R = K * n - 3                        # a ragged last row block
+        x, basis, mean, il, m = _split_operands(S, K * n, p, q, masked, n)
+        x = x[:, :R].contiguous()
+        if m is not None:                    # per-row form for ragged R
+            m = m.repeat_interleave(n, dim=1)[:, :R].contiguous()
+        tol = dict(rtol=1e-4, atol=1e-4) if p >= 1024 else TOL
+        c = lambda t: None if t is None else t.cuda()
+        ops.reset_counts()
+        pairs = [
+            (ops.supervised_compress(x, basis, mean, epsilon=eps, mask=m),
+             ops.supervised_compress(c(x), c(basis), c(mean), epsilon=eps,
+                                     mask=c(m))),
+            (ops.pca_monitor(x, basis, mean, il, mask=m),
+             ops.pca_monitor(c(x), c(basis), c(mean), c(il), mask=c(m))),
+            ((ops.pca_project(x, basis),), (ops.pca_project(c(x),
+                                                            c(basis)),)),
+            ((ops.pca_reconstruct(x[..., :q], basis),),
+             (ops.pca_reconstruct(c(x[..., :q].contiguous()), c(basis)),)),
+        ]
+        torch.cuda.synchronize()
+        for k in ("supervised_compress", "pca_monitor", "pca_project",
+                  "pca_reconstruct"):
+            assert ops.LAUNCHES[k] == 1, k
+        for cpu, gpu in pairs:
+            for a, b in zip(cpu, gpu):
+                if a.dtype == torch.bool:
+                    continue
+                torch.testing.assert_close(b.cpu(), a, **tol)
+        (_, xh, fl), (_, _, fl_g) = pairs[0]
+        assert fl_g.dtype == torch.bool
+        clear = ((x - xh).abs() - eps).abs() > 1e-4
+        assert torch.equal(fl_g.cpu()[clear], fl[clear])
+
+    def test_per_round_mask_matches_per_row(self):
+        S, K, n, p, q = 2, 4, 8, 37, 4
+        x, basis, mean, il, m = _split_operands(S, K * n, p, q, True, n)
+        args = [t.cuda() for t in (x, basis, mean, il)]
+        per_round = ops.pca_monitor(*args, mask=m.cuda(), n=n)
+        per_row = ops.pca_monitor(
+            *args, mask=m.repeat_interleave(n, dim=1).cuda())
+        for a, b in zip(per_round, per_row):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_split_engines_on_card_match_fused_engine():
+    """The split (``fused=False``) engine on the card against the fused
+    engine on the card, same requests and bases: counts exactly, books
+    rtol 1e-5, retained fraction rtol 1e-3 (refreshes go through Cholesky
+    and eigh on the card in both); the quantized engine keeps ε."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    cfg = StreamConfig(p=64, q=4, halfwidth=3, forgetting=0.98,
+                       warmup_rounds=3, drift_threshold=0.05,
+                       compression=CompressionConfig(epsilon=1.0),
+                       detection=DetectionConfig(alpha=1e-3, calib_rounds=2))
+    rng = np.random.default_rng(7)
+    j = np.arange(64)
+    U = np.exp(-0.5 * ((j[:, None] - np.array([10, 30, 50])) / 1.5) ** 2)
+    data = [(rng.normal(size=(r, 8, 3)) @ U.T + 0.05 * rng.normal(
+        size=(r, 8, 64))).astype(np.float32) for r in (10, 13, 16, 9, 12)]
+    bases = random_bases(4, 64, 4, seed=3, device="cpu")
+    results = {}
+    for label, c in (("fused", cfg),
+                     ("split", dataclasses.replace(cfg, fused=False)),
+                     ("quant", dataclasses.replace(
+                         cfg, compression=CompressionConfig(
+                             epsilon=1.0, score_bits=8)))):
+        eng = StreamingPCAEngine(c, slots=4, chunk=4, device="cuda",
+                                 init_bases=bases)
+        reqs = [StreamRequest(rounds=d) for d in data]
+        for r in reqs:
+            eng.submit(r)
+        ops.reset_counts()
+        eng.run_until_done()
+        assert sum(ops.PLAIN_CALLS.values()) == 0
+        results[label] = ([r.result for r in reqs], dict(ops.LAUNCHES))
+    assert results["split"][1]["supervised_compress"] \
+        == results["split"][1]["pca_monitor"] \
+        == results["fused"][1]["fused_stream"] > 0
+    assert results["quant"][1]["pca_project"] \
+        == results["quant"][1]["pca_reconstruct"] > 0
+    for a, b in zip(results["split"][0], results["fused"][0]):
+        assert (a.rounds, a.refreshes, a.compression_extra_packets,
+                a.detection_events) == (b.rounds, b.refreshes,
+                                        b.compression_extra_packets,
+                                        b.detection_events)
+        np.testing.assert_allclose(a.comm_packets, b.comm_packets,
+                                   rtol=1e-5)
+        np.testing.assert_allclose(a.retained, b.retained, rtol=1e-3)
+    for r in results["quant"][0]:
+        assert r.compression_max_err <= 1.0

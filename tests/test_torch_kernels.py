@@ -159,6 +159,133 @@ class TestFusedPlainVsReference:
                 precision="bf16")
 
 
+def _port_split_operands(x, basis, mean, il, mask):
+    """A (rows, p) epoch batch as a fleet of one, mask per row."""
+    t = lambda a: None if a is None else torch.from_numpy(a)[None]
+    return t(x), t(basis), t(mean), t(il), t(mask)
+
+
+class TestSplitStagesPlainVsReference:
+    """Kernels 4, 5, 8 and 9 (plain versions) against the reference's
+    Pallas kernels in interpret mode."""
+
+    @pytest.mark.parametrize("rows,p,q,masked,zt", SHAPES)
+    def test_supervised_compress_matches_pallas(self, rows, p, q, masked,
+                                                zt):
+        eps = 0.5
+        x, _, basis, mean, _, mask = _operands(rows, p, q, masked=masked)
+        r = ref_ops.supervised_compress(x, basis, mean, epsilon=eps,
+                                        mask=mask, interpret=True)
+        X, B, M, _, MK = _port_split_operands(x, basis, mean, None, mask)
+        o = ops.supervised_compress(X, B, M, epsilon=eps, mask=MK)
+        _close(o[0][0], r[0])
+        _close(o[1][0], r[1])
+        assert o[2].dtype == torch.bool
+        _flags_agree(o[2][0], r[2], np.abs(x - np.asarray(r[1])), eps)
+
+    @pytest.mark.parametrize("rows,p,q,masked,zt", SHAPES)
+    def test_pca_monitor_matches_pallas(self, rows, p, q, masked, zt):
+        x, _, basis, mean, il, mask = _operands(rows, p, q, masked=masked)
+        r = ref_ops.pca_monitor(x, basis, mean, il, mask=mask,
+                                interpret=True)
+        X, B, M, IL, MK = _port_split_operands(x, basis, mean, il, mask)
+        o = ops.pca_monitor(X, B, M, IL, mask=MK)
+        for a, b in zip(o, r):
+            _close(a[0], b)
+
+    @pytest.mark.parametrize("rows,p,q,masked,zt", SHAPES)
+    def test_project_and_reconstruct_match_pallas(self, rows, p, q, masked,
+                                                  zt):
+        x, _, basis, mean, _, mask = _operands(rows, p, q, masked=masked)
+        xc = (x - mean) * (1.0 if mask is None else mask)
+        z_r = ref_ops.pca_project(xc, basis, interpret=True)
+        xh_r = ref_ops.pca_reconstruct(np.asarray(z_r), basis,
+                                       interpret=True)
+        X, B = torch.from_numpy(xc)[None], torch.from_numpy(basis)[None]
+        z = ops.pca_project(X, B)
+        _close(z[0], z_r)
+        _close(ops.pca_reconstruct(torch.from_numpy(np.array(z_r))[None],
+                                   B)[0], xh_r)
+
+    @pytest.mark.parametrize("p", [64, 37])
+    def test_per_round_mask_matches_per_row_reference(self, p):
+        """A (S, K, p) per-round mask read at row r // n equals the
+        reference on each slot's rows with the mask repeated per row."""
+        S, K, n, q, eps = 3, 4, 8, 4, 0.5
+        rng = np.random.default_rng(p + 1)
+        x = rng.normal(size=(S, K * n, p)).astype(np.float32)
+        masks = (rng.random((S, K, p)) > 0.2).astype(np.float32)
+        basis = np.stack([np.linalg.qr(rng.normal(size=(p, q)))[0]
+                          for _ in range(S)]).astype(np.float32)
+        mean = rng.normal(size=(S, p)).astype(np.float32)
+        il = rng.uniform(0.5, 2.0, size=(S, q)).astype(np.float32)
+        T = torch.from_numpy
+        c = ops.supervised_compress(T(x), T(basis), T(mean), epsilon=eps,
+                                    mask=T(masks), n=n)
+        m = ops.pca_monitor(T(x), T(basis), T(mean), T(il), mask=T(masks),
+                            n=n)
+        for s in range(S):
+            rows_mask = np.repeat(masks[s], n, axis=0)
+            rc = ref_ops.supervised_compress(x[s], basis[s], mean[s],
+                                             epsilon=eps, mask=rows_mask,
+                                             interpret=True)
+            rm = ref_ops.pca_monitor(x[s], basis[s], mean[s], il[s],
+                                     mask=rows_mask, interpret=True)
+            _close(c[0][s], rc[0])
+            _close(c[1][s], rc[1])
+            _flags_agree(c[2][s], rc[2], np.abs(x[s] - np.asarray(rc[1])),
+                         eps)
+            for a, b in zip(m, rm):
+                _close(a[s], b)
+
+    @pytest.mark.parametrize("kernel", ["supervised_compress", "pca_monitor",
+                                        "pca_project", "pca_reconstruct"])
+    def test_fleet_form_is_per_network_form(self, kernel):
+        """The slot axis adds nothing: a fleet call equals one call per
+        slot (rtol/atol 1e-5: batched products may sum in another order)."""
+        S, K, n, p, q = 3, 2, 5, 37, 4
+        rng = np.random.default_rng(5)
+        T = lambda a: torch.from_numpy(a.astype(np.float32))
+        x = T(rng.normal(size=(S, K * n, p)))
+        basis = T(np.stack([np.linalg.qr(rng.normal(size=(p, q)))[0]
+                            for _ in range(S)]))
+        mean, il = T(rng.normal(size=(S, p))), T(rng.uniform(.5, 2, (S, q)))
+        mk = T(rng.random((S, K, p)) > 0.2)
+        call = {
+            "supervised_compress": lambda sl: ops.supervised_compress(
+                x[sl], basis[sl], mean[sl], epsilon=0.5, mask=mk[sl], n=n),
+            "pca_monitor": lambda sl: ops.pca_monitor(
+                x[sl], basis[sl], mean[sl], il[sl], mask=mk[sl], n=n),
+            "pca_project": lambda sl: (ops.pca_project(x[sl], basis[sl]),),
+            "pca_reconstruct": lambda sl: (ops.pca_reconstruct(
+                x[sl][..., :q], basis[sl]),),
+        }[kernel]
+        fleet = call(slice(None))
+        for s in range(S):
+            for a, b in zip(fleet, call(slice(s, s + 1))):
+                if a.dtype == torch.bool:
+                    assert torch.equal(a[s], b[0])
+                else:
+                    torch.testing.assert_close(a[s], b[0], **TOL)
+
+    def test_plain_path_counts_and_mask_shapes(self):
+        ops.reset_counts()
+        x, basis = torch.zeros((2, 8, 16)), torch.zeros((2, 16, 3))
+        ops.supervised_compress(x, basis, epsilon=0.5,
+                                mask=torch.ones((2, 4, 16)), n=2)
+        ops.pca_monitor(x, basis, mask=torch.ones((2, 8, 16)))
+        z = ops.pca_project(x, basis)
+        ops.pca_reconstruct(z, basis)
+        for k in ("supervised_compress", "pca_monitor", "pca_project",
+                  "pca_reconstruct"):
+            assert ops.PLAIN_CALLS[k] == 1, k
+        assert sum(ops.LAUNCHES.values()) == 0
+        with pytest.raises(ValueError, match="mask shape"):
+            ops.pca_monitor(x, basis, mask=torch.ones((2, 4, 16)))
+        with pytest.raises(ValueError, match="mask shape"):
+            ops.pca_monitor(x, basis, mask=torch.ones((2, 4, 16)), n=3)
+
+
 class TestBandFoldPlainVsReference:
     @pytest.mark.parametrize("K,n,p,h", [(4, 8, 64, 3), (4, 8, 37, 3),
                                          (3, 5, 17, 2), (1, 8, 24, 4),

@@ -13,7 +13,10 @@ The inputs are made here with numpy from fixed seeds and written to the
 output beside the reference's results, so the parent runs the port on
 exactly the same data.  Keys: ``{scenario}/cfg`` (JSON of the config),
 ``{scenario}/x``, ``/masks``, ``/rv`` (inputs), ``{scenario}/c{i}/pre.*``
-(state before chunk i), ``/post.*`` (state after), ``/m.*`` (metrics).
+(state before chunk i), ``/post.*`` (state after), ``/m.*`` (metrics);
+``quantize/*`` (the score quantizer on fixed scores).  The engine run
+writes the default configuration's results at the top level and the
+quantized configuration's under ``quant/``.
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ for _name in ("ClosedJaxpr", "Jaxpr", "Literal"):
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from repro.streaming.compressor import CompressionConfig  # noqa: E402
+from repro.streaming.compressor import (CompressionConfig,  # noqa: E402
+                                        quantize_scores)
 from repro.streaming.detector import DetectionConfig  # noqa: E402
 from repro.streaming.driver import (StreamConfig, chunk_stream_step,  # noqa: E402
                                     stream_init)
@@ -83,31 +87,55 @@ def cfg_json(cfg):
 
 
 STREAM_SCENARIOS = {
-    # name: (p, stages, masked, rounds)
-    "fused": (64, "cm", False, 24),
-    "fused_masked": (37, "cm", True, 22),
-    "compress_masked": (64, "c", True, 22),
-    "monitor": (37, "m", False, 24),
-    "band": (64, "", False, 24),
-    "band_masked": (37, "", True, 22),
+    # name: (p, stages, masked, rounds, config overrides)
+    "fused": (64, "cm", False, 24, {}),
+    "fused_masked": (37, "cm", True, 22, {}),
+    "compress_masked": (64, "c", True, 22, {}),
+    "monitor": (37, "m", False, 24, {}),
+    "band": (64, "", False, 24, {}),
+    "band_masked": (37, "", True, 22, {}),
+    "split": (64, "cm", False, 24, dict(fused=False)),
+    "split_masked": (37, "cm", True, 22, dict(fused=False)),
+    "quant": (64, "cm", False, 24, dict(score_bits=4)),
+    "quant_masked": (37, "c", True, 22, dict(score_bits=4)),
 }
 Q, H, K, N = 4, 3, 4, 8
+QUANT_BITS = (2, 4, 8, 16)
 
 
-def stream_cfg(p, stages):
+def stream_cfg(p, stages, fused=True, score_bits=0):
     return StreamConfig(
         p=p, q=Q, halfwidth=H, forgetting=0.97, warmup_rounds=6,
-        drift_threshold=0.05,
-        compression=CompressionConfig(epsilon=1.0) if "c" in stages else None,
+        drift_threshold=0.05, fused=fused,
+        compression=(CompressionConfig(epsilon=1.0, score_bits=score_bits)
+                     if "c" in stages else None),
         detection=(DetectionConfig(alpha=1e-2, calib_rounds=1)
                    if "m" in stages else None))
 
 
+def quantize_cases(out):
+    """Scores with a spread of per-component ranges, an all-zero column
+    (the scale's floor) and a column of half-integers up to 7 (at 4 bits
+    its scale is exactly 1, so every code is a tie: half to even)."""
+    rng = np.random.default_rng(99)
+    z = rng.normal(size=(64, 6)) * rng.uniform(0.1, 5.0, size=6)
+    z[:, 4] = 0.0
+    z[:, 5] = rng.integers(-7, 7, size=64) + 0.5
+    z[0, 5] = 7.0
+    z = z.astype(np.float32)
+    out["quantize/z"] = z
+    for bits in QUANT_BITS:
+        zq, scale = quantize_scores(jnp.asarray(z), bits)
+        out[f"quantize/b{bits}/z"] = np.asarray(zq)
+        out[f"quantize/b{bits}/scale"] = np.asarray(scale)
+
+
 def run_streaming(out):
-    for si, (name, (p, stages, masked, rounds)) in enumerate(
+    quantize_cases(out)
+    for si, (name, (p, stages, masked, rounds, over)) in enumerate(
             STREAM_SCENARIOS.items()):
         rng = np.random.default_rng(100 + si)
-        cfg = stream_cfg(p, stages)
+        cfg = stream_cfg(p, stages, **over)
         x = signal(rng, rounds, N, p, rotate_at=12)
         masks = None
         if masked:
@@ -147,17 +175,21 @@ def run_streaming(out):
 ENGINE_P, ENGINE_SLOTS = 64, 4
 
 
-def engine_cfg():
+def engine_cfg(score_bits=0):
     return StreamConfig(
         p=ENGINE_P, q=Q, halfwidth=H, forgetting=0.98, warmup_rounds=K - 1,
         drift_threshold=0.05,
-        compression=CompressionConfig(epsilon=1.0),
+        compression=CompressionConfig(epsilon=1.0, score_bits=score_bits),
         detection=DetectionConfig(alpha=1e-3, calib_rounds=2))
 
 
 def run_engine(out):
+    serve_engine(out, engine_cfg(), "")
+    serve_engine(out, engine_cfg(score_bits=4), "quant/")
+
+
+def serve_engine(out, cfg, prefix):
     from repro.serve.engine import StreamingPCAEngine, StreamRequest
-    cfg = engine_cfg()
     rng = np.random.default_rng(7)
     lengths = [10, 13, 16, 9, 12, 14]
     reqs = []
@@ -167,22 +199,22 @@ def run_engine(out):
         if i == 2:
             live = np.ones((R, ENGINE_P), np.float32)
             live[6:, 20:28] = 0.0
-        out[f"req{i}/rounds"] = x
+        out[f"{prefix}req{i}/rounds"] = x
         if live is not None:
-            out[f"req{i}/liveness"] = live
+            out[f"{prefix}req{i}/liveness"] = live
         reqs.append(StreamRequest(rounds=x, liveness=live))
     eng = StreamingPCAEngine(cfg, slots=ENGINE_SLOTS, seed=0, chunk=K)
-    out["init_bases"] = np.asarray(eng.states.sched.W)
-    out["cfg"] = np.array(cfg_json(cfg))
+    out[f"{prefix}init_bases"] = np.asarray(eng.states.sched.W)
+    out[f"{prefix}cfg"] = np.array(cfg_json(cfg))
     for r in reqs:
         eng.submit(r)
     eng.run_until_done()
-    out["steps"] = np.array(eng._clock)
+    out[f"{prefix}steps"] = np.array(eng._clock)
     for i, r in enumerate(reqs):
         for f in dataclasses.fields(r.result):
             v = getattr(r.result, f.name)
             if v is not None:
-                out[f"req{i}/result.{f.name}"] = np.asarray(v)
+                out[f"{prefix}req{i}/result.{f.name}"] = np.asarray(v)
 
 
 if __name__ == "__main__":
