@@ -9,10 +9,13 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      source, in parallel, into build/repro_torch/);
   3. each kernel against its plain PyTorch version on the card, at the
      engine's widths (256 slots, p=1024, h=128, q=32, K*n=8*32 rows, masks
-     per round), with its time (CUDA events, warmed up) beside its bound
-     and, for the projection and reconstruction kernels, torch.bmm's time
-     on the same inputs (TF32 off); plus a small engine run on the card
-     against the same run on the CPU;
+     per round; the per-round folds at n=32 rows, the banded products on
+     the refresh's (256, 257, 1024) band), with its time (CUDA events,
+     warmed up) beside its bound and, where one PyTorch call computes the
+     same function, that call's time on the same inputs (torch.bmm, TF32
+     off; for the banded products on the dense (p, p) matrix formed
+     outside the timing); plus a small engine run on the card against the
+     same run on the CPU;
   4. the main path: StreamingPCAEngine with compression and detection on
      256 slots at one wsn-1m region's width, serving 320 requests of 24
      rounds (slots retire and readmit; the last 64 carry a liveness
@@ -24,7 +27,15 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      band-fold, one supervised-compression and one monitoring launch per
      step;
   7. the quantized-score engine (score_bits=8): one band-fold, one
-     projection, one reconstruction and one monitoring launch per step.
+     projection, one reconstruction and one monitoring launch per step;
+  8. the per-round fleet path: batched_stream_run(chunk=None) on 256
+     networks x 24 rounds with compression and detection, the last 64
+     networks carrying the death wave, the others all-ones masks: every
+     round one masked per-round fold, one supervised-compression and one
+     monitoring launch and 1 + refresh_iters + 2 banded products; plus a
+     small per-round fleet on the card against the same fleet on the CPU;
+  9. the band-only per-round path without masks: one per-round fold and
+     1 + refresh_iters + 2 banded products a round.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card, or without the rest
 of the repository beside it, the script exits non-zero and prints no
@@ -61,6 +72,14 @@ KERNELS = {
     "pca_monitor": (_SPLIT, "src/repro/kernels/pca_project.py:171"),
     "pca_project": (_SPLIT, "src/repro/kernels/pca_project.py:61"),
     "pca_reconstruct": (_SPLIT, "src/repro/kernels/pca_project.py:89"),
+    "band_round": ("src/repro_torch/kernels/csrc/band_fold.cu",
+                   "src/repro/kernels/cov_update.py:53"),
+    "band_round_masked": ("src/repro_torch/kernels/csrc/band_fold.cu",
+                          "src/repro/kernels/cov_update.py:108"),
+    "banded_matmul": ("src/repro_torch/kernels/csrc/banded.cu",
+                      "src/repro/kernels/banded_matvec.py:85"),
+    "banded_matvec": ("src/repro_torch/kernels/csrc/banded.cu",
+                      "src/repro/kernels/banded_matvec.py:52"),
 }
 
 
@@ -128,9 +147,12 @@ def compare(name, out, plain, rtol, atol):
 
 
 def profile_breakdown(run, top: int = 8) -> None:
-    """Where an engine run's device time goes: the kernels with the most
-    device time, and the device's busy share of the run's wall time (the
-    run is a repeat of the measured one, under torch.profiler)."""
+    """Where an engine run's device time goes: the kernels and copies with
+    the most device time, and the device's busy share of the run's wall
+    time (the run is a repeat of the measured one, under torch.profiler).
+    Only device events count: an operator's row carries the time of the
+    kernels it launched, which have rows of their own."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -140,7 +162,8 @@ def profile_breakdown(run, top: int = 8) -> None:
         wall = time.perf_counter() - t
     dev_time = lambda e: getattr(e, "self_device_time_total",
                                  getattr(e, "self_cuda_time_total", 0.0))
-    rows = sorted((e for e in prof.key_averages() if dev_time(e) > 0),
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type != DeviceType.CPU and dev_time(e) > 0),
                   key=dev_time, reverse=True)
     busy = sum(dev_time(e) for e in rows) / 1e6
     print(f"   profile: device busy {busy:.3f} s of {wall:.3f} s wall "
@@ -215,6 +238,93 @@ def split_kernels(record, xv, masks, basis, mean, il, eps) -> None:
     del xc, rows_mask, z8
 
 
+def band_entries(p, h):
+    """In-range entries of a (2h+1, p) band: (2h+1)p - h(h+1)."""
+    h = min(h, p - 1)
+    return (2 * h + 1) * p - h * (h + 1)
+
+
+def round_and_banded_kernels(record, dev, g) -> None:
+    """Kernels 6, 7 (the per-round folds: one round of n=32 rows per
+    slot, a (S, p) liveness row or a (S, n, p) dropout mask) and 10, 11
+    (the banded products on the refresh's band) against their plain
+    versions; times beside bounds, and torch.bmm on the dense (p, p)
+    matrix beside the banded products."""
+    from repro_torch.core.covariance import band_to_dense, band_valid
+    from repro_torch.kernels import ops, ref
+    from repro_torch.streaming.driver import random_bases
+    S = SLOTS
+    x = torch.randn((S, N, P), device=dev, generator=g)
+    live = (torch.rand((S, P), device=dev, generator=g) > 0.05).float()
+    drop = (torch.rand((S, N, P), device=dev, generator=g) > 0.05).float()
+    f32 = 4.0
+    band_b = S * (2 * H + 1) * P * f32
+    for name, m in (("band_round", None), ("band_round_masked", live),
+                    ("band_round_masked", drop)):
+        run = lambda: ops.cov_band_update_batched(x, H, mask=m)
+        plain_fn = lambda: ref.cov_band_update(x, H, m)
+        out = run()
+        torch.cuda.synchronize()
+        kind = ("" if m is None else " liveness (S, p)" if m.dim() == 2
+                else " dropout (S, n, p)")
+        err = compare(f"{name}{kind}", out, plain_fn(), 1e-4, 1e-3)
+        ms = time_ms(run, 10)
+        plain_ms = time_ms(plain_fn, 3, 1)
+        nbytes = x.numel() * f32 + band_b + (0 if m is None
+                                             else m.numel() * f32)
+        b_ms, b_by = bound(fold_flops(S, N, P, H), nbytes)
+        print(f"   {name}{kind} S={S} n={N} p={P} h={H}: kernel {ms:.3f} "
+              f"ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
+              f"{nbytes / 1e9:.3f} GB)")
+        if m is None or m.dim() == 2:
+            record[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                bound_ms=b_ms, bound_by=b_by,
+                                library_ms=None)
+    del x, live, drop
+    band = torch.randn((S, 2 * H + 1, P), device=dev, generator=g) \
+        * band_valid(P, H, device=dev)
+    V = random_bases(S, P, Q, seed=2, device=dev)
+    dense = band_to_dense(band)
+    torch.cuda.synchronize()
+    dense_ms = time_ms(lambda: band_to_dense(band), 3, 1)
+    print(f"   band_to_dense (S={S}, p={P}): {dense_ms:.3f} ms, "
+          f"{dense.numel() * f32 / 1e9:.2f} GB")
+    entries = band_entries(P, H)
+    for name, operand, width in (("banded_matmul", V, Q),
+                                 ("banded_matvec", V[..., 0].contiguous(),
+                                  1)):
+        vec = width == 1
+        run = (lambda: ops.banded_matvec(band, operand)) if vec \
+            else (lambda: ops.banded_matmul(band, operand))
+        plain_fn = (lambda: ref.banded_matvec(band, operand)) if vec \
+            else (lambda: ref.banded_matmul(band, operand))
+        lib = (lambda: torch.bmm(dense, operand[..., None])) if vec \
+            else (lambda: torch.bmm(dense, operand))
+        out = run()
+        torch.cuda.synchronize()
+        plain = plain_fn()
+        err = compare(name, out, plain, 1e-5, 1e-5)
+        same = bool(torch.equal(out, plain))
+        print(f"   {name}: equal bits to the plain version: {same}")
+        compare(f"{name} vs torch.bmm on the dense matrix", out,
+                lib().reshape(out.shape), 1e-4, 1e-4)
+        ms = time_ms(run, 10)
+        plain_ms = time_ms(plain_fn, 3, 1)
+        lib_ms = time_ms(lib, 10)
+        flops = 2.0 * S * width * entries
+        nbytes = S * entries * f32 + 2 * S * P * width * f32
+        b_ms, b_by = bound(flops, nbytes)
+        print(f"   {name} S={S} p={P} h={H} q={width}: kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, torch.bmm on dense {lib_ms:.3f} ms "
+              f"(+ band_to_dense {dense_ms:.3f} ms), bound {b_ms:.4f} ms "
+              f"({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e9:.3f} GB)")
+        record[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        del out, plain
+    del band, V, dense
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -228,7 +338,8 @@ def main() -> int:
     from repro_torch.kernels import build, ops, ref
     from repro_torch.serve.engine import StreamingPCAEngine, StreamRequest
     from repro_torch.streaming import (CompressionConfig, DetectionConfig,
-                                       StreamConfig)
+                                       StreamConfig, batched_stream_init,
+                                       batched_stream_run)
     from repro_torch.streaming.driver import random_bases
 
     t_start = time.perf_counter()
@@ -339,6 +450,7 @@ def main() -> int:
     split_kernels(record, x.reshape(S, R, P), masks, basis, mean, il, eps)
     del x, masks, basis
     torch.cuda.empty_cache()
+    round_and_banded_kernels(record, dev, g)
 
     # a small engine on the card against the same engine on the CPU
     small = StreamConfig(p=64, q=4, halfwidth=3, forgetting=0.98,
@@ -410,7 +522,8 @@ def main() -> int:
         res = [r.result for r in reqs]
         print(f"   {label}: {steps} steps, {folded} rounds in {wall:.2f} s "
               f"= {folded / wall:.1f} rounds/s ({folded * N / wall:.0f} "
-              f"epochs/s); refreshes {sum(r.refreshes for r in res)}; "
+              f"epochs/s), step {1e3 * wall / steps:.1f} ms; refreshes "
+              f"{sum(r.refreshes for r in res)}; "
               f"launches {launches}; plain calls {plain}; peak device "
               f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
         check(all(r.done for r in reqs), f"{label}: not every request done")
@@ -492,6 +605,101 @@ def main() -> int:
           f"split {split_books[1]:.6g})")
     for name in ("pca_project", "pca_reconstruct"):
         record[name]["launches"] = launches[name]
+    del res
+
+    phase("8 per-round fleet: compression + detection")
+    # a small per-round fleet on the card against the same fleet on the CPU
+    rng = np.random.default_rng(8)
+    sx = torch.from_numpy(np.stack([signal(rng, 12, 8, 64, 3)
+                                    for _ in range(4)]))
+    smask = torch.ones((4, 12, 64))
+    smask[3, 6:, 20:28] = 0.0
+    sbases = random_bases(4, 64, 4, seed=4, device="cpu")
+    small_runs = {}
+    for where in ("cuda", "cpu"):
+        st = batched_stream_init(small, 4, W0=sbases, device=where)
+        small_runs[where] = batched_stream_run(small, st, sx.to(where),
+                                               smask.to(where))[1]
+    mg, mc = small_runs["cuda"], small_runs["cpu"]
+    check(torch.equal(mg.did_refresh.cpu(), mc.did_refresh)
+          and torch.equal(mg.compression.extra_packets.cpu(),
+                          mc.compression.extra_packets)
+          and torch.equal(mg.detection.alarms.cpu(), mc.detection.alarms),
+          "small per-round fleet: decisions or counts differ card vs CPU")
+    check(bool(torch.allclose(mg.comm_packets.cpu(), mc.comm_packets,
+                              rtol=1e-5, atol=0))
+          and bool(torch.allclose(mg.rho.cpu(), mc.rho, rtol=1e-3,
+                                  atol=1e-6)),
+          "small per-round fleet: books or retained fraction differ")
+    print(f"   small per-round fleet (4 networks x 12 rounds, p=64): card "
+          f"== CPU on decisions, flags, alarms; comm_packets rtol 1e-5, "
+          f"rho rtol 1e-3; {int(mg.did_refresh.sum())} refreshes")
+
+    xs = torch.from_numpy(np.stack(data[:SLOTS])).to(dev)
+    live = torch.ones((SLOTS, ROUNDS, P), device=dev)
+    live[SLOTS - 64:] = torch.from_numpy(sched).to(dev)
+    print(f"   fleet {tuple(xs.shape)} on the card "
+          f"({xs.numel() * 4 / 1e6:.0f} MB), liveness {tuple(live.shape)}")
+    per_decision = cfg.refresh_iters + 3
+
+    def fleet_run(config, rounds, masks, label):
+        st = batched_stream_init(config, SLOTS, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        t = time.perf_counter()
+        fin, met = batched_stream_run(config, st, xs[:, :rounds],
+                                      None if masks is None
+                                      else masks[:, :rounds])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches, plain = dict(ops.LAUNCHES), dict(ops.PLAIN_CALLS)
+        print(f"   {label}: {SLOTS} networks x {rounds} rounds in "
+              f"{wall:.2f} s = {SLOTS * rounds / wall:.1f} rounds/s, "
+              f"{1e3 * wall / rounds:.1f} ms a round; refreshes "
+              f"{int(met.did_refresh.sum())}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }; plain calls "
+              f"{sum(plain.values())}")
+        check(sum(plain.values()) == 0, f"{label}: plain path was taken")
+        check(launches["banded_matmul"] == rounds * per_decision,
+              f"{label}: {launches['banded_matmul']} banded products, want "
+              f"{rounds} x {per_decision}")
+        check(bool(torch.isfinite(met.rho).all())
+              and bool(torch.isfinite(met.comm_packets).all())
+              and bool(torch.isfinite(fin.sched.W).all())
+              and bool(torch.isfinite(fin.cov.band).all())
+              and bool((fin.sched.refreshes >= 1).all())
+              and bool((fin.rounds == rounds).all()),
+              f"{label}: results not finite or not streamed")
+        return fin, met, launches
+
+    fin, met, launches = fleet_run(cfg, ROUNDS, live, "per-round fleet")
+    check(launches["band_round_masked"] == ROUNDS
+          and launches["band_round"] == 0
+          and launches["supervised_compress"] == ROUNDS
+          and launches["pca_monitor"] == ROUNDS
+          and launches["fused_stream"] == launches["band_fold"]
+          == launches["band_fold_masked"] == 0,
+          f"per-round fleet launches {launches} vs {ROUNDS} rounds")
+    worst = float(met.compression.max_err.max())
+    print(f"   worst sink error {worst:.4f} <= eps {EPS} over "
+          f"{float(met.compression.extra_packets.sum()):.0f} flagged "
+          f"readings; {float(met.detection.alarms.sum()):.0f} alarmed "
+          f"epochs; rho of the last round "
+          f"{float(met.rho[:, -1].min()):.4f}..{float(met.rho[:, -1].max()):.4f}")
+    check(worst <= EPS, "per-round fleet: the eps guarantee was broken")
+    for name in ("band_round_masked", "banded_matmul", "banded_matvec"):
+        record[name]["launches"] = launches[name]
+    del fin, met
+    profile_breakdown(lambda: fleet_run(cfg, ROUNDS, live,
+                                        "profiled per-round fleet"))
+
+    phase("9 per-round fleet: band only")
+    _, _, launches = fleet_run(band_cfg, 16, None, "band-only per-round fleet")
+    check(launches["band_round"] == 16 and launches["band_round_masked"] == 0
+          and launches["band_fold"] == launches["band_fold_masked"] == 0,
+          f"band-only per-round launches {launches}")
+    record["band_round"]["launches"] = launches["band_round"]
+    del xs, live
 
     print(f"   total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [

@@ -29,7 +29,9 @@ def state_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda",
                      prefix: str = "") -> StreamState:
     """Build the port's :class:`StreamState` from numpy arrays keyed by
     field path (optionally under ``prefix``); the detector state is read
-    when its keys are present."""
+    when its keys are present.  Leaves keep their leading axes, so a
+    fleet's states (the reference's ``batched_stream_init``, initial
+    bases included) carry across with their networks axis."""
     dev = resolve_device(device)
 
     def get(name):

@@ -11,7 +11,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["_shifted", "shifted_stack", "band_valid", "band_to_dense",
-           "banded_matmul_ref"]
+           "banded_matmul_ref", "banded_matvec_ref"]
 
 
 def _shifted(x: torch.Tensor, offset: int) -> torch.Tensor:
@@ -46,7 +46,7 @@ def band_to_dense(band: torch.Tensor) -> torch.Tensor:
 
     Row i of the dense matrix is exactly what :func:`banded_matmul_ref`
     contracts against for output row i, so ``band_to_dense(b) @ V`` is the
-    banded product up to the order of the sums."""
+    banded product up to the order of the sums (the tests' yardstick)."""
     nb, p = band.shape[-2:]
     h = (nb - 1) // 2
     dev = band.device
@@ -63,8 +63,26 @@ def band_to_dense(band: torch.Tensor) -> torch.Tensor:
 
 def banded_matmul_ref(band: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
     """``Y[i, c] = sum_k band[k, i] V[i + k - h, c]`` — C @ V for V (p, q),
-    as the reference writes it: one shifted multiply-add per diagonal."""
-    nb = band.shape[-2]
+    as the reference writes it: one shifted multiply-add per diagonal,
+    k = 0..2h in order into one fp32 accumulator, each over its in-range
+    rows only (a halo row outside [0, p) adds nothing).  No (p, p) or
+    (q, 2h+1, p) intermediate."""
+    nb, p = band.shape[-2:]
     h = (nb - 1) // 2
-    Vs = shifted_stack(V.transpose(-1, -2), h)           # (..., q, nb, p)
-    return torch.einsum("...kp,...ckp->...pc", band, Vs)
+    band, V = band.float(), V.float()
+    lead = torch.broadcast_shapes(band.shape[:-2], V.shape[:-2])
+    acc = V.new_zeros(lead + V.shape[-2:])
+    for k in range(nb):
+        off = k - h
+        lo, hi = max(0, -off), min(p, p - off)
+        if hi > lo:
+            acc[..., lo:hi, :] += (band[..., k, lo:hi, None]
+                                   * V[..., lo + off:hi + off, :])
+    return acc
+
+
+def banded_matvec_ref(band: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``(Cv)[i] = sum_k band[k, i] v[i + k - h]`` — the paper's
+    neighbour-local Cv, for v (p,): :func:`banded_matmul_ref` with one
+    column."""
+    return banded_matmul_ref(band, v[..., None])[..., 0]

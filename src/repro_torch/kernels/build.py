@@ -35,6 +35,12 @@ SOURCES: dict[str, dict[str, list]] = {
     "band_fold": {
         "band_fold_f32": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
         "band_fold_masked_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+        "band_round_f32": [_P, _I, _I, _I, _I, _P, _P],
+        "band_round_masked_f32": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
+    },
+    "banded": {
+        "banded_matmul_f32": [_P, _P, _I, _I, _I, _I, _P, _P],
+        "banded_matvec_f32": [_P, _P, _I, _I, _I, _P, _P],
     },
     "fused_stream": {
         "fused_stream_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -8,6 +8,9 @@
 // per ROUND; the optional 0/1 mask has one row per round ((K, p) liveness)
 // or, with per_reading set, one row per row of x ((K, n, p) dropout) — a
 // liveness mask is never broadcast to the chunk's size in device memory.
+// With WEIGHTED false (the per-round fold of kernels 6 and 7: K = 1, unit
+// weight) w is not read and the product is xi * xj — the same bits as
+// (xi * 1.0f) * xj, so a round folds to the chunk fold's bits at K = 1.
 //
 // One thread owns one output (k, i) and walks the rows in order, round by
 // round (so no integer division in the loop): no atomics, no cross-block
@@ -25,7 +28,7 @@ namespace repro_torch {
 
 constexpr int kFoldThreads = 256;
 
-template <bool HAS_MASK>
+template <bool HAS_MASK, bool WEIGHTED = true>
 __device__ __forceinline__ void band_fold_block(
     const float* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ m, int K, int n, bool per_reading, int p,
@@ -38,7 +41,7 @@ __device__ __forceinline__ void band_fold_block(
   float acc = 0.0f;
   if (j >= 0 && j < p) {
     for (int t = 0; t < K; ++t) {
-      const float wt = w[t];
+      const float wt = WEIGHTED ? w[t] : 1.0f;
       float mi = 1.0f, mj = 1.0f;
       if (HAS_MASK && !per_reading) {
         mi = m[(size_t)t * p + i];
@@ -56,7 +59,7 @@ __device__ __forceinline__ void band_fold_block(
           xi *= mi;
           xj *= mj;
         }
-        acc += (xi * wt) * xj;
+        acc += (WEIGHTED ? xi * wt : xi) * xj;
       }
     }
   }

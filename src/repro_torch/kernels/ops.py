@@ -14,20 +14,24 @@ allocate nothing: the wrapper allocates every output with ``torch.empty``.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import load_library
 
 __all__ = ["LAUNCHES", "PLAIN_CALLS", "reset_counts",
+           "cov_band_update", "cov_band_update_batched",
            "cov_band_update_chunk", "cov_band_update_chunk_batched",
            "fused_stream_update", "fused_stream_stages_blocked",
            "supervised_compress", "pca_monitor", "pca_project",
-           "pca_reconstruct"]
+           "pca_reconstruct", "banded_matmul", "banded_matvec"]
 
-_KERNELS = ("fused_stream", "band_fold", "band_fold_masked",
-            "supervised_compress", "pca_monitor", "pca_project",
-            "pca_reconstruct")
+_KERNELS = ("fused_stream", "band_fold", "band_fold_masked", "band_round",
+            "band_round_masked", "supervised_compress", "pca_monitor",
+            "pca_project", "pca_reconstruct", "banded_matmul",
+            "banded_matvec")
 LAUNCHES = dict.fromkeys(_KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(_KERNELS, 0)
 
@@ -90,6 +94,57 @@ def _mask_rows(mask: torch.Tensor, B: int, K: int, n: int, p: int,
         return mask.reshape(B, K * n, p), 1
     raise ValueError(f"mask shape {tuple(mask.shape)} is neither "
                      f"{(B, K, p)} nor {(B, K, n, p)}")
+
+
+def cov_band_update_batched(x: torch.Tensor, halfwidth: int, *,
+                            mask: torch.Tensor | None = None,
+                            ) -> torch.Tensor:
+    """Fold each network's round into its delta band in ONE launch for
+    the whole fleet: ``x`` (B, n, p), ``mask`` (B, p) liveness — read once
+    for all n rows, never broadcast in device memory — (B, n, p) dropout,
+    or None.  Returns the (B, 2h+1, p) fp32 bands
+    ``delta[b, k, i] = sum_r (m x)[b,r,i] (m x)[b,r,i+k-h]``: the chunk
+    fold at K = 1 with unit weight.  Kernels 6 and 7
+    (``csrc/band_fold.cu``)."""
+    if x.dim() != 3:
+        raise ValueError(f"expected (networks, n, p), got {tuple(x.shape)}")
+    B, n, p = x.shape
+    h = int(halfwidth)
+    kernel = "band_round" if mask is None else "band_round_masked"
+    if mask is not None and mask.shape not in ((B, p), (B, n, p)):
+        raise ValueError(f"mask shape {tuple(mask.shape)} is neither "
+                         f"{(B, p)} nor {(B, n, p)}")
+    if not x.is_cuda:
+        PLAIN_CALLS[kernel] += 1
+        return ref.cov_band_update(x, h, mask)
+    if B > _MAX_SLOTS:
+        raise ValueError(f"{B} networks exceed the grid's {_MAX_SLOTS}")
+    dev = x.device
+    xx = _cuda_f32(x, dev)
+    band = torch.empty((B, 2 * h + 1, p), device=dev, dtype=torch.float32)
+    lib = load_library("band_fold")
+    if mask is None:
+        ret = lib.band_round_f32(xx.data_ptr(), B, n, p, h, band.data_ptr(),
+                                 _stream())
+    else:
+        m = _cuda_f32(mask, dev)
+        ret = lib.band_round_masked_f32(xx.data_ptr(), m.data_ptr(), B, n,
+                                        int(m.dim() == 3), p, h,
+                                        band.data_ptr(), _stream())
+    _check(ret, kernel)
+    LAUNCHES[kernel] += 1
+    return band
+
+
+def cov_band_update(x: torch.Tensor, halfwidth: int, *,
+                    mask: torch.Tensor | None = None) -> torch.Tensor:
+    """One network's (n, p) round folded into a (2h+1, p) delta band,
+    ``mask`` (p,) liveness, (n, p) dropout or None:
+    :func:`cov_band_update_batched` with a fleet of one."""
+    if x.dim() != 2:
+        raise ValueError(f"expected (n, p), got {tuple(x.shape)}")
+    return cov_band_update_batched(
+        x[None], halfwidth, mask=None if mask is None else mask[None])[0]
 
 
 def cov_band_update_chunk_batched(xs: torch.Tensor, weights: torch.Tensor,
@@ -411,3 +466,56 @@ def pca_reconstruct(z: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
     _check(ret, "pca_reconstruct")
     LAUNCHES["pca_reconstruct"] += 1
     return xh
+
+
+def _banded(band: torch.Tensor, V: torch.Tensor, vec: bool) -> torch.Tensor:
+    """Kernels 10 (``vec`` False: V (..., p, q)) and 11 (``vec`` True:
+    v (..., p)) over the leading axes of ``band`` (..., 2h+1, p), which V
+    shares; the leading axes are flattened onto the grid's y axis."""
+    kernel = "banded_matvec" if vec else "banded_matmul"
+    nb, p = band.shape[-2:]
+    lead = band.shape[:-2]
+    q = 1 if vec else V.shape[-1]
+    want = lead + ((p,) if vec else (p, q))
+    if nb % 2 == 0 or V.shape != want:
+        raise ValueError(f"{kernel}: band {tuple(band.shape)} (2h+1 "
+                         f"diagonals) and operand {tuple(V.shape)} do not "
+                         f"fit (want {tuple(want)})")
+    if not band.is_cuda:
+        PLAIN_CALLS[kernel] += 1
+        return (ref.banded_matvec if vec else ref.banded_matmul)(band, V)
+    B = math.prod(lead)
+    if not 1 <= B <= _MAX_SLOTS or q < 1:
+        raise ValueError(f"{kernel}: {B} leading entries and {q} columns "
+                         f"do not fit the grid")
+    dev = band.device
+    bb, vv = _cuda_f32(band, dev), _cuda_f32(V, dev)
+    Y = torch.empty(want, device=dev, dtype=torch.float32)
+    lib = load_library("banded")
+    h = (nb - 1) // 2
+    if vec:
+        ret = lib.banded_matvec_f32(bb.data_ptr(), vv.data_ptr(), B, p, h,
+                                    Y.data_ptr(), _stream())
+    else:
+        ret = lib.banded_matmul_f32(bb.data_ptr(), vv.data_ptr(), B, p, h, q,
+                                    Y.data_ptr(), _stream())
+    _check(ret, kernel)
+    LAUNCHES[kernel] += 1
+    return Y
+
+
+def banded_matmul(band: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """``Y = C V`` for every leading index in ONE launch (kernel 10,
+    ``csrc/banded.cu``): ``band`` (..., 2h+1, p) diagonals
+    (``band[k, i] = C[i, i + k - h]``), ``V`` (..., p, q) with the same
+    leading axes -> (..., p, q) fp32,
+    ``Y[..., i, c] = sum_k band[..., k, i] V[..., i + k - h, c]`` with the
+    diagonals summed in order."""
+    return _banded(band, V, vec=False)
+
+
+def banded_matvec(band: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``y = C v`` for every leading index in ONE launch (kernel 11,
+    ``csrc/banded.cu``): ``band`` (..., 2h+1, p), ``v`` (..., p) ->
+    (..., p) fp32."""
+    return _banded(band, v, vec=True)

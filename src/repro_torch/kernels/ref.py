@@ -16,12 +16,17 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.covariance import banded_matmul_ref
+# Kernels 10 and 11: ``Y[i, c] = sum_k band[k, i] V[i + k - h, c]``, the
+# diagonals in order, each a multiply and an add into a (..., p, q)
+# accumulator (``repro.core.covariance.banded_matmul_ref``).
+from repro_torch.core.covariance import banded_matmul_ref as banded_matmul
+from repro_torch.core.covariance import banded_matvec_ref as banded_matvec
 
-__all__ = ["band_fold", "cov_band_update_chunk",
-           "cov_band_update_chunk_masked", "supervised_compress",
-           "pca_monitor", "pca_project", "pca_reconstruct", "fused_stages",
-           "fused_stream", "banded_matmul"]
+__all__ = ["band_fold", "cov_band_update",
+           "cov_band_update_chunk", "cov_band_update_chunk_masked",
+           "supervised_compress", "pca_monitor", "pca_project",
+           "pca_reconstruct", "fused_stages", "fused_stream",
+           "banded_matmul", "banded_matvec"]
 
 
 def _row_mask(masks: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
@@ -51,6 +56,19 @@ def band_fold(xs: torch.Tensor, weights: torch.Tensor, halfwidth: int,
             band[..., k, lo:hi] = (xw[..., lo:hi]
                                    * xm[..., lo + off:hi + off]).sum(-2)
     return band
+
+
+def cov_band_update(x: torch.Tensor, halfwidth: int,
+                    mask: torch.Tensor | None = None) -> torch.Tensor:
+    """One round (..., n, p) folded with unit weight (``repro.kernels.ref``
+    lines 52 and 61), ``mask`` (..., p) liveness, (..., n, p) dropout or
+    None: the chunk fold at K = 1, w = 1, so a round and a one-round chunk
+    give the same bits."""
+    if mask is not None:
+        mask = mask[..., None, :] if mask.dim() == x.dim() - 1 \
+            else mask[..., None, :, :]
+    return band_fold(x[..., None, :, :], x.new_ones(x.shape[:-2] + (1,)),
+                     halfwidth, mask)
 
 
 def cov_band_update_chunk(xs: torch.Tensor, weights: torch.Tensor,
@@ -154,8 +172,3 @@ def fused_stream(xs: torch.Tensor, weights: torch.Tensor, w: torch.Tensor,
     ``(band, z, x_hat, flags, t2, spe)`` (``repro.kernels.ref`` line 156)."""
     band = band_fold(xs, weights, halfwidth, masks)
     return (band,) + fused_stages(xs, w, mean, inv_lam, epsilon, masks)
-
-
-def banded_matmul(band: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
-    """``Y[i, c] = sum_k band[k, i] V[i + k - h, c]`` (blocked PIM form)."""
-    return banded_matmul_ref(band, V)

@@ -1,14 +1,21 @@
-"""Chunked stream drivers (counterpart of ``repro.streaming.driver``).
+"""Stream drivers, per round and chunked (counterpart of
+``repro.streaming.driver``).
 
-* :func:`fleet_chunk_step` — K rounds for EVERY slot of a fleet in one
-  pass: the chunk fold (one kernel launch for the fleet), one scheduler
-  decision per slot, the compression/detection stages and the per-epoch
-  Table-1 books.  It replaces the reference's vmapped, jitted
-  ``engine_chunk_step_fn``: the slot axis is written out and the kernels
-  take it as a grid axis.
-* :func:`chunk_stream_step` — the same for ONE network (a fleet of one).
-* :func:`chunked_stream_run` — a Python loop of chunk steps over a
-  (rounds, n, p) stream, with the tail padded by invalid rounds.
+* :func:`fleet_round_step` — ONE round for EVERY network of a fleet: the
+  per-round band fold (one kernel launch for the fleet), one scheduler
+  decision per network, the split compression/detection stages and the
+  per-epoch Table-1 books.  :func:`stream_step` is the same for one
+  network; :func:`stream_run` loops it over a (rounds, n, p) stream and
+  :func:`batched_stream_run` (``chunk=None``) over a (networks, rounds,
+  n, p) fleet — the reference's ``vmap`` of the scan, with the networks
+  axis written out and taken by the kernels as a grid axis.
+* :func:`fleet_chunk_step` — K rounds for every slot in one pass: the
+  chunk fold, one decision per slot, the stages and the books.  It
+  replaces the reference's vmapped, jitted ``engine_chunk_step_fn``.
+  :func:`chunk_stream_step` is the same for ONE network;
+  :func:`chunked_stream_run` and ``batched_stream_run(chunk=K)`` loop it,
+  with the tail padded by invalid rounds.  At K = 1 it gives the
+  per-round step's bits (``probe_every=1``).
 
 With a compression and/or detection stage configured the chunk body is,
 by default (``cfg.fused``), the fused kernel
@@ -16,17 +23,23 @@ by default (``cfg.fused``), the fused kernel
 the band delta and the stage outputs against the pre-decision basis;
 where the scheduler then fires, the stages are recomputed against the
 rotated basis in plain torch and selected per slot with ``torch.where``.
-The split body (``fused=False``, and always for quantized scores,
+The split body (``fused=False``, always for quantized scores,
 ``score_bits > 0``, whose quantizer needs every row's scores between
-projection and reconstruction) folds through the band kernel, decides,
-and then runs the stages once against the post-decision basis: the
-supervised-compression kernel (or projection, quantizer, reconstruction)
-and the monitoring kernel.  A band-only configuration folds through the
-band kernel (:func:`repro_torch.streaming.online_cov.online_update_chunk`).
+projection and reconstruction, and always per round) folds through the
+band kernel, decides, and then runs the stages once against the
+post-decision basis: the supervised-compression kernel (or projection,
+quantizer, reconstruction) and the monitoring kernel.  A band-only
+configuration folds through the band kernel
+(:mod:`repro_torch.streaming.online_cov`).  Every decision's banded
+products go through the banded-product kernel
+(:mod:`repro_torch.streaming.scheduler`).
 
-Not ported yet: ``precision="bf16"`` (raises ``NotImplementedError``
-naming the kernel it needs), per-reading (K, n, p) dropout masks, and the
-per-round ``stream_step``/``stream_run`` drivers.
+The drivers take per-round (…, rounds, p) liveness masks, as the
+reference's do; per-reading dropout masks are taken by
+:func:`repro_torch.streaming.online_cov.online_update` and
+``online_update_chunk``.  Not ported yet: ``precision="bf16"`` (raises
+``NotImplementedError`` naming the kernel it needs) and
+``sharded_stream_run``.
 """
 
 from __future__ import annotations
@@ -54,12 +67,15 @@ from repro_torch.streaming.detector import (DetectionConfig, DetectorState,
 from repro_torch.streaming.online_cov import (OnlineCovariance,
                                               online_apply_chunk,
                                               online_chunk_stats, online_init,
+                                              online_update,
                                               online_update_chunk)
 from repro_torch.streaming.scheduler import RecomputeScheduler, SchedulerState
 
 __all__ = ["StreamConfig", "StreamState", "RoundMetrics", "random_bases",
-           "stream_init", "fleet_chunk_step", "chunk_stream_step",
-           "chunked_stream_run", "tree_map"]
+           "stream_init", "batched_stream_init", "fleet_round_step",
+           "stream_step", "stream_run", "batched_stream_run",
+           "fleet_chunk_step", "chunk_stream_step", "chunked_stream_run",
+           "tree_map"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -229,21 +245,18 @@ def fleet_chunk_step(cfg: StreamConfig, state: StreamState, x: torch.Tensor,
     x = x.to(torch.float32)
     if masks is not None:
         if masks.shape != (S, K, p):
-            raise NotImplementedError(
-                f"the chunk driver takes (slots, K, p) liveness masks, got "
-                f"{tuple(masks.shape)}; per-reading dropout masks wait for "
-                "batched_stream_run, which is not ported yet")
+            raise ValueError(
+                f"the chunk driver takes (slots, K, p) liveness masks, as "
+                f"the reference's does, got {tuple(masks.shape)}; "
+                "per-reading dropout masks go to online_update_chunk")
         masks = masks.to(state.alive.dtype)
     has_stage = cfg.compression is not None or cfg.detection is not None
-    with_c = cfg.compression is not None
-    with_m = cfg.detection is not None
     if round_valid is None:
         rv = None
         live = torch.full((S,), float(K), device=dev)
     else:
         rv = round_valid.to(torch.float32)
         live = rv.sum(-1)
-    live_i = live.to(torch.int32)
     if masks is None:
         churn = torch.zeros((S,), dtype=torch.bool, device=dev)
         alive = state.alive
@@ -258,10 +271,9 @@ def fleet_chunk_step(cfg: StreamConfig, state: StreamState, x: torch.Tensor,
         if rv is not None:
             stage_mask = stage_mask * rv[..., None]
 
-    sched_cfg = cfg.scheduler()
-    use_fused = cfg.use_fused
-    z = x_hat = flags = t2 = spe = None
-    if use_fused:
+    fused = mean_est = None
+    if cfg.use_fused:
+        with_c, with_m = cfg.compression is not None, cfg.detection is not None
         w, beta_eff, delta_s, delta_tb = online_chunk_stats(
             state.cov, x, forgetting=cfg.forgetting, masks=masks,
             round_valid=rv)
@@ -273,17 +285,35 @@ def fleet_chunk_step(cfg: StreamConfig, state: StreamState, x: torch.Tensor,
               else torch.ones((S, cfg.q), device=dev))
         eps = cfg.compression.epsilon if with_c else 0.0
         # ONE launch: band fold + stages against the pre-decision basis
-        band_delta, z, x_hat, flags, t2, spe = ops.fused_stream_update(
+        band_delta, *outs = ops.fused_stream_update(
             x, w, state.sched.W, mean_est, il, halfwidth=cfg.halfwidth,
             epsilon=eps, with_compress=with_c, with_monitor=with_m,
             mask=stage_mask, precision=cfg.precision)
         cov = online_apply_chunk(state.cov, band_delta, w, beta_eff,
                                  delta_s, delta_tb, n)
+        fused = (outs, il, eps)
     else:
         cov = online_update_chunk(state.cov, x, forgetting=cfg.forgetting,
                                   masks=masks, round_valid=rv)
         if has_stage:
             mean_est = cov.s / cov.t_i.clamp(min=1.0)
+    return _decide_and_stage(cfg, state, cov, x, churn, alive, stage_mask,
+                             live, mean_est, fused)
+
+
+def _decide_and_stage(cfg, state, cov, x, churn, alive, stage_mask, live,
+                      mean_est, fused):
+    """What follows the fold of ``x`` (S, K, n, p) into ``cov``: one
+    scheduler decision per slot at the last folded round, the per-epoch
+    books of the ``live`` (S,) rounds, and the stages against the
+    post-decision basis — split (compression and monitoring launches), or
+    the fused kernel's outputs ``fused`` = (outputs, inv_lambda, eps)
+    recomputed where the decision fired."""
+    S, K, n, p = x.shape
+    dev = x.device
+    with_c, with_m = cfg.compression is not None, cfg.detection is not None
+    live_i = live.to(torch.int32)
+    sched_cfg = cfg.scheduler()
     # one decision at the boundary, indexed at the LAST folded round
     sched, rho, fired = sched_cfg.step(state.sched, cov,
                                        state.rounds + (live_i - 1), churn)
@@ -291,7 +321,9 @@ def fleet_chunk_step(cfg: StreamConfig, state: StreamState, x: torch.Tensor,
     sched = sched._replace(comm_packets=sched.comm_packets
                            + (live - 1) * sched_cfg.round_cost())
     factor = expected_transmissions(cfg.link_loss, cfg.max_retries)
-    if use_fused:
+    z = x_hat = flags = t2 = spe = None
+    if fused is not None:
+        (z, x_hat, flags, t2, spe), il, eps = fused
         # where the decision fired the stages must see the rotated basis
         # (and its λ̂): recompute for every slot, select per slot
         il2 = inv_lambda(sched.lam, cfg.detection) if with_m else il
@@ -305,7 +337,7 @@ def fleet_chunk_step(cfg: StreamConfig, state: StreamState, x: torch.Tensor,
     xv = x.reshape(S, K * n, p)
     compression = None
     if with_c:
-        if use_fused:
+        if fused is not None:
             mask2d = 1.0 if stage_mask is None else row_mask(stage_mask, n)
             compression = compression_books(xv, z, x_hat, flags, mask2d,
                                             cfg.compression, cfg.q,
@@ -327,7 +359,7 @@ def fleet_chunk_step(cfg: StreamConfig, state: StreamState, x: torch.Tensor,
             bits_on_air=compression.bits_on_air
             + (live - 1) * (a_pk + f_pk) * cfg.compression.word_bits)
     det_state, detection = state.det, None
-    if with_m and use_fused:
+    if with_m and fused is not None:
         row_live = row_liveness(stage_mask, K, (S,), device=dev) \
             .repeat_interleave(n, dim=-1)
         det_state, detection = detect_apply(t2, spe, row_live, cfg.q,
@@ -350,6 +382,61 @@ def fleet_chunk_step(cfg: StreamConfig, state: StreamState, x: torch.Tensor,
     return new, metrics
 
 
+def fleet_round_step(cfg: StreamConfig, state: StreamState, x: torch.Tensor,
+                     mask: torch.Tensor | None = None,
+                     ) -> tuple[StreamState, RoundMetrics]:
+    """ONE round for every network of a fleet (``repro.streaming.driver
+    .stream_step`` with the networks axis written out): ``x`` (S, n, p),
+    ``mask`` (S, p) sensor liveness or None.
+
+    The round folds through the per-round band kernel (masked with a
+    mask); a liveness change against the last-seen liveness is churn, a
+    drift trigger; then one scheduler decision per network at
+    ``state.rounds``, and the stages against the post-decision basis and
+    the post-fold mean: :func:`compress_round` (the supervised-compression
+    kernel, or projection, quantizer and reconstruction with
+    ``score_bits > 0``) and :func:`detect_round` (the monitoring kernel),
+    with the per-epoch books.  Equal to :func:`fleet_chunk_step` on
+    one-round chunks: the same statistics, decision, stages and books."""
+    cfg.check_ported()
+    S, n, p = x.shape
+    x = x.to(torch.float32)
+    stage_mask = None
+    if mask is None:
+        churn = torch.zeros((S,), dtype=torch.bool, device=x.device)
+        alive = state.alive
+    else:
+        if mask.shape != (S, p):
+            raise ValueError(f"the per-round driver takes (networks, p) "
+                             f"liveness masks, got {tuple(mask.shape)}")
+        mask = mask.to(state.alive.dtype)
+        churn = (mask != state.alive).any(-1)
+        alive = mask
+        stage_mask = mask[:, None, :]
+    cov = online_update(state.cov, x, forgetting=cfg.forgetting, mask=mask)
+    mean_est = cov.s / cov.t_i.clamp(min=1.0)
+    live = torch.ones((S,), device=x.device)
+    return _decide_and_stage(cfg, state, cov, x[:, None], churn, alive,
+                             stage_mask, live, mean_est, None)
+
+
+def stream_step(cfg: StreamConfig, state: StreamState, x_round: torch.Tensor,
+                mask: torch.Tensor | None = None,
+                ) -> tuple[StreamState, RoundMetrics]:
+    """One round for ONE network: ``x_round`` (n, p), ``mask`` (p,) or
+    None — :func:`fleet_round_step` with a fleet of one."""
+    return _one(fleet_round_step, cfg, state, x_round, mask)
+
+
+def _one(step, cfg, state, *arrays):
+    """``step`` on a fleet of one: a leading axis added to the state and
+    every array (None stays None), and dropped from the results."""
+    new, metrics = step(cfg, tree_map(lambda t: t[None], state),
+                        *(None if a is None else a[None] for a in arrays))
+    drop = lambda t: t[0]
+    return tree_map(drop, new), tree_map(drop, metrics)
+
+
 def chunk_stream_step(cfg: StreamConfig, state: StreamState,
                       x_chunk: torch.Tensor,
                       masks: torch.Tensor | None = None,
@@ -357,24 +444,25 @@ def chunk_stream_step(cfg: StreamConfig, state: StreamState,
                       ) -> tuple[StreamState, RoundMetrics]:
     """K rounds for ONE network: ``x_chunk`` (K, n, p), ``masks`` (K, p),
     ``round_valid`` (K,) — :func:`fleet_chunk_step` with a fleet of one."""
-    add = lambda t: t[None]
-    new, metrics = fleet_chunk_step(
-        cfg, tree_map(add, state), x_chunk[None],
-        None if masks is None else masks[None],
-        None if round_valid is None else round_valid[None])
-    drop = lambda t: t[0]
-    return tree_map(drop, new), tree_map(drop, metrics)
+    return _one(fleet_chunk_step, cfg, state, x_chunk, masks, round_valid)
 
 
-def chunked_stream_run(cfg: StreamConfig, state: StreamState,
-                       xs: torch.Tensor, masks: torch.Tensor | None = None,
-                       *, chunk: int = 8, probe_every: int | None = None,
-                       ) -> tuple[StreamState, RoundMetrics]:
-    """Stream ``xs`` (rounds, n, p) through :func:`chunk_stream_step`,
-    ``probe_every`` rounds per decision (default: the whole chunk); a
-    tail shorter than the step is padded with invalid rounds.  Metrics
-    come back stacked, one row per decision."""
-    R = xs.shape[0]
+def _fleet_round_run(cfg, states, xs, masks):
+    """The per-round loop over a fleet: ``xs`` (N, R, n, p), ``masks``
+    (N, R, p) or None; metrics (N, R, ...)."""
+    rows = []
+    for r in range(xs.shape[1]):
+        states, m = fleet_round_step(cfg, states, xs[:, r],
+                                     None if masks is None else masks[:, r])
+        rows.append(m)
+    return states, tree_map(lambda t: t.movedim(0, 1), _tree_stack(rows))
+
+
+def _fleet_chunked_run(cfg, states, xs, masks, chunk, probe_every):
+    """The chunk loop over a fleet: ``probe_every`` rounds (default
+    ``chunk``) per :func:`fleet_chunk_step`, the tail padded with invalid
+    rounds; metrics (N, decisions, ...)."""
+    N, R = xs.shape[:2]
     step_rounds = chunk if probe_every is None else probe_every
     if chunk < 1 or step_rounds < 1:
         raise ValueError(f"chunk/probe_every must be >= 1, got "
@@ -387,17 +475,74 @@ def chunked_stream_run(cfg: StreamConfig, state: StreamState,
     pad = n_steps * S - R
     rv = None
     if pad:
-        xs = torch.cat([xs, xs.new_zeros((pad,) + xs.shape[1:])])
+        zeros = lambda a: a.new_zeros((N, pad) + a.shape[2:])
+        xs = torch.cat([xs, zeros(xs)], 1)
         if masks is not None:
-            masks = torch.cat([masks, masks.new_zeros((pad,)
-                                                      + masks.shape[1:])])
+            masks = torch.cat([masks, zeros(masks)], 1)
         rv = torch.cat([torch.ones(R), torch.zeros(pad)]).to(xs.device)
+        rv = rv.expand(N, n_steps * S)
     rows = []
     for i in range(n_steps):
         sl = slice(i * S, (i + 1) * S)
-        state, m = chunk_stream_step(
-            cfg, state, xs[sl], None if masks is None else masks[sl],
-            None if rv is None else rv[sl])
+        states, m = fleet_chunk_step(
+            cfg, states, xs[:, sl], None if masks is None else masks[:, sl],
+            None if rv is None else rv[:, sl])
         rows.append(m)
-    stacked = _tree_stack(rows)
-    return state, stacked
+    return states, tree_map(lambda t: t.movedim(0, 1), _tree_stack(rows))
+
+
+def stream_run(cfg: StreamConfig, state: StreamState, xs: torch.Tensor,
+               masks: torch.Tensor | None = None,
+               ) -> tuple[StreamState, RoundMetrics]:
+    """Stream ``xs`` (rounds, n, p) round by round through
+    :func:`stream_step`, ``masks`` (rounds, p) the liveness schedule or
+    None; metrics come back stacked, one row per round."""
+    return _one(_fleet_round_run, cfg, state, xs, masks)
+
+
+def chunked_stream_run(cfg: StreamConfig, state: StreamState,
+                       xs: torch.Tensor, masks: torch.Tensor | None = None,
+                       *, chunk: int = 8, probe_every: int | None = None,
+                       ) -> tuple[StreamState, RoundMetrics]:
+    """Stream ``xs`` (rounds, n, p) through :func:`chunk_stream_step`,
+    ``probe_every`` rounds per decision (default: the whole chunk); a
+    tail shorter than the step is padded with invalid rounds.  Metrics
+    come back stacked, one row per decision.  ``probe_every=1`` gives
+    :func:`stream_run`'s bits."""
+    run = lambda c, s, x, m: _fleet_chunked_run(c, s, x, m, chunk,
+                                                probe_every)
+    return _one(run, cfg, state, xs, masks)
+
+
+def batched_stream_init(cfg: StreamConfig, n_networks: int, *,
+                        W0: torch.Tensor | None = None, seed: int = 0,
+                        device="cuda") -> StreamState:
+    """Per-network states stacked on a leading networks axis, the initial
+    bases ``W0`` (n_networks, p, q) or drawn from ``seed``
+    (:func:`stream_init` with ``slots=n_networks``)."""
+    return stream_init(cfg, n_networks, init_bases=W0, seed=seed,
+                       device=device)
+
+
+def batched_stream_run(cfg: StreamConfig, states: StreamState,
+                       xs: torch.Tensor, masks: torch.Tensor | None = None,
+                       *, chunk: int | None = None,
+                       probe_every: int | None = None,
+                       ) -> tuple[StreamState, RoundMetrics]:
+    """Stream a fleet: ``xs`` (networks, rounds, n, p), ``masks``
+    (networks, rounds, p) liveness or None; metrics come back as
+    (networks, rounds) leaves (``repro.streaming.driver
+    .batched_stream_run``).
+
+    ``chunk=None`` is the per-round path: one :func:`fleet_round_step` a
+    round for the whole fleet — one fold launch, one decision with its
+    refresh computed for every network and selected, one launch per
+    stage.  ``chunk=K`` is the chunk path (:func:`fleet_chunk_step`, K or
+    ``probe_every`` rounds per decision, metrics per decision);
+    ``probe_every`` needs ``chunk``."""
+    if chunk is None:
+        if probe_every is not None:
+            raise ValueError("probe_every requires chunk (the per-round "
+                             "path has no dispatch granularity to probe)")
+        return _fleet_round_run(cfg, states, xs, masks)
+    return _fleet_chunked_run(cfg, states, xs, masks, chunk, probe_every)

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.covariance import band_to_dense
+from repro_torch.kernels import ops
 from repro_torch.streaming.online_cov import (online_estimate,
                                               online_total_variance)
 
@@ -15,7 +15,8 @@ __all__ = ["region_energies"]
 
 def region_energies(state) -> tuple[torch.Tensor, torch.Tensor]:
     """The (..., q) live subspace energies ``diag(W^T C W)`` of a region's
-    basis plus its trace partial — what a region head sends up."""
-    C = band_to_dense(online_estimate(state.cov))
+    basis plus its trace partial — what a region head sends up; ``C W``
+    is one banded-product launch on the band estimate."""
     W = state.sched.W
-    return (W * (C @ W)).sum(-2), online_total_variance(state.cov)
+    cw = ops.banded_matmul(online_estimate(state.cov), W)
+    return (W * cw).sum(-2), online_total_variance(state.cov)

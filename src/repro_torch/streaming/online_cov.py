@@ -7,10 +7,14 @@ The sufficient statistics decay by a forgetting factor ``beta`` per round:
     S_i  <- beta * S_i  + sum_tau x_i[tau]
     S_ij <- beta * S_ij + sum_tau x_i[tau] x_j[tau]     (band entries only)
 
-Every function takes leading axes (the fleet's slot axis); the band fold of
-a chunk runs through the CUDA band-fold kernel
-(:func:`repro_torch.kernels.ops.cov_band_update_chunk_batched`) on a CUDA
-tensor, one launch for the whole fleet.
+Every function takes leading axes (the fleet's slot axis); the band fold
+runs through a CUDA band-fold kernel on a CUDA tensor, one launch for the
+whole fleet: a chunk through the chunk kernel
+(:func:`repro_torch.kernels.ops.cov_band_update_chunk_batched`), a round
+through the per-round kernel
+(:func:`repro_torch.kernels.ops.cov_band_update_batched`).  A round is
+folded with the chunk's statistics at K = 1, so :func:`online_update`
+gives the bits of :func:`online_update_chunk` on a one-round chunk.
 """
 
 from __future__ import annotations
@@ -23,9 +27,9 @@ from repro_torch.core.covariance import band_valid, shifted_stack
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 
-__all__ = ["OnlineCovariance", "online_init", "online_update_chunk",
-           "online_chunk_stats", "online_apply_chunk", "online_estimate",
-           "online_total_variance"]
+__all__ = ["OnlineCovariance", "online_init", "online_update",
+           "online_update_chunk", "online_chunk_stats", "online_apply_chunk",
+           "online_estimate", "online_total_variance", "stream_covariance"]
 
 
 class OnlineCovariance(NamedTuple):
@@ -163,6 +167,57 @@ def online_update_chunk(state: OnlineCovariance, xs: torch.Tensor,
         delta_tb = _fold(masks, w, h).to(state.t_band.dtype)
     return online_apply_chunk(state, delta_band, w, beta_eff, delta_s,
                               delta_tb, xs.shape[-2])
+
+
+def online_update(state: OnlineCovariance, x: torch.Tensor,
+                  forgetting: float = 1.0,
+                  mask: torch.Tensor | None = None) -> OnlineCovariance:
+    """Fold one round ``x`` (..., n, p) into the decayed statistics, every
+    row of the round with the same weight (``repro.streaming.online_cov
+    .online_update``).
+
+    ``mask`` is None (the per-round kernel), a (..., p) sensor liveness
+    (the masked kernel reading the row once for all n rows; the pairwise
+    counts stay analytic, ``n m_i m_j``) or a (..., n, p) measurement
+    dropout (the masked kernel per reading, plus the unmasked kernel over
+    the mask for the counts ``sum_r m_i m_j``)."""
+    x = x.to(state.s.dtype)
+    lead, (n, p) = x.shape[:-2], x.shape[-2:]
+    h = state.halfwidth
+    liveness = mask is not None and mask.dim() == x.dim() - 1
+    if mask is not None:
+        mask = mask.to(state.s.dtype)
+        if mask.shape != (lead + (p,) if liveness else x.shape):
+            raise ValueError(f"mask shape {tuple(mask.shape)} fits neither "
+                             f"{lead + (p,)} nor {tuple(x.shape)}")
+    # the chunk's statistics at K = 1 (unit weight, decay beta)
+    w, beta_eff, delta_s, delta_tb = online_chunk_stats(
+        state, x[..., None, :, :], forgetting=forgetting,
+        masks=None if mask is None
+        else mask[..., None, :] if liveness else mask[..., None, :, :])
+    flat = lambda t: t.reshape((-1,) + t.shape[len(lead):])
+    delta_band = ops.cov_band_update_batched(
+        flat(x), h, mask=None if mask is None else flat(mask))
+    delta_band = delta_band.reshape(lead + delta_band.shape[1:])
+    if delta_tb is None:
+        counts = ops.cov_band_update_batched(flat(mask), h)
+        delta_tb = counts.reshape(lead + counts.shape[1:]).to(
+            state.t_band.dtype)
+    return online_apply_chunk(state, delta_band, w, beta_eff, delta_s,
+                              delta_tb, n)
+
+
+def stream_covariance(state: OnlineCovariance, xs: torch.Tensor,
+                      forgetting: float = 1.0,
+                      ) -> tuple[OnlineCovariance, torch.Tensor]:
+    """Fold ``xs`` (..., rounds, n, p) round by round
+    (``repro.streaming.online_cov.stream_covariance``); returns the final
+    state and the (..., rounds) total-variance trace after each round."""
+    traces = []
+    for r in range(xs.shape[-3]):
+        state = online_update(state, xs[..., r, :, :], forgetting)
+        traces.append(online_total_variance(state))
+    return state, torch.stack(traces, -1)
 
 
 def online_estimate(state: OnlineCovariance) -> torch.Tensor:

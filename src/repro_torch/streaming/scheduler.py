@@ -10,16 +10,17 @@ and past the threshold (or on the first decision after warmup, or on
 churn) recomputes the basis by a fixed-length blocked orthogonal iteration
 warm-started from the stale basis.
 
-The reference has no kernel here (jnp ``banded_matmul_ref``, Cholesky,
-``inv``, ``eigh``) and neither has the port: plain torch.  The banded
-product is taken as ONE dense batched product per use — the (p, p)
-estimate is formed once per decision (:func:`band_to_dense`) and
-multiplied with ``torch.matmul`` — instead of a Python loop over the 2h+1
-diagonals; tests hold it against :func:`banded_matmul_ref`.  Under the
-fleet's slot axis the reference's ``lax.cond`` is a select: the refresh is
-computed for every slot and chosen with ``torch.where``, with no host
-sync.  fp32 matrix products run in full fp32 (TF32 is switched off by
-:func:`repro_torch.streaming.driver.stream_init`).
+The banded products ``C W`` (the drift probe, every orthogonal-iteration
+step, the Rayleigh quotients and the post-refresh probe: 1 +
+``refresh_iters`` + 2 per decision) go through the banded-product kernel
+(:func:`repro_torch.kernels.ops.banded_matmul`) on the band estimate,
+with the reference's arithmetic (``banded_matmul_ref``: the diagonals in
+order); no dense (p, p) matrix is formed.  Cholesky, the triangular solve
+and ``eigh`` are plain torch, as the reference leaves them to XLA.  Under
+the fleet's slot axis the reference's ``lax.cond`` is a select: the
+refresh is computed for every slot and chosen with ``torch.where``, with
+no host sync.  fp32 matrix products run in full fp32 (TF32 is switched off
+by :func:`repro_torch.streaming.driver.stream_init`).
 """
 
 from __future__ import annotations
@@ -30,25 +31,20 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import costs
-from repro_torch.core.covariance import band_to_dense
+from repro_torch.kernels import ops
 from repro_torch.streaming.online_cov import (OnlineCovariance,
                                               online_estimate,
                                               online_total_variance)
 
 __all__ = ["RecomputeScheduler", "SchedulerState", "retained_fraction",
-           "ortho_refresh_evals"]
-
-
-def _retained(C: torch.Tensor, W: torch.Tensor,
-              total_variance: torch.Tensor) -> torch.Tensor:
-    num = (W * (C @ W)).sum((-2, -1))
-    return num / total_variance.clamp(min=1e-30)
+           "ortho_refresh", "ortho_refresh_evals"]
 
 
 def retained_fraction(band_est: torch.Tensor, W: torch.Tensor,
                       total_variance: torch.Tensor) -> torch.Tensor:
     """rho = trace(W^T C W) / trace(C) for an orthonormal basis W."""
-    return _retained(band_to_dense(band_est), W, total_variance)
+    num = (W * ops.banded_matmul(band_est, W)).sum((-2, -1))
+    return num / total_variance.clamp(min=1e-30)
 
 
 def _orthonormalize(V: torch.Tensor, eps: float) -> torch.Tensor:
@@ -61,24 +57,26 @@ def _orthonormalize(V: torch.Tensor, eps: float) -> torch.Tensor:
     return V @ Linv.transpose(-1, -2)
 
 
-def _ortho_refresh(C: torch.Tensor, W0: torch.Tensor, iters: int,
-                   eps: float = 1e-8) -> tuple[torch.Tensor, torch.Tensor]:
+def ortho_refresh_evals(band_est: torch.Tensor, W0: torch.Tensor,
+                        iters: int, eps: float = 1e-8,
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fixed-length blocked orthogonal iteration warm-started from W0;
+    returns the ordered basis and its Rayleigh quotients (descending).
+    ``iters`` + 1 banded products."""
     V = _orthonormalize(W0, eps)
     for _ in range(iters):
-        V = _orthonormalize(C @ V, eps)
-    H = V.transpose(-1, -2) @ (C @ V)
+        V = _orthonormalize(ops.banded_matmul(band_est, V), eps)
+    H = V.transpose(-1, -2) @ ops.banded_matmul(band_est, V)
     # jnp.linalg.eigh symmetrizes its input; torch reads one triangle
     evals, U = torch.linalg.eigh(0.5 * (H + H.transpose(-1, -2)))
     # descending order (eigh returns ascending)
     return V @ U.flip(-1), evals.flip(-1)
 
 
-def ortho_refresh_evals(band_est: torch.Tensor, W0: torch.Tensor,
-                        iters: int, eps: float = 1e-8,
-                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Fixed-length blocked orthogonal iteration warm-started from W0;
-    returns the ordered basis and its Rayleigh quotients (descending)."""
-    return _ortho_refresh(band_to_dense(band_est), W0, iters, eps)
+def ortho_refresh(band_est: torch.Tensor, W0: torch.Tensor, iters: int,
+                  eps: float = 1e-8) -> torch.Tensor:
+    """Basis-only form of :func:`ortho_refresh_evals`."""
+    return ortho_refresh_evals(band_est, W0, iters, eps)[0]
 
 
 class SchedulerState(NamedTuple):
@@ -133,17 +131,18 @@ class RecomputeScheduler:
         did_refresh)`` with ``rho`` the retained fraction before any
         refresh."""
         p = state.W.shape[-2]
-        C = band_to_dense(online_estimate(cov_state))
+        band_est = online_estimate(cov_state)
         total_var = online_total_variance(cov_state)
-        rho = _retained(C, state.W, total_var)
+        rho = retained_fraction(band_est, state.W, total_var)
 
         past_warmup = round_index >= self.warmup_rounds
         never_fit = state.refreshes == 0
         drifted = (state.rho_ref - rho) > self.drift_threshold
         trigger = past_warmup & (never_fit | drifted | churn)
 
-        W_new, lam_new = _ortho_refresh(C, state.W, self.refresh_iters)
-        rho_new = _retained(C, W_new, total_var)
+        W_new, lam_new = ortho_refresh_evals(band_est, state.W,
+                                             self.refresh_iters)
+        rho_new = retained_fraction(band_est, W_new, total_var)
         comm = torch.where(trigger,
                            state.comm_packets + self.refresh_cost(p),
                            state.comm_packets)

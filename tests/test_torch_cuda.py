@@ -7,7 +7,9 @@ CUDA kernel has no CPU mode).  This file imports no JAX, so it runs on a
 machine that has only PyTorch.  Tolerance rtol/atol 1e-5 at these small
 widths (1e-4 at p=1024, where each score sums 1024 products): the same
 fp32 products summed in another order.  Flags are compared exactly
-wherever the error is more than 1e-4 from ε.
+wherever the error is more than 1e-4 from ε.  The banded products
+(kernels 10, 11) sum the diagonals in the plain version's order with the
+plain version's roundings, so they are held to equal bits.
 """
 
 import dataclasses
@@ -18,9 +20,11 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.serve.engine import StreamingPCAEngine, StreamRequest
+from repro_torch.kernels import ref
 from repro_torch.streaming import (CompressionConfig, DetectionConfig,
-                                   StreamConfig)
-from repro_torch.streaming.driver import random_bases
+                                   StreamConfig, batched_stream_init,
+                                   batched_stream_run)
+from repro_torch.streaming.driver import random_bases, tree_map
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -184,3 +188,143 @@ def test_split_engines_on_card_match_fused_engine():
         np.testing.assert_allclose(a.retained, b.retained, rtol=1e-3)
     for r in results["quant"][0]:
         assert r.compression_max_err <= 1.0
+
+
+@pytest.mark.cuda
+class TestCudaRoundAndBandedKernels:
+    """Kernels 6, 7, 10 and 11 against their plain versions, on the card."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+
+    @pytest.mark.parametrize("p,h", [(37, 3), (1024, 128)])
+    @pytest.mark.parametrize("mask_kind", [None, "live", "drop"])
+    def test_round_fold_matches_plain(self, p, h, mask_kind):
+        S, n = 3, 13
+        g = torch.Generator().manual_seed(p + n)
+        x = torch.randn((S, n, p), generator=g)
+        m = {None: None,
+             "live": (torch.rand((S, p), generator=g) > 0.2).float(),
+             "drop": (torch.rand((S, n, p), generator=g) > 0.2).float(),
+             }[mask_kind]
+        cpu = ops.cov_band_update_batched(x, h, mask=m)
+        ops.reset_counts()
+        gpu = ops.cov_band_update_batched(
+            x.cuda(), h, mask=None if m is None else m.cuda())
+        torch.cuda.synchronize()
+        kernel = "band_round" if m is None else "band_round_masked"
+        assert ops.LAUNCHES[kernel] == 1 and sum(ops.PLAIN_CALLS.values()) == 0
+        torch.testing.assert_close(gpu.cpu(), cpu, **TOL)
+        # kernel 6/7 is kernel 2/3 at K = 1 with unit weight: same bits
+        chunk = ops.cov_band_update_chunk_batched(
+            x.cuda()[:, None], torch.ones((S, 1), device="cuda"), h,
+            mask=None if m is None else m.cuda()[:, None])
+        assert torch.equal(gpu, chunk)
+
+    @pytest.mark.parametrize("p,h", [(37, 0), (37, 4), (1024, 128)])
+    @pytest.mark.parametrize("q", [1, 3, 8, 32, 40])
+    def test_banded_products_match_plain(self, p, h, q):
+        S = 3
+        g = torch.Generator().manual_seed(p * q + h)
+        band = torch.randn((S, 2 * h + 1, p), generator=g)
+        V = torch.randn((S, p, q), generator=g)
+        ops.reset_counts()
+        Y = ops.banded_matmul(band.cuda(), V.cuda())
+        y = ops.banded_matvec(band.cuda(), V[..., 0].cuda())
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["banded_matmul"] == ops.LAUNCHES[
+            "banded_matvec"] == 1
+        assert torch.equal(Y.cpu(), ref.banded_matmul(band, V))
+        assert torch.equal(y.cpu(), ref.banded_matvec(band, V[..., 0]))
+        assert torch.equal(Y, ref.banded_matmul(band.cuda(), V.cuda()))
+
+
+def _fleet_data(N, R, n, p, seed):
+    """Three smooth local modes that move half way through the stream
+    (drift, so the scheduler refreshes again), small noise, and a few
+    +-5 spikes: reconstruction errors stay far from eps = 1 except at the
+    spikes, so flags cannot flip between the card and the CPU."""
+    rng = np.random.default_rng(seed)
+    j = np.arange(p)
+
+    def modes(centres):
+        return np.exp(-0.5 * ((j[:, None] - np.array(centres) * p)
+                              / 1.5) ** 2)
+    g = 0.1 * rng.normal(size=(N, R, n, 3))
+    xs = g @ modes([0.2, 0.5, 0.8]).T
+    xs[:, R // 2:] = g[:, R // 2:] @ modes([0.35, 0.65, 0.9]).T
+    xs += 0.05 * rng.normal(size=xs.shape)
+    spikes = rng.random(xs.shape) < 2e-3
+    xs += spikes * np.where(rng.random(xs.shape) < 0.5, -5.0, 5.0)
+    return torch.from_numpy(xs.astype(np.float32))
+
+
+@pytest.mark.cuda
+def test_per_round_run_is_one_round_chunk_run_on_card():
+    """A band-only fleet of 8 networks on the card: ``chunk=None``
+    (kernel 6 a round) and ``chunk=1`` (kernel 2 a round) give equal band
+    bits and equal decisions — the kernels' products are equal bit for
+    bit and the rest of the step is shared."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    cfg = StreamConfig(p=64, q=4, halfwidth=3, forgetting=0.98,
+                       warmup_rounds=3, drift_threshold=0.05)
+    xs = _fleet_data(8, 12, 8, 64, 11).cuda()
+    bases = random_bases(8, 64, 4, seed=5, device="cpu")
+    runs = {}
+    for chunk in (None, 1):
+        ops.reset_counts()
+        st = batched_stream_init(cfg, 8, W0=bases, device="cuda")
+        runs[chunk] = batched_stream_run(cfg, st, xs, chunk=chunk)
+        torch.cuda.synchronize()
+        fold = "band_round" if chunk is None else "band_fold"
+        assert ops.LAUNCHES[fold] == 12
+        assert ops.LAUNCHES["banded_matmul"] == 12 * (cfg.refresh_iters + 3)
+        assert sum(ops.PLAIN_CALLS.values()) == 0
+    (a, ma), (b, mb) = runs[None], runs[1]
+    assert torch.equal(a.cov.band, b.cov.band)
+    assert torch.equal(ma.did_refresh, mb.did_refresh)
+    assert int(ma.did_refresh.sum()) > 8
+    same = lambda u, v: torch.testing.assert_close(u, v, rtol=0, atol=0)
+    tree_map(same, a, b)
+    tree_map(same, ma, mb)
+
+
+@pytest.mark.cuda
+def test_per_round_stage_run_on_card_matches_cpu():
+    """The per-round fleet path with compression, detection and liveness
+    masks on the card against the same run on the CPU: decisions and
+    counts exactly, books rtol 1e-5, retained fraction rtol 1e-3
+    (refreshes go through Cholesky and eigh on both sides)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    cfg = StreamConfig(p=64, q=4, halfwidth=3, forgetting=0.98,
+                       warmup_rounds=3, drift_threshold=0.05,
+                       compression=CompressionConfig(epsilon=1.0),
+                       detection=DetectionConfig(alpha=1e-3, calib_rounds=2))
+    xs = _fleet_data(4, 12, 8, 64, 12)
+    masks = torch.ones((4, 12, 64))
+    masks[3, 6:, 20:28] = 0.0
+    bases = random_bases(4, 64, 4, seed=6, device="cpu")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ops.reset_counts()
+        st = batched_stream_init(cfg, 4, W0=bases, device=dev)
+        out[dev] = batched_stream_run(cfg, st, xs.to(dev), masks.to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            for k in ("band_round_masked", "supervised_compress",
+                      "pca_monitor"):
+                assert ops.LAUNCHES[k] == 12, k
+            assert sum(ops.PLAIN_CALLS.values()) == 0
+    (g, mg), (c, mc) = out["cuda"], out["cpu"]
+    assert torch.equal(mg.did_refresh.cpu(), mc.did_refresh)
+    assert torch.equal(mg.compression.extra_packets.cpu(),
+                       mc.compression.extra_packets)
+    assert torch.equal(mg.detection.alarms.cpu(), mc.detection.alarms)
+    torch.testing.assert_close(mg.comm_packets.cpu(), mc.comm_packets,
+                               rtol=1e-5, atol=0)
+    torch.testing.assert_close(mg.rho.cpu(), mc.rho, rtol=1e-3, atol=1e-6)
+    assert float(mg.compression.max_err.max()) <= 1.0

@@ -23,8 +23,10 @@ import pytest
 import torch
 
 from repro.core.covariance import banded_matmul_ref as ref_banded_matmul
+from repro.core.covariance import banded_matvec_ref as ref_banded_matvec
 from repro.kernels import ops as ref_ops
-from repro_torch.core.covariance import band_to_dense, banded_matmul_ref
+from repro_torch.core.covariance import (band_to_dense, banded_matmul_ref,
+                                         banded_matvec_ref)
 from repro_torch.kernels import build, ops, ref
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -339,11 +341,73 @@ class TestBandFoldPlainVsReference:
                 mask=torch.ones((1, 3, 8)))
 
 
+class TestBandRoundPlainVsReference:
+    """Kernels 6 and 7 (plain versions) against the reference's per-round
+    Pallas kernels in interpret mode: prime p, n not a multiple of 8,
+    h from 0 to past p."""
+
+    @pytest.mark.parametrize("n,p,h", [(8, 64, 3), (6, 37, 3), (5, 17, 2),
+                                       (13, 31, 0), (8, 24, 4), (4, 8, 7)])
+    @pytest.mark.parametrize("mask_kind", [None, "live", "drop"])
+    def test_round_fold_matches_pallas(self, n, p, h, mask_kind):
+        rng = np.random.default_rng(n * 100 + p)
+        x = rng.normal(size=(n, p)).astype(np.float32)
+        mask = None
+        if mask_kind == "live":
+            mask = (rng.random((p,)) > 0.2).astype(np.float32)
+        elif mask_kind == "drop":
+            mask = (rng.random((n, p)) > 0.2).astype(np.float32)
+        if mask is None:
+            r = ref_ops.cov_band_update(x, h, interpret=True)
+        else:
+            r = ref_ops.cov_band_update_masked(x, mask, h, interpret=True)
+        T = torch.from_numpy
+        ops.reset_counts()
+        o = ops.cov_band_update(T(x), h,
+                                mask=None if mask is None else T(mask))
+        kernel = "band_round" if mask is None else "band_round_masked"
+        assert ops.PLAIN_CALLS[kernel] == 1
+        _close(o, r)
+
+    @pytest.mark.parametrize("mask_kind", [None, "live", "drop"])
+    def test_round_is_one_round_chunk_bit_for_bit(self, mask_kind):
+        """A round folds to the unit-weight one-round chunk's bits (the
+        per-round and chunk plain paths share the fold)."""
+        rng = np.random.default_rng(3)
+        T = lambda a: torch.from_numpy(a.astype(np.float32))
+        x = T(rng.normal(size=(3, 6, 37)))
+        mask = {None: None, "live": T(rng.random((3, 37)) > 0.2),
+                "drop": T(rng.random((3, 6, 37)) > 0.2)}[mask_kind]
+        chunk_mask = None if mask is None else mask[:, None]
+        a = ops.cov_band_update_batched(x, 3, mask=mask)
+        b = ops.cov_band_update_chunk_batched(x[:, None], torch.ones(3, 1),
+                                              3, mask=chunk_mask)
+        assert torch.equal(a, b)
+
+    def test_fleet_form_is_per_network_form(self):
+        rng = np.random.default_rng(2)
+        T = lambda a: torch.from_numpy(a.astype(np.float32))
+        x, m = T(rng.normal(size=(3, 6, 37))), T(rng.random((3, 37)) > 0.2)
+        out = ops.cov_band_update_batched(x, 3, mask=m)
+        for s in range(3):
+            torch.testing.assert_close(
+                out[s], ops.cov_band_update(x[s], 3, mask=m[s]), **TOL)
+
+    def test_bad_shapes_rejected(self):
+        with pytest.raises(ValueError, match="mask shape"):
+            ops.cov_band_update_batched(torch.zeros((2, 4, 8)), 1,
+                                        mask=torch.ones((2, 3, 8)))
+        with pytest.raises(ValueError, match="expected"):
+            ops.cov_band_update(torch.zeros((2, 4, 8)), 1)
+
+
 class TestBandedProduct:
     @pytest.mark.parametrize("p,h,q", [(64, 3, 4), (37, 3, 4), (16, 7, 2)])
     def test_dense_product_matches_reference_banded_matmul(self, p, h, q):
-        """The refresh's dense (p, p) product against the reference's
-        per-diagonal ``banded_matmul_ref`` (fp32, other summation order)."""
+        """The dense (p, p) product, the port's ``banded_matmul_ref`` and
+        the kernel's plain version against the reference's per-diagonal
+        ``banded_matmul_ref`` (fp32; the dense product sums in another
+        order)."""
         rng = np.random.default_rng(p)
         band = rng.normal(size=(2 * h + 1, p)).astype(np.float32)
         V = rng.normal(size=(p, q)).astype(np.float32)
@@ -352,6 +416,62 @@ class TestBandedProduct:
         _close(band_to_dense(T(band)) @ T(V), r)
         _close(banded_matmul_ref(T(band), T(V)), r)
         _close(ref.banded_matmul(T(band), T(V)), r)
+
+    @pytest.mark.parametrize("p", [64, 37])
+    @pytest.mark.parametrize("h", [0, 1, 4])
+    @pytest.mark.parametrize("q", [1, 3, 32])
+    def test_banded_matmul_matches_pallas(self, p, h, q):
+        """Kernel 10 (plain version) against the reference's Pallas
+        kernel in interpret mode and its ``banded_matmul_ref``."""
+        rng = np.random.default_rng(p * 10 + h + q)
+        band = rng.normal(size=(2 * h + 1, p)).astype(np.float32)
+        V = rng.normal(size=(p, q)).astype(np.float32)
+        ops.reset_counts()
+        o = ops.banded_matmul(torch.from_numpy(band), torch.from_numpy(V))
+        assert ops.PLAIN_CALLS["banded_matmul"] == 1
+        assert o.shape == (p, q)
+        _close(o, ref_ops.banded_matmul(band, V, interpret=True))
+        _close(o, ref_banded_matmul(band, V))
+
+    @pytest.mark.parametrize("p", [64, 37])
+    @pytest.mark.parametrize("h", [0, 1, 4])
+    def test_banded_matvec_matches_pallas(self, p, h):
+        """Kernel 11 (plain version) against the reference's Pallas
+        kernel in interpret mode and its ``banded_matvec_ref``."""
+        rng = np.random.default_rng(p + h)
+        band = rng.normal(size=(2 * h + 1, p)).astype(np.float32)
+        v = rng.normal(size=(p,)).astype(np.float32)
+        ops.reset_counts()
+        o = ops.banded_matvec(torch.from_numpy(band), torch.from_numpy(v))
+        assert ops.PLAIN_CALLS["banded_matvec"] == 1
+        _close(o, ref_ops.banded_matvec(band, v, interpret=True))
+        _close(o, ref_banded_matvec(band, v))
+        _close(banded_matvec_ref(torch.from_numpy(band),
+                                 torch.from_numpy(v)), o)
+
+    def test_fleet_form_is_per_network_form(self):
+        """Leading axes flatten onto the fleet: each entry equals its own
+        call, bit for bit (the same diagonals in the same order), and the
+        matvec is the one-column matmul."""
+        rng = np.random.default_rng(4)
+        T = lambda a: torch.from_numpy(a.astype(np.float32))
+        band, V = T(rng.normal(size=(2, 3, 9, 37))), T(
+            rng.normal(size=(2, 3, 37, 5)))
+        Y = ops.banded_matmul(band, V)
+        y = ops.banded_matvec(band, V[..., 0])
+        for a in range(2):
+            for b in range(3):
+                assert torch.equal(Y[a, b], ops.banded_matmul(band[a, b],
+                                                              V[a, b]))
+        assert torch.equal(y, ops.banded_matmul(band, V[..., :1])[..., 0])
+
+    def test_bad_shapes_rejected(self):
+        with pytest.raises(ValueError, match="do not fit"):
+            ops.banded_matmul(torch.zeros((5, 8)), torch.zeros((7, 2)))
+        with pytest.raises(ValueError, match="do not fit"):
+            ops.banded_matmul(torch.zeros((4, 8)), torch.zeros((8, 2)))
+        with pytest.raises(ValueError, match="do not fit"):
+            ops.banded_matvec(torch.zeros((2, 5, 8)), torch.zeros((3, 8)))
 
 
 class TestBuild:
@@ -374,7 +494,7 @@ class TestBuild:
 class TestNoJaxInPort:
     def test_port_and_chip_smoke_import_neither_jax_nor_repro(self):
         files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-        files.append(ROOT / "chip_smoke.py")
+        files += [ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
         bad = []
         for f in files:
             for node in ast.walk(ast.parse(f.read_text())):
@@ -388,3 +508,36 @@ class TestNoJaxInPort:
                     if top in ("jax", "jaxlib", "repro"):
                         bad.append(f"{f.relative_to(ROOT)}: {nm}")
         assert not bad, bad
+
+
+class TestChipAb:
+    def test_parse_reads_rates_idle_shares_and_kernel_times(self):
+        """``chip_ab.py`` reads both forms of chip_smoke.py's rate lines
+        (with and without a step time), the profiled idle share and the
+        kernels' JSON record."""
+        import importlib.util
+        spec = importlib.util.spec_from_file_location("chip_ab",
+                                                      ROOT / "chip_ab.py")
+        chip_ab = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(chip_ab)
+        log = "\n".join([
+            "   stages engine: 6 steps, 7680 rounds in 1.50 s = 5120.0 "
+            "rounds/s (163840 epochs/s), step 250.0 ms; refreshes 657",
+            "   profile: device busy 0.9 s of 1.8 s wall (50.0%, idle "
+            "50.0%)",
+            "   band-only engine: 4 steps, 5120 rounds in 1.20 s = 4266.7 "
+            "rounds/s (136533 epochs/s); refreshes 620",
+            "   per-round fleet: 256 networks x 24 rounds in 0.48 s = "
+            "12800.0 rounds/s, 20.0 ms a round; refreshes 668",
+            '{"kernels": [{"name": "banded_matmul", "ms": 0.5}]}',
+            '{"ok": true}'])
+        got = chip_ab.parse(log)
+        assert got == pytest.approx({
+            "stages engine: rounds/s": 5120.0,
+            "stages engine: ms a step": 250.0,
+            "stages engine: device idle %": 50.0,
+            "band-only engine: rounds/s": 4266.7,
+            "band-only engine: ms a step": 300.0,
+            "per-round fleet: rounds/s": 12800.0,
+            "per-round fleet: ms a round": 20.0,
+            "kernel banded_matmul: ms": 0.5})

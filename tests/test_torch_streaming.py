@@ -55,22 +55,27 @@ from repro_torch.core.events import _norm_quantile
 from repro_torch.core.faults import expected_transmissions
 from repro_torch.kernels import ops
 from repro_torch.streaming import (CompressionConfig, DetectionConfig,
-                                   StreamConfig, chunk_stream_step,
+                                   StreamConfig, batched_stream_init,
+                                   batched_stream_run, chunk_stream_step,
                                    chunked_stream_run, fleet_chunk_step,
-                                   stream_init)
+                                   fleet_round_step, stream_init, stream_run,
+                                   stream_step)
 from repro_torch.streaming.compressor import quantize_scores
 from repro_torch.streaming.detector import (detection_packet_split,
                                             detector_init, row_liveness)
 from repro_torch.streaming.driver import random_bases, tree_map
-from repro_torch.streaming.online_cov import online_init
+from repro_torch.streaming.online_cov import (online_init, online_update,
+                                              stream_covariance)
 
 from torch_parity import config_from_json, run_reference
 
 ROOT = Path(__file__).resolve().parents[1]
 SCENARIOS = ["fused", "fused_masked", "compress_masked", "monitor", "band",
              "band_masked", "split", "split_masked", "quant", "quant_masked"]
+ROUND_SCENARIOS = ["r_stages", "r_stages_masked", "r_band", "r_quant"]
 QUANT_FLIP_BUDGET = 2
 N_CHUNKS = 6
+N_ROUNDS = 16
 TOL = dict(rtol=1e-5, atol=1e-5)
 TOL_REFRESH = dict(rtol=1e-4, atol=1e-4)
 
@@ -79,6 +84,12 @@ TOL_REFRESH = dict(rtol=1e-4, atol=1e-4)
 def ref(tmp_path_factory):
     return run_reference("streaming",
                          tmp_path_factory.mktemp("ref") / "streaming.npz")
+
+
+@pytest.fixture(scope="module")
+def ref_rounds(tmp_path_factory):
+    return run_reference("rounds",
+                         tmp_path_factory.mktemp("ref") / "rounds.npz")
 
 
 def _close(a, b, **tol):
@@ -139,17 +150,22 @@ def _t2_close(t2_p, t2_r, lam_r, cfg, tol):
     assert np.all(d <= bound), (d.max(), bound[d.argmax()])
 
 
-def _plain_calls_of(cfg, masks):
-    """The kernels one chunk step of ``cfg`` calls once each."""
-    fold = "band_fold" if masks is None else "band_fold_masked"
-    if cfg.use_fused:
-        return {"fused_stream"}
-    calls = {fold}
+def _plain_calls_of(cfg, masks, per_round=False):
+    """The kernels one step of ``cfg`` calls, with their counts: one fold
+    (chunk or round), one launch per stage and 1 + refresh_iters + 2
+    banded products for the decision."""
+    fold = ("band_round" if per_round else "band_fold") \
+        + ("" if masks is None else "_masked")
+    calls = {"banded_matmul": cfg.refresh_iters + 3}
+    if cfg.use_fused and not per_round:
+        return dict(calls, fused_stream=1)
+    calls[fold] = 1
     if cfg.compression is not None:
-        calls |= ({"pca_project", "pca_reconstruct"}
-                  if cfg.compression.score_bits else {"supervised_compress"})
+        calls.update(dict.fromkeys(
+            ("pca_project", "pca_reconstruct") if cfg.compression.score_bits
+            else ("supervised_compress",), 1))
     if cfg.detection is not None:
-        calls.add("pca_monitor")
+        calls["pca_monitor"] = 1
     return calls
 
 
@@ -168,12 +184,22 @@ def test_chunk_step_matches_reference(ref, name, c):
     x, masks, rv = _chunk_inputs(ref, name, c)
     ops.reset_counts()
     new, m = chunk_stream_step(cfg, pre, x, masks, rv)
-    calls = _plain_calls_of(cfg, masks)
-    assert {k for k, v in ops.PLAIN_CALLS.items() if v} == calls
-    assert all(ops.PLAIN_CALLS[k] == 1 for k in calls)
+    assert _plain_calls() == _plain_calls_of(cfg, masks)
+    _check_step(ref, f"{name}/c{c}", cfg, x, new, m)
+
+
+def _plain_calls():
+    return {k: v for k, v in ops.PLAIN_CALLS.items() if v}
+
+
+def _check_step(ref, key, cfg, x, new, m):
+    """One step of the port (state ``new``, metrics ``m`` on inputs
+    ``x``) against the reference's step under ``key`` (``{name}/c{i}``
+    or ``{name}/r{i}``), field by field, at the tolerances of the module
+    docstring."""
     got = state_to_numpy(new)
-    post = lambda k: ref[f"{name}/c{c}/post.{k}"]
-    met = lambda k: ref[f"{name}/c{c}/m.{k}"]
+    post = lambda k: ref[f"{key}/post.{k}"]
+    met = lambda k: ref[f"{key}/m.{k}"]
 
     fired = bool(met("did_refresh"))
     assert bool(m.did_refresh) == fired
@@ -397,6 +423,185 @@ def test_split_plain_path_is_fused_plain_path_bit_for_bit(ref, name):
     tree_map(same, *(st[1] for st in steps))
 
 
+def _round_inputs(ref, name):
+    x = torch.from_numpy(ref[f"{name}/x"])
+    masks = (torch.from_numpy(ref[f"{name}/masks"])
+             if f"{name}/masks" in ref else None)
+    return x, masks
+
+
+@pytest.mark.parametrize("r", range(N_ROUNDS))
+@pytest.mark.parametrize("name", ROUND_SCENARIOS)
+def test_round_step_matches_reference(ref_rounds, name, r):
+    """``stream_step`` replayed from the reference's state before round r:
+    the per-round fold, decision, stages and books, as the chunk test."""
+    ref = ref_rounds
+    cfg = config_from_json(ref[f"{name}/cfg"])
+    pre = state_from_numpy(ref, device="cpu", prefix=f"{name}/r{r}/pre.")
+    x, masks = _round_inputs(ref, name)
+    mask = None if masks is None else masks[r]
+    ops.reset_counts()
+    new, m = stream_step(cfg, pre, x[r], mask)
+    assert _plain_calls() == _plain_calls_of(cfg, mask, per_round=True)
+    _check_step(ref, f"{name}/r{r}", cfg, x[r], new, m)
+
+
+def test_round_scenarios_cover_refreshes_flags_and_alarms(ref_rounds):
+    fired = {n: sum(bool(ref_rounds[f"{n}/r{r}/m.did_refresh"])
+                    for r in range(N_ROUNDS)) for n in ROUND_SCENARIOS}
+    assert all(v >= 3 for v in fired.values()), fired
+    total = lambda n, k: sum(float(ref_rounds[f"{n}/r{r}/m.{k}"])
+                             for r in range(N_ROUNDS))
+    for n in ("r_stages", "r_stages_masked", "r_quant"):
+        assert total(n, "compression.extra_packets") > 0, n
+    for n in ("r_stages", "r_stages_masked"):
+        assert total(n, "detection.alarms") > 0, n
+
+
+def _check_run(ref, key, new, m, fired_ref, rounds):
+    """A whole run against the reference's: decisions and counts exactly,
+    rho rtol 1e-4 / atol 1e-5 (refresh after refresh), the books rtol
+    1e-6, the final band rtol/atol 1e-4."""
+    np.testing.assert_array_equal(m.did_refresh.numpy(), fired_ref)
+    np.testing.assert_array_equal(m.refreshes.numpy(),
+                                  ref[f"{key}/m.refreshes"])
+    _close(m.rho.numpy(), ref[f"{key}/m.rho"], rtol=1e-4, atol=1e-5)
+    _close(m.comm_packets.numpy(), ref[f"{key}/m.comm_packets"], rtol=1e-6)
+    np.testing.assert_array_equal(new.rounds.numpy(), rounds)
+    np.testing.assert_array_equal(new.alive.numpy(),
+                                  ref[f"{key}/final.alive"])
+    _close(new.cov.band, ref[f"{key}/final.cov.band"], rtol=1e-4, atol=1e-4)
+    if m.compression is not None:
+        np.testing.assert_array_equal(
+            m.compression.extra_packets.numpy(),
+            ref[f"{key}/m.compression.extra_packets"])
+    if m.detection is not None:
+        np.testing.assert_array_equal(m.detection.alarms.numpy(),
+                                      ref[f"{key}/m.detection.alarms"])
+
+
+@pytest.mark.parametrize("name", ROUND_SCENARIOS)
+def test_stream_run_matches_reference(ref_rounds, name):
+    """``stream_run`` from the reference's initial state over the whole
+    stream, against the reference's ``stream_run``."""
+    cfg = config_from_json(ref_rounds[f"{name}/cfg"])
+    st = state_from_numpy(ref_rounds, device="cpu", prefix=f"{name}/r0/pre.")
+    x, masks = _round_inputs(ref_rounds, name)
+    new, m = stream_run(cfg, st, x, masks)
+    _check_run(ref_rounds, f"{name}/run", new, m,
+               ref_rounds[f"{name}/run/m.did_refresh"], N_ROUNDS)
+
+
+@pytest.mark.parametrize("chunk", [None, 4])
+def test_batched_stream_run_matches_reference(ref_rounds, chunk):
+    """``batched_stream_run`` of a three-network fleet (liveness masks;
+    14 rounds, so ``chunk=4`` pads its tail) from the reference's
+    ``batched_stream_init`` state, against the reference's run."""
+    ref = ref_rounds
+    cfg = config_from_json(ref["batched/cfg"])
+    states = state_from_numpy(ref, device="cpu", prefix="batched/init.")
+    assert states.sched.W.shape == (3, cfg.p, cfg.q)
+    xs = torch.from_numpy(ref["batched/x"])
+    masks = torch.from_numpy(ref["batched/masks"])
+    ops.reset_counts()
+    new, m = batched_stream_run(cfg, states, xs, masks, chunk=chunk)
+    label = "round" if chunk is None else "chunk"
+    decisions = xs.shape[1] if chunk is None else -(-xs.shape[1] // chunk)
+    assert m.rho.shape == (3, decisions)
+    fold = "band_round_masked" if chunk is None else "fused_stream"
+    assert ops.PLAIN_CALLS[fold] == decisions
+    _check_run(ref, f"batched/{label}", new, m,
+               ref[f"batched/{label}/m.did_refresh"], [xs.shape[1]] * 3)
+
+
+@pytest.mark.parametrize("kind", ["none", "live", "drop"])
+def test_online_update_matches_reference(ref_rounds, kind):
+    """``online_update`` round by round under each mask kind against the
+    reference's (rtol/atol 1e-5: the same fp32 sums in another order);
+    the dropout mask's pairwise counts take a second, unmasked fold."""
+    ref = ref_rounds
+    x = torch.from_numpy(ref["online/x"])
+    mk = (torch.from_numpy(ref[f"online/{kind}/mask"])
+          if f"online/{kind}/mask" in ref else None)
+    st = online_init(x.shape[-1], 3, device="cpu")
+    for r in range(x.shape[0]):
+        ops.reset_counts()
+        st = online_update(st, x[r], 0.9, None if mk is None else mk[r])
+        assert _plain_calls() == {
+            "none": {"band_round": 1}, "live": {"band_round_masked": 1},
+            "drop": {"band_round_masked": 1, "band_round": 1}}[kind]
+        for f, v in zip(st._fields, st):
+            _close(v, ref[f"online/{kind}/r{r}.{f}"])
+
+
+def test_online_update_fleet_is_per_network():
+    """Leading axes add nothing: a (3, n, p) fleet round under each mask
+    kind equals three single-network rounds, bit for bit."""
+    rng = np.random.default_rng(8)
+    T = lambda a: torch.from_numpy(a.astype(np.float32))
+    x = T(rng.normal(size=(3, 6, 37)))
+    for mk in (None, T(rng.random((3, 37)) > 0.2),
+               T(rng.random((3, 6, 37)) > 0.2)):
+        st = online_init(37, 3, (3,), device="cpu")
+        fleet = online_update(st, x, 0.9, mk)
+        for s in range(3):
+            one = online_update(online_init(37, 3, device="cpu"), x[s], 0.9,
+                                None if mk is None else mk[s])
+            for a, b in zip(fleet, one):
+                assert torch.equal(a[s], b)
+
+
+def test_stream_covariance_matches_reference(ref_rounds):
+    x = torch.from_numpy(ref_rounds["online/x"])
+    st, trace = stream_covariance(online_init(x.shape[-1], 3, device="cpu"),
+                                  x, 0.9)
+    _close(trace, ref_rounds["stream_cov/trace"])
+    for f, v in zip(st._fields, st):
+        _close(v, ref_rounds[f"stream_cov/state.{f}"])
+
+
+@pytest.mark.parametrize("name", ROUND_SCENARIOS)
+def test_probe_every_one_is_stream_run_bit_for_bit(ref_rounds, name):
+    """``chunked_stream_run(probe_every=1)`` gives ``stream_run``'s bits
+    on the plain path, states and metrics (the reference's differential
+    guarantee, tests/test_chunked_streaming.py): a one-round chunk folds,
+    decides, stages and books as a round does."""
+    cfg = config_from_json(ref_rounds[f"{name}/cfg"])
+    x, masks = _round_inputs(ref_rounds, name)
+    runs = [run(cfg, state_from_numpy(ref_rounds, device="cpu",
+                                      prefix=f"{name}/r0/pre."), x, masks)
+            for run in (stream_run, lambda *a: chunked_stream_run(
+                *a, chunk=4, probe_every=1))]
+    same = lambda a, b: torch.testing.assert_close(a, b, rtol=0, atol=0)
+    tree_map(same, runs[0][0], runs[1][0])
+    tree_map(same, runs[0][1], runs[1][1])
+
+
+def test_fleet_round_step_is_per_network_step(ref_rounds):
+    """One per-round fleet step over three networks equals three
+    single-network steps (floats rtol/atol 1e-5 — batched and single
+    products may sum in another order — the rest exactly)."""
+    name = "r_stages_masked"
+    ref = ref_rounds
+    cfg = config_from_json(ref[f"{name}/cfg"])
+    rs = (6, 9, 13)
+    states = [state_from_numpy(ref, device="cpu", prefix=f"{name}/r{r}/pre.")
+              for r in rs]
+    x, masks = _round_inputs(ref, name)
+    fleet = tree_map(lambda *a: torch.stack(a), *states)
+    new, m = fleet_round_step(cfg, fleet, x[list(rs)], masks[list(rs)])
+    assert 0 < int(m.did_refresh.sum()) < len(rs)
+
+    def same(a, b):
+        tol = TOL if a.is_floating_point() else dict(rtol=0, atol=0)
+        torch.testing.assert_close(a[s], b, **tol)
+
+    for s, r in enumerate(rs):
+        one, m1 = stream_step(cfg, states[s], x[r], masks[r])
+        tree_map(same, new, one)
+        tree_map(same, m, m1)
+
+
 class TestNotPortedRaises:
     BASE = dict(p=8, q=2, halfwidth=1)
 
@@ -410,6 +615,21 @@ class TestNotPortedRaises:
         with pytest.raises(NotImplementedError, match=kernel):
             chunk_stream_step(cfg, st, torch.zeros((2, 3, 8)))
 
+    def test_driver_arguments_checked(self):
+        """The drivers take per-round liveness masks, as the reference's
+        do, and ``probe_every`` only with ``chunk``."""
+        cfg = StreamConfig(**self.BASE)
+        st = batched_stream_init(cfg, 2, device="cpu")
+        with pytest.raises(ValueError, match="probe_every requires chunk"):
+            batched_stream_run(cfg, st, torch.zeros((2, 4, 3, 8)),
+                               probe_every=2)
+        with pytest.raises(ValueError, match="liveness masks"):
+            fleet_round_step(cfg, st, torch.zeros((2, 3, 8)),
+                             torch.ones((2, 3, 8)))
+        with pytest.raises(ValueError, match="liveness masks"):
+            fleet_chunk_step(cfg, st, torch.zeros((2, 4, 3, 8)),
+                             torch.ones((2, 4, 3, 8)))
+
     def test_cuda_without_card_raises(self):
         if torch.cuda.is_available():
             pytest.skip("a card is present")
@@ -421,7 +641,9 @@ class TestNotPortedRaises:
         lambda: detector_init((2,)),
         lambda: row_liveness(None, 4),
         lambda: random_bases(2, 8, 2),
-    ], ids=["online_init", "detector_init", "row_liveness", "random_bases"])
+        lambda: batched_stream_init(StreamConfig(p=8, q=2, halfwidth=1), 2),
+    ], ids=["online_init", "detector_init", "row_liveness", "random_bases",
+            "batched_stream_init"])
     def test_state_entry_points_default_to_cuda(self, entry):
         """Each state constructor runs on the card unless given
         ``device='cpu'``; without a card that default raises."""

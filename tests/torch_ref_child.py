@@ -1,6 +1,7 @@
 """Reference runs for the PyTorch port's parity tests, in a child process.
 
-Run as ``python tests/torch_ref_child.py {streaming|engine} OUT.npz`` with
+Run as ``python tests/torch_ref_child.py {streaming|rounds|engine} OUT.npz``
+with
 ``JAX_PLATFORMS=cpu`` and ``src`` on ``PYTHONPATH``.  The installed jax
 moved ``ClosedJaxpr``, ``Jaxpr`` and ``Literal`` from ``jax.core`` to
 ``jax.extend.core``; ``repro.analysis`` (imported at the bottom of
@@ -14,9 +15,14 @@ output beside the reference's results, so the parent runs the port on
 exactly the same data.  Keys: ``{scenario}/cfg`` (JSON of the config),
 ``{scenario}/x``, ``/masks``, ``/rv`` (inputs), ``{scenario}/c{i}/pre.*``
 (state before chunk i), ``/post.*`` (state after), ``/m.*`` (metrics);
-``quantize/*`` (the score quantizer on fixed scores).  The engine run
-writes the default configuration's results at the top level and the
-quantized configuration's under ``quant/``.
+``quantize/*`` (the score quantizer on fixed scores).  The ``rounds`` run
+writes the per-round scenarios the same way, ``{scenario}/r{i}/...`` for
+round i, plus ``{scenario}/run/final.*`` and ``/run/m.*`` (the reference's
+``stream_run`` over the whole stream), ``online/*`` and ``stream_cov/*``
+(the online covariance per round under each mask kind) and ``batched/*``
+(``batched_stream_run`` of a three-network fleet, per round and chunked).
+The engine run writes the default configuration's results at the top
+level and the quantized configuration's under ``quant/``.
 """
 
 from __future__ import annotations
@@ -38,8 +44,12 @@ import numpy as np  # noqa: E402
 from repro.streaming.compressor import (CompressionConfig,  # noqa: E402
                                         quantize_scores)
 from repro.streaming.detector import DetectionConfig  # noqa: E402
-from repro.streaming.driver import (StreamConfig, chunk_stream_step,  # noqa: E402
-                                    stream_init)
+from repro.streaming.driver import (StreamConfig,  # noqa: E402
+                                    batched_stream_init, batched_stream_run,
+                                    chunk_stream_step, stream_init,
+                                    stream_run, stream_step)
+from repro.streaming.online_cov import (online_init,  # noqa: E402
+                                        online_update, stream_covariance)
 
 
 def signal(rng, rounds, n, p, *, rank=3, noise=0.05, spike_rate=3e-4,
@@ -172,6 +182,96 @@ def run_streaming(out):
         out[f"{name}/n_chunks"] = np.array(n_chunks)
 
 
+ROUND_SCENARIOS = {
+    # name: (p, stages, masked, config overrides)
+    "r_stages": (64, "cm", False, {}),
+    "r_stages_masked": (37, "cm", True, {}),
+    "r_band": (64, "", False, {}),
+    "r_quant": (64, "cm", False, dict(score_bits=4)),
+}
+ROUNDS = 16
+
+
+def round_masks(rounds, p):
+    """A death, an outage with revival and a late pair of deaths."""
+    masks = np.ones((rounds, p), np.float32)
+    masks[5:, 3] = 0.0
+    masks[8:11, p - 5:] = 0.0
+    masks[12:, 10:12] = 0.0
+    return masks
+
+
+def online_cases(out):
+    """The online covariance round by round under each mask kind (none,
+    (p,) liveness, (n, p) dropout; prime p, n not a multiple of 8), and
+    ``stream_covariance`` over the same rounds."""
+    rng = np.random.default_rng(300)
+    p, h, n, rounds = 37, 3, 6, 4
+    x = rng.normal(size=(rounds, n, p)).astype(np.float32)
+    masks = {"none": None,
+             "live": (rng.random((rounds, p)) > 0.2).astype(np.float32),
+             "drop": (rng.random((rounds, n, p)) > 0.2).astype(np.float32)}
+    out["online/x"] = x
+    for kind, m in masks.items():
+        if m is not None:
+            out[f"online/{kind}/mask"] = m
+        st = online_init(p, h)
+        for r in range(rounds):
+            st = online_update(st, jnp.asarray(x[r]), forgetting=0.9,
+                               mask=None if m is None else jnp.asarray(m[r]),
+                               interpret=True)
+            out.update(flatten(st, f"online/{kind}/r{r}"))
+    st, trace = stream_covariance(online_init(p, h), jnp.asarray(x),
+                                  forgetting=0.9, interpret=True)
+    out.update(flatten(st, "stream_cov/state"))
+    out["stream_cov/trace"] = np.asarray(trace)
+
+
+def run_rounds(out):
+    online_cases(out)
+    for si, (name, (p, stages, masked, over)) in enumerate(
+            ROUND_SCENARIOS.items()):
+        rng = np.random.default_rng(200 + si)
+        cfg = stream_cfg(p, stages, **over)
+        x = signal(rng, ROUNDS, N, p, rotate_at=8, spike_rate=2e-3)
+        masks = round_masks(ROUNDS, p) if masked else None
+        out[f"{name}/cfg"] = np.array(cfg_json(cfg))
+        out[f"{name}/x"] = x
+        if masks is not None:
+            out[f"{name}/masks"] = masks
+        step = jax.jit(lambda s, xr, mr: stream_step(cfg, s, xr, mr))
+        st0 = st = stream_init(cfg, jax.random.PRNGKey(50 + si))
+        for r in range(ROUNDS):
+            out.update(flatten(st, f"{name}/r{r}/pre"))
+            st, m = step(st, jnp.asarray(x[r]),
+                         None if masks is None else jnp.asarray(masks[r]))
+            out.update(flatten(st, f"{name}/r{r}/post"))
+            out.update(flatten(m, f"{name}/r{r}/m"))
+        fin, met = stream_run(cfg, st0, jnp.asarray(x),
+                              None if masks is None else jnp.asarray(masks))
+        out.update(flatten(fin, f"{name}/run/final"))
+        out.update(flatten(met, f"{name}/run/m"))
+    # a fleet of three networks: one healthy, one with a death, one with
+    # an outage; per round and in chunks of 4 (14 rounds: a padded tail)
+    nets, rounds, p = 3, 14, 37
+    cfg = stream_cfg(p, "cm")
+    rng = np.random.default_rng(400)
+    xs = np.stack([signal(rng, rounds, N, p, rotate_at=7, spike_rate=2e-3)
+                   for _ in range(nets)])
+    masks = np.ones((nets, rounds, p), np.float32)
+    masks[1, 4:, 6] = 0.0
+    masks[2, 6:9, 20:24] = 0.0
+    states = batched_stream_init(cfg, jax.random.PRNGKey(9), nets)
+    out["batched/cfg"] = np.array(cfg_json(cfg))
+    out["batched/x"], out["batched/masks"] = xs, masks
+    out.update(flatten(states, "batched/init"))
+    for label, chunk in (("round", None), ("chunk", 4)):
+        fin, met = batched_stream_run(cfg, states, jnp.asarray(xs),
+                                      jnp.asarray(masks), chunk=chunk)
+        out.update(flatten(fin, f"batched/{label}/final"))
+        out.update(flatten(met, f"batched/{label}/m"))
+
+
 ENGINE_P, ENGINE_SLOTS = 64, 4
 
 
@@ -220,5 +320,6 @@ def serve_engine(out, cfg, prefix):
 if __name__ == "__main__":
     mode, path = sys.argv[1], sys.argv[2]
     results: dict = {}
-    {"streaming": run_streaming, "engine": run_engine}[mode](results)
+    {"streaming": run_streaming, "rounds": run_rounds,
+     "engine": run_engine}[mode](results)
     np.savez(path, **results)
