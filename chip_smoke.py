@@ -14,8 +14,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      warmed up) beside its bound and, where one PyTorch call computes the
      same function, that call's time on the same inputs (torch.bmm, TF32
      off; for the banded products on the dense (p, p) matrix formed
-     outside the timing); plus a small engine run on the card against the
-     same run on the CPU;
+     outside the timing); kernel 1 also in its bf16 tile mode, with the
+     bf16 cast of x (outside the kernel, as in the reference) timed on its
+     own; plus a small engine run on the card against the same run on the
+     CPU;
   4. the main path: StreamingPCAEngine with compression and detection on
      256 slots at one wsn-1m region's width, serving 320 requests of 24
      rounds (slots retire and readmit; the last 64 carry a liveness
@@ -35,7 +37,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      monitoring launch and 1 + refresh_iters + 2 banded products; plus a
      small per-round fleet on the card against the same fleet on the CPU;
   9. the band-only per-round path without masks: one per-round fold and
-     1 + refresh_iters + 2 banded products a round.
+     1 + refresh_iters + 2 banded products a round;
+ 10. the engine of phase 4 in the bf16 tile mode (precision="bf16") on the
+     same requests: one fused_stream_bf16 launch per step, no plain call,
+     the worst sink error within eps + 2^-8 max|x| (the flag is decided on
+     the bf16-rounded reading, the books read the fp32 one); its rate,
+     step time, flagged readings and refreshes beside phase 4's.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card, or without the rest
 of the repository beside it, the script exits non-zero and prints no
@@ -64,6 +71,8 @@ _SPLIT = "src/repro_torch/kernels/csrc/pca_project.cu"
 KERNELS = {
     "fused_stream": ("src/repro_torch/kernels/csrc/fused_stream.cu",
                      "src/repro/kernels/fused_stream.py:206"),
+    "fused_stream_bf16": ("src/repro_torch/kernels/csrc/fused_stream.cu",
+                          "src/repro/kernels/fused_stream.py:206"),
     "band_fold": ("src/repro_torch/kernels/csrc/band_fold.cu",
                   "src/repro/kernels/cov_update.py:171"),
     "band_fold_masked": ("src/repro_torch/kernels/csrc/band_fold.cu",
@@ -171,6 +180,56 @@ def profile_breakdown(run, top: int = 8) -> None:
     for e in rows[:top]:
         print(f"     {dev_time(e) / 1e3:10.1f} ms  {e.count:6d}x  "
               f"{e.key[:90]}")
+
+
+def fused_bf16(record, x, w, basis, mean, il, masks, eps) -> None:
+    """Kernel 1 in its bf16 tile mode against its plain version at the
+    slice shape: x and W rounded to bf16 by the wrapper's rule (the cast of
+    x timed on its own, beside its bound), the kernel and the plain version
+    both fed the rounded tensors."""
+    from repro_torch.kernels import ops, ref
+    S, Kc, Nc, p = x.shape
+    R, q = Kc * Nc, basis.shape[-1]
+    cast = lambda: ops.fused_tiles(x, "bf16")
+    xb, bb = cast(), ops.fused_tiles(basis, "bf16")
+    run = lambda: ops.fused_stream_update(
+        xb, w, bb, mean, il, halfwidth=H, epsilon=eps, with_compress=True,
+        with_monitor=True, mask=masks, precision="bf16")
+    plain_fn = lambda: ref.fused_stream(xb, w, bb, mean, il, H, eps, masks)
+    out = run()
+    torch.cuda.synchronize()
+    plain = plain_fn()
+    errs = [compare(f"fused_bf16 {name}", out[i], plain[i], 1e-4, 1e-3)
+            for i, name in ((0, "band"), (1, "z"), (2, "x_hat"), (4, "t2"),
+                            (5, "spe"))]
+    xv = xb.float().reshape(S, R, p)
+    clear = ((xv - plain[2]).abs() - eps).abs() > 1e-3
+    bad = int(((out[3] != plain[3]) & clear).sum())
+    print(f"   fused_bf16 flags: {int(out[3].sum())} set, {bad} disagree "
+          f"away from eps (want 0)")
+    check(bad == 0, "fused_bf16 flags disagree")
+    del out, plain, xv, clear
+    ms = time_ms(run, 10)
+    plain_ms = time_ms(plain_fn, 2, 1)
+    cast_ms = time_ms(cast, 10)
+    flops = fold_flops(S, R, p, H) + 2.0 * 2 * S * R * p * q
+    nbytes = (2.0 * (xb.numel() + bb.numel())                 # bf16 tiles
+              + 4.0 * (w.numel() + masks.numel() + mean.numel() + il.numel()
+                       + S * (2 * H + 1) * p + S * R * q      # band, z
+                       + S * R * p + 2 * S * R)               # x_hat, T2, SPE
+              + 1.0 * S * R * p)                              # bool flags
+    b_ms, b_by = bound(flops, nbytes)
+    cast_bound, _ = bound(0.0, 6.0 * x.numel())     # fp32 read, bf16 written
+    print(f"   fused_bf16 S={S} R={R} p={p} h={H} q={q}: kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
+          f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e9:.3f} GB); bf16 cast of x "
+          f"{cast_ms:.3f} ms, bound {cast_bound:.4f} ms (bytes; "
+          f"{6.0 * x.numel() / 1e9:.3f} GB)")
+    record["fused_stream_bf16"] = dict(
+        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, cast_ms=cast_ms,
+        cast_bound_ms=cast_bound)
+    del xb, bb
 
 
 def split_kernels(record, xv, masks, basis, mean, il, eps) -> None:
@@ -422,6 +481,7 @@ def main() -> int:
                                           plain_ms=plain_ms, bound_ms=b_ms,
                                           bound_by=b_by)
         del out, plain
+    fused_bf16(record, x, w, basis, mean, il, masks, eps)
     for p, Kb, Nb in ((P, K, N), (1021, 10, 25)):
         xb = torch.randn((S, Kb, Nb, p), device=dev, generator=g)
         wb = torch.rand((S, Kb), device=dev, generator=g)
@@ -500,6 +560,8 @@ def main() -> int:
     print(f"   made {REQUESTS} requests of {ROUNDS} rounds x {N} epochs x "
           f"{P} sensors in {time.perf_counter() - t0:.1f} s")
 
+    rates = {}                      # label -> (rounds/s, step ms)
+
     def serve(config, rounds, label):
         eng = StreamingPCAEngine(config, slots=SLOTS, chunk=K, seed=0,
                                  device="cuda", telemetry=True)
@@ -520,6 +582,7 @@ def main() -> int:
         steps = sum(1 for s in eng.telemetry.steps if s.live > 0)
         folded = sum(s.rounds for s in eng.telemetry.steps)
         res = [r.result for r in reqs]
+        rates[label] = (folded / wall, 1e3 * wall / steps)
         print(f"   {label}: {steps} steps, {folded} rounds in {wall:.2f} s "
               f"= {folded / wall:.1f} rounds/s ({folded * N / wall:.0f} "
               f"epochs/s), step {1e3 * wall / steps:.1f} ms; refreshes "
@@ -549,6 +612,7 @@ def main() -> int:
     check(worst <= EPS, "the eps guarantee was broken")
     check(flagged > 0, "no reading flagged")
     record["fused_stream"]["launches"] = launches["fused_stream"]
+    fp32_books = (flagged, sum(r.refreshes for r in res))
     profile_breakdown(lambda: serve(cfg, ROUNDS, "profiled stages engine"))
 
     phase("5 engine: band only")
@@ -701,13 +765,39 @@ def main() -> int:
     record["band_round"]["launches"] = launches["band_round"]
     del xs, live
 
+    phase("10 engine: fused stages, bf16 tiles")
+    bf16_cfg = dataclasses.replace(cfg, precision="bf16")
+    steps, launches, res = serve(bf16_cfg, ROUNDS, "bf16 stages engine")
+    check(launches["fused_stream_bf16"] == steps
+          and launches["fused_stream"] == 0,
+          f"bf16 launches {launches} vs {steps} steps")
+    slack = 2.0 ** -8 * max(float(np.abs(d).max()) for d in data)
+    worst = max(r.compression_max_err for r in res)
+    flagged = sum(r.compression_extra_packets for r in res)
+    refreshes = sum(r.refreshes for r in res)
+    print(f"   worst sink error {worst:.4f} <= eps {EPS} + 2^-8 max|x| "
+          f"{slack:.4f}; {flagged:.0f} flagged readings (fp32, phase 4: "
+          f"{fp32_books[0]:.0f}); refreshes {refreshes} (fp32: "
+          f"{fp32_books[1]})")
+    check(worst <= EPS + slack, "bf16: the eps + bf16 rounding bound broke")
+    check(flagged > 0, "bf16: no reading flagged")
+    (r32, s32), (r16, s16) = (rates["stages engine"],
+                              rates["bf16 stages engine"])
+    print(f"   bf16 vs fp32 (phase 4): {r16:.1f} vs {r32:.1f} rounds/s, "
+          f"step {s16:.1f} vs {s32:.1f} ms")
+    record["fused_stream_bf16"]["launches"] = launches["fused_stream_bf16"]
+    profile_breakdown(lambda: serve(bf16_cfg, ROUNDS,
+                                    "profiled bf16 stages engine"))
+    del res
+
     print(f"   total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1], launches=rec["launches"],
              max_abs_err=rec["max_abs_err"], ms=rec["ms"],
              plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
-             bound_by=rec["bound_by"], library_ms=rec.get("library_ms"))
+             bound_by=rec["bound_by"], library_ms=rec.get("library_ms"),
+             **{k: rec[k] for k in ("cast_ms", "cast_bound_ms") if k in rec})
         for name, rec in record.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -30,6 +30,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# kernel 1's two entry points (fp32, bf16 tile mode) take the same arguments
+_FUSED = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P,
+          _P, _P, _P, _P, _P, _P]
 # every C entry point returns cudaGetLastError() after its launch
 SOURCES: dict[str, dict[str, list]] = {
     "band_fold": {
@@ -42,11 +45,7 @@ SOURCES: dict[str, dict[str, list]] = {
         "banded_matmul_f32": [_P, _P, _I, _I, _I, _I, _P, _P],
         "banded_matvec_f32": [_P, _P, _I, _I, _I, _P, _P],
     },
-    "fused_stream": {
-        "fused_stream_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _I, _I, _F, _I, _I, _P, _P, _P, _P, _P, _P,
-                             _P],
-    },
+    "fused_stream": {"fused_stream_f32": _FUSED, "fused_stream_bf16": _FUSED},
     "pca_project": {
         "supervised_compress_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                     _F, _P, _P, _P, _P],

@@ -3,8 +3,10 @@
 //
 //   band[s, k, i] = sum_r w[s, r / n] * (m x)[s, r, i] * (m x)[s, r, i + k - h]
 //
-// x is the slot's flattened chunk (R = K*n rows, p columns, fp32,
-// row-major; row r = t*n + e is epoch e of round t); w holds one weight
+// x is the slot's flattened chunk (R = K*n rows, p columns, row-major;
+// row r = t*n + e is epoch e of round t), fp32 or — kernel 1's bf16 tile
+// mode — bf16, converted to fp32 as it is loaded, so every product and the
+// accumulator stay fp32 whatever the operand type; w holds one weight
 // per ROUND; the optional 0/1 mask has one row per round ((K, p) liveness)
 // or, with per_reading set, one row per row of x ((K, n, p) dropout) — a
 // liveness mask is never broadcast to the chunk's size in device memory.
@@ -24,13 +26,15 @@
 
 #include <cuda_runtime.h>
 
+#include "operand.cuh"
+
 namespace repro_torch {
 
 constexpr int kFoldThreads = 256;
 
-template <bool HAS_MASK, bool WEIGHTED = true>
+template <bool HAS_MASK, bool WEIGHTED = true, typename T = float>
 __device__ __forceinline__ void band_fold_block(
-    const float* __restrict__ x, const float* __restrict__ w,
+    const T* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ m, int K, int n, bool per_reading, int p,
     int h, int block, float* __restrict__ band) {
   const int col_blocks = (p + kFoldThreads - 1) / kFoldThreads;
@@ -49,8 +53,8 @@ __device__ __forceinline__ void band_fold_block(
       }
       for (int e = 0; e < n; ++e) {
         const size_t r = (size_t)t * n + e;
-        float xi = x[r * p + i];
-        float xj = x[r * p + j];
+        float xi = to_f32(x[r * p + i]);
+        float xj = to_f32(x[r * p + j]);
         if (HAS_MASK && per_reading) {
           mi = m[r * p + i];
           mj = m[r * p + j];

@@ -35,6 +35,17 @@
 // (CUDA-core fp32; the fold has no tensor-core form in fp32 without TF32).
 // This kernel computes every in-range band entry, both halves: folding
 // half the band and mirroring it is later work.
+//
+// bf16 tile mode (fused_stream_bf16; the reference's precision="bf16",
+// repro/kernels/ops.py::_fused_prep): x, the basis and its transpose come
+// in as bf16, rounded to nearest even by the wrapper; the mask (0/1, exact
+// in either type), the weights, mean, inv_lam and every output stay fp32.
+// The kernel is the same template on the operand type: each bf16 element is
+// widened to fp32 as it is loaded (operand.cuh) and all arithmetic, shared
+// memory and accumulators are fp32, as in _fused_kernel (fused_stream.py:
+// 46-55).  The operation count is unchanged, so the bound is too (0.37 ms
+// at the slice, by operations); x and W halve, ~0.77 GB against ~0.93.
+// Loads stay scalar: a bf16 row at odd p is not 16-byte aligned.
 #include "band_fold.cuh"
 #include "stages.cuh"
 
@@ -43,12 +54,12 @@ namespace repro_torch {
 static_assert(kFoldThreads == kStageThreads,
               "fold and stage blocks share one launch's block size");
 
-template <bool HAS_MASK, bool WITH_C, bool WITH_M>
+template <bool HAS_MASK, bool WITH_C, bool WITH_M, typename T>
 __global__ void __launch_bounds__(kFoldThreads)
-fused_stream_kernel(const float* __restrict__ x, const float* __restrict__ w,
+fused_stream_kernel(const T* __restrict__ x, const float* __restrict__ w,
                     const float* __restrict__ m,
-                    const float* __restrict__ basis,
-                    const float* __restrict__ basis_t,
+                    const T* __restrict__ basis,
+                    const T* __restrict__ basis_t,
                     const float* __restrict__ mean,
                     const float* __restrict__ inv_lam, int K, int n,
                     int p, int q, int h, float eps, int band_blocks,
@@ -74,9 +85,9 @@ fused_stream_kernel(const float* __restrict__ x, const float* __restrict__ w,
       WITH_M ? spe + rows : nullptr, smem);
 }
 
-template <bool HAS_MASK, bool WITH_C, bool WITH_M>
-static int launch(const float* x, const float* w, const float* m,
-                  const float* basis, const float* basis_t,
+template <bool HAS_MASK, bool WITH_C, bool WITH_M, typename T>
+static int launch(const T* x, const float* w, const float* m,
+                  const T* basis, const T* basis_t,
                   const float* mean, const float* inv_lam, int S, int K,
                   int n, int p, int q, int h, float eps, float* band,
                   float* z, float* xh, unsigned char* flags, float* t2,
@@ -86,7 +97,7 @@ static int launch(const float* x, const float* w, const float* m,
   const int band_blocks = col_blocks * (2 * h + 1);
   const int stage_blocks = (R + kRows - 1) / kRows;
   const size_t smem = sizeof(float) * (size_t)kRows * (p + q);
-  auto kernel = fused_stream_kernel<HAS_MASK, WITH_C, WITH_M>;
+  auto kernel = fused_stream_kernel<HAS_MASK, WITH_C, WITH_M, T>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -99,27 +110,43 @@ static int launch(const float* x, const float* w, const float* m,
   return (int)cudaGetLastError();
 }
 
-template <bool HAS_MASK>
-static int dispatch(int with_c, int with_m, const float* x, const float* w,
-                    const float* m, const float* basis,
-                    const float* basis_t, const float* mean,
+template <bool HAS_MASK, typename T>
+static int dispatch(int with_c, int with_m, const T* x, const float* w,
+                    const float* m, const T* basis,
+                    const T* basis_t, const float* mean,
                     const float* inv_lam, int S, int K, int n, int p,
                     int q, int h, float eps, float* band, float* z,
                     float* xh, unsigned char* flags, float* t2, float* spe,
                     void* stream) {
   if (with_c && with_m)
-    return launch<HAS_MASK, true, true>(
+    return launch<HAS_MASK, true, true, T>(
         x, w, m, basis, basis_t, mean, inv_lam, S, K, n, p, q, h, eps, band,
         z, xh, flags, t2, spe, stream);
   if (with_c)
-    return launch<HAS_MASK, true, false>(
+    return launch<HAS_MASK, true, false, T>(
         x, w, m, basis, basis_t, mean, inv_lam, S, K, n, p, q, h, eps, band,
         z, xh, flags, t2, spe, stream);
   if (with_m)
-    return launch<HAS_MASK, false, true>(
+    return launch<HAS_MASK, false, true, T>(
         x, w, m, basis, basis_t, mean, inv_lam, S, K, n, p, q, h, eps, band,
         z, xh, flags, t2, spe, stream);
   return (int)cudaErrorInvalidValue;   // band-only chunks use band_fold.cu
+}
+
+template <typename T>
+static int entry(const T* x, const float* w, const float* m, const T* basis,
+                 const T* basis_t, const float* mean, const float* inv_lam,
+                 int S, int K, int n, int p, int q, int h, float eps,
+                 int with_compress, int with_monitor, float* band, float* z,
+                 float* xh, unsigned char* flags, float* t2, float* spe,
+                 void* stream) {
+  if (m != nullptr)
+    return dispatch<true>(with_compress, with_monitor, x, w, m, basis,
+                          basis_t, mean, inv_lam, S, K, n, p, q, h, eps,
+                          band, z, xh, flags, t2, spe, stream);
+  return dispatch<false>(with_compress, with_monitor, x, w, m, basis,
+                         basis_t, mean, inv_lam, S, K, n, p, q, h, eps, band,
+                         z, xh, flags, t2, spe, stream);
 }
 
 }  // namespace repro_torch
@@ -139,13 +166,24 @@ int fused_stream_f32(const float* x, const float* w, const float* m,
                      int with_compress, int with_monitor, float* band,
                      float* z, float* xh, unsigned char* flags, float* t2,
                      float* spe, void* stream) {
-  if (m != nullptr)
-    return repro_torch::dispatch<true>(
-        with_compress, with_monitor, x, w, m, basis, basis_t, mean, inv_lam,
-        S, K, n, p, q, h, eps, band, z, xh, flags, t2, spe, stream);
-  return repro_torch::dispatch<false>(
-      with_compress, with_monitor, x, w, m, basis, basis_t, mean, inv_lam, S,
-      K, n, p, q, h, eps, band, z, xh, flags, t2, spe, stream);
+  return repro_torch::entry(x, w, m, basis, basis_t, mean, inv_lam, S, K, n,
+                            p, q, h, eps, with_compress, with_monitor, band,
+                            z, xh, flags, t2, spe, stream);
+}
+
+// The bf16 tile mode: as fused_stream_f32 with x, basis and basis_t bf16;
+// every other operand and every output as there.
+int fused_stream_bf16(const __nv_bfloat16* x, const float* w,
+                      const float* m, const __nv_bfloat16* basis,
+                      const __nv_bfloat16* basis_t, const float* mean,
+                      const float* inv_lam, int S, int K, int n, int p,
+                      int q, int h, float eps, int with_compress,
+                      int with_monitor, float* band, float* z, float* xh,
+                      unsigned char* flags, float* t2, float* spe,
+                      void* stream) {
+  return repro_torch::entry(x, w, m, basis, basis_t, mean, inv_lam, S, K, n,
+                            p, q, h, eps, with_compress, with_monitor, band,
+                            z, xh, flags, t2, spe, stream);
 }
 
 }  // extern "C"

@@ -21,9 +21,17 @@
 // (reading W itself there put a warp's 32 loads on 32 cache lines, 4 bytes
 // of each); SPE and T2 are warp-shuffle reductions in a fixed order, so the
 // outputs are deterministic.
+//
+// x, the basis and its transpose are fp32 or (kernel 1's bf16 tile mode,
+// T = __nv_bfloat16) bf16: each element is converted to fp32 as it is
+// loaded (operand.cuh), and the staged rows, the scores and every
+// sum stay fp32, as in the reference's _fused_kernel.  The flag compares
+// the loaded x (bf16-rounded in that mode) with x^, as the reference does.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "operand.cuh"
 
 namespace repro_torch {
 
@@ -39,26 +47,28 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // x^_r[i] = sum_c z_r[c] W^T[c, i] for one row, lanes over sensors; the
 // same products in the same order as z W^T.
+template <typename T>
 __device__ __forceinline__ float reconstruct_one(
-    const float* __restrict__ zr, const float* __restrict__ basis_t, int p,
+    const float* __restrict__ zr, const T* __restrict__ basis_t, int p,
     int q, int i) {
   float acc = 0.0f;
   for (int c = 0; c < q; ++c)
-    acc += zr[c] * __ldg(basis_t + (size_t)c * p + i);
+    acc += zr[c] * ldg_f32(basis_t + (size_t)c * p + i);
   return acc;
 }
 
 // z_s[rr, c] = sum_i xc_s[rr, i] W[i, c] for the block's rows; also
 // written to z (the slot's (R, q) scores) for rows below R.
+template <typename T>
 __device__ __forceinline__ void stage_scores(
-    const float* __restrict__ xc_s, const float* __restrict__ basis, int R,
+    const float* __restrict__ xc_s, const T* __restrict__ basis, int R,
     int p, int q, int r0, float* __restrict__ z_s, float* __restrict__ z) {
   for (int o = threadIdx.x; o < kRows * q; o += blockDim.x) {
     const int rr = o / q, c = o - rr * q;
     const float* xr = xc_s + rr * p;
     float acc = 0.0f;
     for (int i = 0; i < p; ++i)
-      acc += xr[i] * __ldg(basis + (size_t)i * q + c);
+      acc += xr[i] * ldg_f32(basis + (size_t)i * q + c);
     z_s[o] = acc;
     if (r0 + rr < R) z[(size_t)(r0 + rr) * q + c] = acc;
   }
@@ -68,10 +78,10 @@ __device__ __forceinline__ void stage_scores(
 // slot's: x (R, p), m (R / mask_div, p) or unused, basis (p, q), basis_t
 // (q, p) its transpose, mean (p), inv_lam (q); outputs z (R, q), xh/flags
 // (R, p), t2/spe (R).  smem holds kRows * (p + q) floats.
-template <bool HAS_MASK, bool WITH_C, bool WITH_M>
+template <bool HAS_MASK, bool WITH_C, bool WITH_M, typename T = float>
 __device__ __forceinline__ void stage_block(
-    const float* __restrict__ x, const float* __restrict__ m, int mask_div,
-    const float* __restrict__ basis, const float* __restrict__ basis_t,
+    const T* __restrict__ x, const float* __restrict__ m, int mask_div,
+    const T* __restrict__ basis, const T* __restrict__ basis_t,
     const float* __restrict__ mean, const float* __restrict__ inv_lam,
     int R, int p, int q, float eps, int r0, float* __restrict__ z,
     float* __restrict__ xh, unsigned char* __restrict__ flags,
@@ -84,7 +94,7 @@ __device__ __forceinline__ void stage_block(
     const int rr = idx / p, i = idx - rr * p, r = r0 + rr;
     float v = 0.0f;
     if (r < R) {
-      v = x[(size_t)r * p + i] - mean[i];
+      v = to_f32(x[(size_t)r * p + i]) - mean[i];
       if (HAS_MASK) v *= m[(size_t)(r / mask_div) * p + i];
     }
     xc_s[idx] = v;
@@ -107,7 +117,7 @@ __device__ __forceinline__ void stage_block(
     const float mv = HAS_MASK ? mr[i] : 1.0f;
     if (WITH_C) {
       const float xhv = xh_r + mean[i];
-      const float err = fabsf(x[row + i] - xhv);
+      const float err = fabsf(to_f32(x[row + i]) - xhv);
       xh[row + i] = xhv;
       flags[row + i] = (err > eps && mv > 0.0f) ? 1 : 0;
     }

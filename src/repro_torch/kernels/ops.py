@@ -24,14 +24,15 @@ from repro_torch.kernels.build import load_library
 __all__ = ["LAUNCHES", "PLAIN_CALLS", "reset_counts",
            "cov_band_update", "cov_band_update_batched",
            "cov_band_update_chunk", "cov_band_update_chunk_batched",
-           "fused_stream_update", "fused_stream_stages_blocked",
+           "fused_tiles", "fused_stream_update",
+           "fused_stream_stages_blocked",
            "supervised_compress", "pca_monitor", "pca_project",
            "pca_reconstruct", "banded_matmul", "banded_matvec"]
 
-_KERNELS = ("fused_stream", "band_fold", "band_fold_masked", "band_round",
-            "band_round_masked", "supervised_compress", "pca_monitor",
-            "pca_project", "pca_reconstruct", "banded_matmul",
-            "banded_matvec")
+_KERNELS = ("fused_stream", "fused_stream_bf16", "band_fold",
+            "band_fold_masked", "band_round", "band_round_masked",
+            "supervised_compress", "pca_monitor", "pca_project",
+            "pca_reconstruct", "banded_matmul", "banded_matvec")
 LAUNCHES = dict.fromkeys(_KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(_KERNELS, 0)
 
@@ -56,10 +57,13 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def _cuda_f32(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+def _cuda_operand(t: torch.Tensor, device: torch.device,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``t`` as a kernel operand: on ``device`` (else raises), in ``dtype``,
+    contiguous."""
     if t.device != device:
         raise ValueError(f"operand on {t.device}, kernel input on {device}")
-    return t.to(torch.float32).contiguous()
+    return t.to(dtype).contiguous()
 
 
 def _transposed(basis: torch.Tensor) -> torch.Tensor:
@@ -120,14 +124,14 @@ def cov_band_update_batched(x: torch.Tensor, halfwidth: int, *,
     if B > _MAX_SLOTS:
         raise ValueError(f"{B} networks exceed the grid's {_MAX_SLOTS}")
     dev = x.device
-    xx = _cuda_f32(x, dev)
+    xx = _cuda_operand(x, dev)
     band = torch.empty((B, 2 * h + 1, p), device=dev, dtype=torch.float32)
     lib = load_library("band_fold")
     if mask is None:
         ret = lib.band_round_f32(xx.data_ptr(), B, n, p, h, band.data_ptr(),
                                  _stream())
     else:
-        m = _cuda_f32(mask, dev)
+        m = _cuda_operand(mask, dev)
         ret = lib.band_round_masked_f32(xx.data_ptr(), m.data_ptr(), B, n,
                                         int(m.dim() == 3), p, h,
                                         band.data_ptr(), _stream())
@@ -178,15 +182,15 @@ def cov_band_update_chunk_batched(xs: torch.Tensor, weights: torch.Tensor,
     if B > _MAX_SLOTS:
         raise ValueError(f"{B} networks exceed the grid's {_MAX_SLOTS}")
     dev = xs.device
-    x = _cuda_f32(xs, dev)
-    w = _cuda_f32(weights, dev)
+    x = _cuda_operand(xs, dev)
+    w = _cuda_operand(weights, dev)
     band = torch.empty((B, 2 * h + 1, p), device=dev, dtype=torch.float32)
     lib = load_library("band_fold")
     if mask is None:
         ret = lib.band_fold_f32(x.data_ptr(), w.data_ptr(), B, K, n, p, h,
                                 band.data_ptr(), _stream())
     else:
-        m, per_reading = _mask_rows(_cuda_f32(mask, dev), B, K, n, p)
+        m, per_reading = _mask_rows(_cuda_operand(mask, dev), B, K, n, p)
         ret = lib.band_fold_masked_f32(x.data_ptr(), w.data_ptr(),
                                        m.data_ptr(), B, K, n, per_reading, p,
                                        h, band.data_ptr(), _stream())
@@ -207,25 +211,35 @@ def cov_band_update_chunk(xs: torch.Tensor, weights: torch.Tensor,
         mask=None if mask is None else mask[None])[0]
 
 
-def _fused_prep(x, basis, mean, inv_lam, precision):
-    """Operand rules shared by the fused wrapper and its stage-only twin
-    (``repro.kernels.ops._fused_prep``): fp32 canonical forms, zero mean
-    and unit inverse eigenvalues by default.  The bf16 tile mode has no
-    kernel in the port yet and raises."""
-    if precision not in ("fp32", "bf16"):
+_TILE = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+def fused_tiles(t: torch.Tensor, precision: str = "fp32") -> torch.Tensor:
+    """``t`` as a tile operand of kernel 1 (x or the basis): fp32, or with
+    ``precision="bf16"`` rounded to bf16 from fp32 (to nearest even, as
+    XLA's convert does in ``repro.kernels.ops._fused_prep``).  A tensor
+    already in the tile type is returned as it is, so a chunk rounded once
+    serves both the kernel and the post-refresh recompute."""
+    if precision not in _TILE:
         raise ValueError(f"precision must be 'fp32' or 'bf16', "
                          f"got {precision!r}")
-    if precision == "bf16":
-        raise NotImplementedError(
-            "precision='bf16' needs the bf16 form of kernel "
-            "fused_stream_pallas, which is not ported yet")
+    tile = _TILE[precision]
+    return t if t.dtype == tile else t.to(torch.float32).to(tile)
+
+
+def _fused_prep(x, basis, mean, inv_lam, precision):
+    """Operand rules shared by the fused wrapper and its stage-only twin
+    (``repro.kernels.ops._fused_prep``): x and the basis as tile operands
+    (:func:`fused_tiles`); zero mean and unit inverse eigenvalues by
+    default, fp32.  The mask, the weights and every output stay fp32."""
+    x, basis = fused_tiles(x, precision), fused_tiles(basis, precision)
     S, _, _, p = x.shape
     q = basis.shape[-1]
     mean = (x.new_zeros((S, p), dtype=torch.float32) if mean is None
             else mean.to(torch.float32))
     inv_lam = (x.new_ones((S, q), dtype=torch.float32) if inv_lam is None
                else inv_lam.to(torch.float32))
-    return x.to(torch.float32), basis.to(torch.float32), mean, inv_lam
+    return x, basis, mean, inv_lam
 
 
 def fused_stream_update(x: torch.Tensor, weights: torch.Tensor,
@@ -238,12 +252,15 @@ def fused_stream_update(x: torch.Tensor, weights: torch.Tensor,
                         precision: str = "fp32"):
     """ONE launch over every slot's chunk: the forgetting-weighted band
     fold plus the configured per-row stages (kernel 1,
-    ``csrc/fused_stream.cu``).
+    ``csrc/fused_stream.cu``: ``fused_stream_f32``, or ``fused_stream_bf16``
+    with ``precision="bf16"``, counted under its own key).
 
     ``x`` (S, K, n, p) chunks, ``weights`` (S, K) per-round weights,
     ``basis`` (S, p, q), ``mean`` (S, p), ``inv_lam`` (S, q), ``mask``
     (S, K, p) per-round liveness × round validity, or None (all live).
-    Returns ``(band, z, x_hat, flagged, t2, spe)``: band
+    ``precision="bf16"`` rounds x and the basis to bf16 (:func:`fused_tiles`);
+    the kernel widens each element to fp32 as it loads it and computes in
+    fp32.  Returns ``(band, z, x_hat, flagged, t2, spe)``: band
     (S, 2h+1, p); z (S, K*n, q); x_hat (S, K*n, p) and bool flagged
     (compression, else None); t2, spe (S, K*n) (monitoring, else None).
     The flattened (K*n) row order is the reference's chunk view."""
@@ -266,16 +283,16 @@ def fused_stream_update(x: torch.Tensor, weights: torch.Tensor,
     if mask is not None and mask.shape != (S, K, p):
         raise ValueError(f"mask shape {tuple(mask.shape)} is not the "
                          f"per-round {(S, K, p)}")
+    kernel = "fused_stream_bf16" if precision == "bf16" else "fused_stream"
     if not x.is_cuda:
-        PLAIN_CALLS["fused_stream"] += 1
+        PLAIN_CALLS[kernel] += 1
         band, z, xh, fl, t2, spe = ref.fused_stream(
             x, weights, basis, mean, inv_lam, h, float(epsilon), mask)
     else:
         _cuda_checks(S, K * n, p, q)
         dev = x.device
-        xx, w = _cuda_f32(x, dev), _cuda_f32(weights, dev)
-        bs, mu, il = (_cuda_f32(basis, dev), _cuda_f32(mean, dev),
-                      _cuda_f32(inv_lam, dev))
+        xx, bs = (_cuda_operand(t, dev, x.dtype) for t in (x, basis))
+        w, mu, il = (_cuda_operand(t, dev) for t in (weights, mean, inv_lam))
         R = K * n
         f32 = dict(device=dev, dtype=torch.float32)
         band = torch.empty((S, 2 * h + 1, p), **f32)
@@ -285,16 +302,19 @@ def fused_stream_update(x: torch.Tensor, weights: torch.Tensor,
               if with_compress else None)
         t2 = torch.empty((S, R), **f32) if with_monitor else None
         spe = torch.empty((S, R), **f32) if with_monitor else None
-        m = None if mask is None else _cuda_f32(mask, dev)
+        m = None if mask is None else _cuda_operand(mask, dev)
         bt = _transposed(bs)
-        ret = load_library("fused_stream").fused_stream_f32(
+        entry = getattr(load_library("fused_stream"),
+                        "fused_stream_bf16" if precision == "bf16"
+                        else "fused_stream_f32")
+        ret = entry(
             xx.data_ptr(), w.data_ptr(), _ptr(m), bs.data_ptr(),
             bt.data_ptr(), mu.data_ptr(), il.data_ptr(), S, K, n, p, q, h,
             float(epsilon), int(with_compress), int(with_monitor),
             band.data_ptr(), z.data_ptr(), _ptr(xh), _ptr(fl), _ptr(t2),
             _ptr(spe), _stream())
-        _check(ret, "fused_stream")
-        LAUNCHES["fused_stream"] += 1
+        _check(ret, kernel)
+        LAUNCHES[kernel] += 1
     return (band, z, xh if with_compress else None,
             fl if with_compress else None,
             t2 if with_monitor else None, spe if with_monitor else None)
@@ -310,8 +330,10 @@ def fused_stream_stages_blocked(x: torch.Tensor, basis: torch.Tensor,
     """The fused kernel's STAGE arithmetic in plain torch, on any device —
     the chunk step's post-refresh recompute against the rotated basis (the
     fold does not depend on the basis, so only the stages are redone).
-    Same shapes as :func:`fused_stream_update`; returns
-    ``(z, x_hat, flagged, t2, spe)`` with None for disabled stages."""
+    Same shapes and operand rules as :func:`fused_stream_update` (with
+    ``precision="bf16"``, pass the x the kernel was given: it is not rounded
+    again); returns ``(z, x_hat, flagged, t2, spe)`` with None for disabled
+    stages."""
     x, basis, mean, inv_lam = _fused_prep(x, basis, mean, inv_lam,
                                           precision)
     z, xh, fl, t2, spe = ref.fused_stages(x, basis, mean, inv_lam,
@@ -377,8 +399,8 @@ def supervised_compress(x: torch.Tensor, basis: torch.Tensor,
                                        float(epsilon))
     _cuda_checks(S, R, p, q)
     dev = x.device
-    xx, bs, mu = (_cuda_f32(t, dev) for t in (x, basis, mean))
-    mm = None if m is None else _cuda_f32(m, dev)
+    xx, bs, mu = (_cuda_operand(t, dev) for t in (x, basis, mean))
+    mm = None if m is None else _cuda_operand(m, dev)
     bt = _transposed(bs)
     z = torch.empty((S, R, q), device=dev, dtype=torch.float32)
     xh = torch.empty((S, R, p), device=dev, dtype=torch.float32)
@@ -409,8 +431,8 @@ def pca_monitor(x: torch.Tensor, basis: torch.Tensor,
         return ref.pca_monitor(x, basis, mean, inv_lam, _plain_mask(m, div))
     _cuda_checks(S, R, p, q)
     dev = x.device
-    xx, bs, mu, il = (_cuda_f32(t, dev) for t in (x, basis, mean, inv_lam))
-    mm = None if m is None else _cuda_f32(m, dev)
+    xx, bs, mu, il = (_cuda_operand(t, dev) for t in (x, basis, mean, inv_lam))
+    mm = None if m is None else _cuda_operand(m, dev)
     bt = _transposed(bs)
     f32 = dict(device=dev, dtype=torch.float32)
     z = torch.empty((S, R, q), **f32)
@@ -435,7 +457,7 @@ def pca_project(x: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
         return ref.pca_project(x, basis)
     _cuda_checks(S, R, p, q)
     dev = x.device
-    xx, bs = _cuda_f32(x, dev), _cuda_f32(basis, dev)
+    xx, bs = _cuda_operand(x, dev), _cuda_operand(basis, dev)
     z = torch.empty((S, R, q), device=dev, dtype=torch.float32)
     ret = load_library("pca_project").pca_project_f32(
         xx.data_ptr(), bs.data_ptr(), S, R, p, q, z.data_ptr(), _stream())
@@ -459,7 +481,7 @@ def pca_reconstruct(z: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
         return ref.pca_reconstruct(z, basis)
     _cuda_checks(S, R, p, q, stage=False)
     dev = z.device
-    zz, bt = _cuda_f32(z, dev), _transposed(_cuda_f32(basis, dev))
+    zz, bt = _cuda_operand(z, dev), _transposed(_cuda_operand(basis, dev))
     xh = torch.empty((S, R, p), device=dev, dtype=torch.float32)
     ret = load_library("pca_project").pca_reconstruct_f32(
         zz.data_ptr(), bt.data_ptr(), S, R, p, q, xh.data_ptr(), _stream())
@@ -489,7 +511,7 @@ def _banded(band: torch.Tensor, V: torch.Tensor, vec: bool) -> torch.Tensor:
         raise ValueError(f"{kernel}: {B} leading entries and {q} columns "
                          f"do not fit the grid")
     dev = band.device
-    bb, vv = _cuda_f32(band, dev), _cuda_f32(V, dev)
+    bb, vv = _cuda_operand(band, dev), _cuda_operand(V, dev)
     Y = torch.empty(want, device=dev, dtype=torch.float32)
     lib = load_library("banded")
     h = (nb - 1) // 2

@@ -151,10 +151,13 @@ def fused_stages(xs: torch.Tensor, w: torch.Tensor, mean: torch.Tensor,
                  ) -> tuple[torch.Tensor, ...]:
     """The per-row stages of the fused chunk pass, at the exact width p:
     :func:`supervised_compress` and :func:`pca_monitor` on the flattened
-    rows (..., K*n, ...), sharing their projection.  Returns
+    rows (..., K*n, ...), sharing their projection.  ``xs`` and ``w`` may
+    be bf16 (the bf16 tile mode): they are widened to fp32 before any
+    product, so the arithmetic is the fp32 one.  Returns
     ``(z, x_hat, flags, t2, spe)``."""
     *lead, K, n, p = xs.shape
-    x = xs.float().reshape(*lead, K * n, p)
+    xs, w = xs.float(), w.float()
+    x = xs.reshape(*lead, K * n, p)
     m = (torch.ones_like(x) if masks is None
          else _row_mask(masks, xs).reshape(*lead, K * n, p))
     xc, z, xh_r = _project_back(x, w, mean, m)
@@ -169,6 +172,9 @@ def fused_stream(xs: torch.Tensor, weights: torch.Tensor, w: torch.Tensor,
                  ) -> tuple[torch.Tensor, ...]:
     """The one-pass fused chunk epoch, unfused: the band fold of
     :func:`band_fold` plus :func:`fused_stages` — returns
-    ``(band, z, x_hat, flags, t2, spe)`` (``repro.kernels.ref`` line 156)."""
+    ``(band, z, x_hat, flags, t2, spe)`` (``repro.kernels.ref`` line 156).
+    bf16 ``xs`` and ``w`` (the bf16 tile mode) are widened to fp32 first:
+    no product is taken in bf16."""
+    xs, w = xs.float(), w.float()
     band = band_fold(xs, weights, halfwidth, masks)
     return (band,) + fused_stages(xs, w, mean, inv_lam, epsilon, masks)

@@ -17,9 +17,11 @@ changes — all as in the reference.
 
 The fleet state stays on the device and is replaced every step; the books
 accumulate on the device, and the only device-to-host copies are the
-retirement summaries.  Not ported yet: ``pipeline=True`` (double-buffered
-staging), ``fleet_summary`` (the two-level merge) and
-``precision="bf16"`` raise ``NotImplementedError``; the LM ``Engine`` of
+retirement summaries.  With ``precision="bf16"`` the fused path launches
+kernel 1 in its bf16 tile mode; the chunks are uploaded in fp32 all the
+same, since the statistics and the books read fp32 readings.  Not ported
+yet: ``pipeline=True`` (double-buffered staging) and ``fleet_summary``
+(the two-level merge) raise ``NotImplementedError``; the LM ``Engine`` of
 the reference module has no counterpart here.
 """
 
@@ -117,7 +119,6 @@ class StreamingPCAEngine:
         if pipeline:
             raise NotImplementedError(
                 "pipeline=True (double-buffered staging) is not ported yet")
-        cfg.check_ported()
         self.device = resolve_device(device)
         self.cfg = cfg
         self.slots = slots

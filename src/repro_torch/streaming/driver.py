@@ -34,12 +34,17 @@ configuration folds through the band kernel
 products go through the banded-product kernel
 (:mod:`repro_torch.streaming.scheduler`).
 
+``precision="bf16"`` acts on the fused body alone, as in the reference:
+the chunk is rounded to bf16 once, and the kernel's bf16 tile mode and the
+post-refresh recompute both take that tensor (with the basis rounded
+too); the statistics, the mean estimate and the books keep the fp32
+chunk.  Every other body — split, quantized, band-only, per round —
+ignores it and gives the bits it gives at fp32.
+
 The drivers take per-round (…, rounds, p) liveness masks, as the
 reference's do; per-reading dropout masks are taken by
 :func:`repro_torch.streaming.online_cov.online_update` and
-``online_update_chunk``.  Not ported yet: ``precision="bf16"`` (raises
-``NotImplementedError`` naming the kernel it needs) and
-``sharded_stream_run``.
+``online_update_chunk``.  Not ported yet: ``sharded_stream_run``.
 """
 
 from __future__ import annotations
@@ -123,14 +128,6 @@ class StreamConfig:
         quantized = (self.compression is not None
                      and self.compression.score_bits > 0)
         return self.fused and has_stage and not quantized
-
-    def check_ported(self) -> None:
-        """Raise for a configuration whose chunk body needs a kernel the
-        port does not have yet — never fall back to plain torch."""
-        if self.precision == "bf16":
-            raise NotImplementedError(
-                "precision='bf16' needs the bf16 form of kernel "
-                "fused_stream_pallas, which is not ported yet")
 
 
 class StreamState(NamedTuple):
@@ -239,7 +236,6 @@ def fleet_chunk_step(cfg: StreamConfig, state: StreamState, x: torch.Tensor,
 
     Invalid rounds (stream tail padding, idle slots) contribute nothing to
     the fold, the stages, the books or the round counter."""
-    cfg.check_ported()
     S, K, n, p = x.shape
     dev = x.device
     x = x.to(torch.float32)
@@ -284,14 +280,17 @@ def fleet_chunk_step(cfg: StreamConfig, state: StreamState, x: torch.Tensor,
         il = (inv_lambda(state.sched.lam, cfg.detection) if with_m
               else torch.ones((S, cfg.q), device=dev))
         eps = cfg.compression.epsilon if with_c else 0.0
+        # the kernel's tile operand, rounded once for the kernel and the
+        # recompute (bf16 tile mode); the statistics keep the fp32 chunk
+        tiles = ops.fused_tiles(x, cfg.precision)
         # ONE launch: band fold + stages against the pre-decision basis
         band_delta, *outs = ops.fused_stream_update(
-            x, w, state.sched.W, mean_est, il, halfwidth=cfg.halfwidth,
+            tiles, w, state.sched.W, mean_est, il, halfwidth=cfg.halfwidth,
             epsilon=eps, with_compress=with_c, with_monitor=with_m,
             mask=stage_mask, precision=cfg.precision)
         cov = online_apply_chunk(state.cov, band_delta, w, beta_eff,
                                  delta_s, delta_tb, n)
-        fused = (outs, il, eps)
+        fused = (outs, il, eps, tiles)
     else:
         cov = online_update_chunk(state.cov, x, forgetting=cfg.forgetting,
                                   masks=masks, round_valid=rv)
@@ -307,8 +306,8 @@ def _decide_and_stage(cfg, state, cov, x, churn, alive, stage_mask, live,
     scheduler decision per slot at the last folded round, the per-epoch
     books of the ``live`` (S,) rounds, and the stages against the
     post-decision basis — split (compression and monitoring launches), or
-    the fused kernel's outputs ``fused`` = (outputs, inv_lambda, eps)
-    recomputed where the decision fired."""
+    the fused kernel's outputs ``fused`` = (outputs, inv_lambda, eps, the
+    kernel's tile operand) recomputed where the decision fired."""
     S, K, n, p = x.shape
     dev = x.device
     with_c, with_m = cfg.compression is not None, cfg.detection is not None
@@ -323,12 +322,12 @@ def _decide_and_stage(cfg, state, cov, x, churn, alive, stage_mask, live,
     factor = expected_transmissions(cfg.link_loss, cfg.max_retries)
     z = x_hat = flags = t2 = spe = None
     if fused is not None:
-        (z, x_hat, flags, t2, spe), il, eps = fused
+        (z, x_hat, flags, t2, spe), il, eps, tiles = fused
         # where the decision fired the stages must see the rotated basis
         # (and its λ̂): recompute for every slot, select per slot
         il2 = inv_lambda(sched.lam, cfg.detection) if with_m else il
         re = ops.fused_stream_stages_blocked(
-            x, sched.W, mean_est, il2, epsilon=eps, with_compress=with_c,
+            tiles, sched.W, mean_est, il2, epsilon=eps, with_compress=with_c,
             with_monitor=with_m, mask=stage_mask, precision=cfg.precision)
         pick = lambda new, old: None if old is None else torch.where(
             fired.reshape((S,) + (1,) * (old.dim() - 1)), new, old)
@@ -398,7 +397,6 @@ def fleet_round_step(cfg: StreamConfig, state: StreamState, x: torch.Tensor,
     ``score_bits > 0``) and :func:`detect_round` (the monitoring kernel),
     with the per-epoch books.  Equal to :func:`fleet_chunk_step` on
     one-round chunks: the same statistics, decision, stages and books."""
-    cfg.check_ported()
     S, n, p = x.shape
     x = x.to(torch.float32)
     stage_mask = None

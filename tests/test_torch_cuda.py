@@ -6,7 +6,9 @@ Every test here carries the ``cuda`` marker and skips without a card (a
 CUDA kernel has no CPU mode).  This file imports no JAX, so it runs on a
 machine that has only PyTorch.  Tolerance rtol/atol 1e-5 at these small
 widths (1e-4 at p=1024, where each score sums 1024 products): the same
-fp32 products summed in another order.  Flags are compared exactly
+fp32 products summed in another order; kernel 1's bf16 tile mode is held
+to the same, against its plain version on the same bf16-rounded operands,
+which it widens to fp32 as it loads them.  Flags are compared exactly
 wherever the error is more than 1e-4 from ε.  The banded products
 (kernels 10, 11) sum the diagonals in the plain version's order with the
 plain version's roundings, so they are held to equal bits.
@@ -70,6 +72,40 @@ class TestCudaKernels:
         clear = (err - 0.5).abs() > 1e-4
         assert torch.equal(gpu[3].cpu()[clear], cpu[3][clear])
         torch.testing.assert_close(band.cpu(), cpu[0], **TOL)
+
+    @pytest.mark.parametrize("p", [17, 37, 64])
+    @pytest.mark.parametrize("masked", [False, True])
+    def test_bf16_tiles_match_plain(self, p, masked):
+        """Kernel 1 in its bf16 tile mode (``fused_stream_bf16``) against
+        the plain version on the same bf16-rounded x and basis; the card
+        rounds fp32 to bf16 as the CPU does (to nearest even)."""
+        S, K, n, q, h, eps = 3, 4, 8, 4, 3, 0.5
+        g = torch.Generator().manual_seed(p + masked)
+        x = torch.randn((S, K, n, p), generator=g)
+        w = torch.rand((S, K), generator=g)
+        m = (torch.rand((S, K, p), generator=g) > 0.2).float() \
+            if masked else None
+        basis = torch.linalg.qr(torch.randn((S, p, q), generator=g)).Q
+        mean, il = torch.randn((S, p), generator=g), torch.ones((S, q))
+        assert torch.equal(x.cuda().to(torch.bfloat16).cpu(),
+                           x.to(torch.bfloat16))
+        kw = dict(halfwidth=h, epsilon=eps, with_compress=True,
+                  with_monitor=True, precision="bf16")
+        cpu = ops.fused_stream_update(x, w, basis, mean, il, mask=m, **kw)
+        c = lambda t: None if t is None else t.cuda()
+        ops.reset_counts()
+        gpu = ops.fused_stream_update(c(x), c(w), c(basis), c(mean), c(il),
+                                      mask=c(m), **kw)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["fused_stream_bf16"] == 1
+        assert ops.LAUNCHES["fused_stream"] == 0
+        assert sum(ops.PLAIN_CALLS.values()) == 0
+        for i in (0, 1, 2, 4, 5):
+            assert gpu[i].dtype == torch.float32
+            torch.testing.assert_close(gpu[i].cpu(), cpu[i], **TOL)
+        xb = x.to(torch.bfloat16).float().reshape(S, K * n, p)
+        clear = ((xb - cpu[2]).abs() - eps).abs() > 1e-4
+        assert torch.equal(gpu[3].cpu()[clear], cpu[3][clear])
 
 
 def _split_operands(S, R, p, q, masked, n):
@@ -140,14 +176,10 @@ class TestCudaSplitKernels:
             assert torch.equal(a, b)
 
 
-@pytest.mark.cuda
-def test_split_engines_on_card_match_fused_engine():
-    """The split (``fused=False``) engine on the card against the fused
-    engine on the card, same requests and bases: counts exactly, books
-    rtol 1e-5, retained fraction rtol 1e-3 (refreshes go through Cholesky
-    and eigh on the card in both); the quantized engine keeps ε."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+def _small_engine():
+    """A 4-slot engine configuration at p=64 with compression and
+    detection, five requests of three smooth local modes plus noise, and
+    the slots' initial bases."""
     cfg = StreamConfig(p=64, q=4, halfwidth=3, forgetting=0.98,
                        warmup_rounds=3, drift_threshold=0.05,
                        compression=CompressionConfig(epsilon=1.0),
@@ -157,7 +189,18 @@ def test_split_engines_on_card_match_fused_engine():
     U = np.exp(-0.5 * ((j[:, None] - np.array([10, 30, 50])) / 1.5) ** 2)
     data = [(rng.normal(size=(r, 8, 3)) @ U.T + 0.05 * rng.normal(
         size=(r, 8, 64))).astype(np.float32) for r in (10, 13, 16, 9, 12)]
-    bases = random_bases(4, 64, 4, seed=3, device="cpu")
+    return cfg, data, random_bases(4, 64, 4, seed=3, device="cpu")
+
+
+@pytest.mark.cuda
+def test_split_engines_on_card_match_fused_engine():
+    """The split (``fused=False``) engine on the card against the fused
+    engine on the card, same requests and bases: counts exactly, books
+    rtol 1e-5, retained fraction rtol 1e-3 (refreshes go through Cholesky
+    and eigh on the card in both); the quantized engine keeps ε."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    cfg, data, bases = _small_engine()
     results = {}
     for label, c in (("fused", cfg),
                      ("split", dataclasses.replace(cfg, fused=False)),
@@ -188,6 +231,43 @@ def test_split_engines_on_card_match_fused_engine():
         np.testing.assert_allclose(a.retained, b.retained, rtol=1e-3)
     for r in results["quant"][0]:
         assert r.compression_max_err <= 1.0
+
+
+@pytest.mark.cuda
+def test_bf16_engine_on_card_matches_cpu():
+    """The fused engine in the bf16 tile mode on the card against the same
+    engine on the CPU: one ``fused_stream_bf16`` launch a step and no
+    plain call on the card; counts exactly, books rtol 1e-5, retained
+    fraction rtol 1e-3; the sink error within ε plus the bf16 rounding of
+    a reading (2⁻⁸·max|x|)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    cfg, data, bases = _small_engine()
+    cfg = dataclasses.replace(cfg, precision="bf16")
+    results = {}
+    for dev in ("cuda", "cpu"):
+        eng = StreamingPCAEngine(cfg, slots=4, chunk=4, device=dev,
+                                 init_bases=bases, telemetry=True)
+        reqs = [StreamRequest(rounds=d) for d in data]
+        for r in reqs:
+            eng.submit(r)
+        ops.reset_counts()
+        eng.run_until_done()
+        if dev == "cuda":
+            steps = sum(1 for s in eng.telemetry.steps if s.live > 0)
+            assert ops.LAUNCHES["fused_stream_bf16"] == steps > 0
+            assert ops.LAUNCHES["fused_stream"] == 0
+            assert sum(ops.PLAIN_CALLS.values()) == 0
+        results[dev] = [r.result for r in reqs]
+    for a, b, d in zip(results["cuda"], results["cpu"], data):
+        assert (a.rounds, a.refreshes, a.compression_extra_packets,
+                a.detection_events) == (b.rounds, b.refreshes,
+                                        b.compression_extra_packets,
+                                        b.detection_events)
+        np.testing.assert_allclose(a.comm_packets, b.comm_packets,
+                                   rtol=1e-5)
+        np.testing.assert_allclose(a.retained, b.retained, rtol=1e-3)
+        assert a.compression_max_err <= 1.0 + 2.0 ** -8 * np.abs(d).max()
 
 
 @pytest.mark.cuda

@@ -3,8 +3,9 @@
 The reference engine serves 6 requests on 4 slots (one request carrying a
 liveness schedule whose sensors die mid-stream) in a child process
 (tests/torch_ref_child.py, see tests/test_torch_streaming.py for why),
-once on the fused stage path and once with quantized scores
-(``score_bits=4``, the split path); the port's engine serves the same
+on the fused stage path, with quantized scores (``score_bits=4``, the
+split path) and on the fused path in the bf16 tile mode
+(``precision="bf16"``); the port's engine serves the same
 requests from the same initial bases on the CPU, and every
 ``StreamResult`` field is compared.
 
@@ -20,7 +21,10 @@ quantized scores a score that differs by an ulp may round to the next
 code, which moves x̂ by a quantization level; the flagged-reading count
 may then differ by up to ``QUANT_FLAG_BUDGET`` per request (the bits on
 air and the bill by the same readings' worth), and the ε bound holds on
-both sides.
+both sides.  The bf16 tile mode is held to the fp32 run's tolerances: both
+sides round the same fp32 readings and bases to bf16 and compute in fp32.
+Its books read the fp32 readings, so its worst sink error may pass ε by
+the bf16 rounding of a reading, 2⁻⁸·max|x| (the reference's own bound).
 """
 
 import dataclasses
@@ -76,13 +80,18 @@ def served_quant(ref):
     return _serve(ref, "quant/")
 
 
+@pytest.fixture(scope="module")
+def served_bf16(ref):
+    return _serve(ref, "bf16/")
+
+
 def test_engine_steps_and_retirements_match(ref, served):
     eng, reqs, _ = served
     assert eng._clock == int(ref["steps"])
     assert all(r.done for r in reqs)
 
 
-def _check_result(res, g, flag_budget=0):
+def _check_result(res, g, flag_budget=0, eps_slack=0.0):
     assert res.rounds == int(g("rounds"))
     assert res.reason == str(g("reason"))
     assert res.refreshes == int(g("refreshes"))
@@ -106,7 +115,9 @@ def _check_result(res, g, flag_budget=0):
     if d_flags == 0:
         np.testing.assert_allclose(res.compression_max_err,
                                    g("compression_max_err"), rtol=1e-3)
-    assert res.compression_max_err <= 1.0 and g("compression_max_err") <= 1.0
+    bound = 1.0 + eps_slack
+    assert res.compression_max_err <= bound
+    assert g("compression_max_err") <= bound
     assert res.detection_events == float(g("detection_events"))
     np.testing.assert_allclose(res.detection_alarm_packets,
                                g("detection_alarm_packets"), rtol=1e-6)
@@ -125,6 +136,30 @@ def test_quantized_stream_result_matches_reference(ref, served_quant, i):
     _, reqs, _ = served_quant
     _check_result(reqs[i].result, lambda f: ref[f"quant/req{i}/result.{f}"],
                   flag_budget=QUANT_FLAG_BUDGET)
+
+
+@pytest.mark.parametrize("i", range(N_REQ))
+def test_bf16_stream_result_matches_reference(ref, served_bf16, i):
+    _, reqs, _ = served_bf16
+    slack = 2.0 ** -8 * float(np.abs(reqs[i].rounds).max())
+    _check_result(reqs[i].result, lambda f: ref[f"bf16/req{i}/result.{f}"],
+                  eps_slack=slack)
+
+
+def test_bf16_engine_takes_bf16_kernel_every_step(ref, served_bf16, served):
+    """Every step of the bf16 engine calls kernel 1 in its bf16 tile mode
+    and never the fp32 one; its results are not the fp32 engine's (the
+    mode is not a no-op) and stay within the reference's 0.02 of them."""
+    eng, reqs, (plain, launches) = served_bf16
+    folded = sum(1 for r in eng.telemetry.steps if r.live > 0)
+    assert plain["fused_stream_bf16"] == folded > 0
+    assert plain["fused_stream"] == 0
+    assert sum(launches.values()) == 0
+    assert config_from_json(ref["bf16/cfg"]).precision == "bf16"
+    diff = [abs(a.result.retained - b.result.retained)
+            for a, b in zip(reqs, served[1])]
+    assert max(diff) > 0
+    assert max(diff) <= 0.02
 
 
 def test_quantized_engine_takes_split_kernels_every_step(served_quant):

@@ -9,9 +9,12 @@ zero-weight tails.  The CUDA kernels themselves run only on a card:
 tests/test_torch_cuda.py holds them against the plain versions there.
 
 Tolerances: band and stage outputs rtol 1e-5, atol 1e-5 — the same fp32
-products summed in another order.  Flags are compared exactly wherever the
-reconstruction error is more than 1e-4 from ε (a 1-ulp difference in x̂
-may flip a flag sitting on the boundary).
+products summed in another order.  In the bf16 tile mode both sides round
+the same fp32 x and basis to bf16 (to nearest even) and then compute in
+fp32, so the same tolerance holds there.  Flags are compared exactly
+wherever the reconstruction error is more than 1e-4 from ε (a 1-ulp
+difference in x̂ may flip a flag sitting on the boundary); in bf16 the
+error is that of the bf16-rounded x, which the flag tests.
 """
 
 import ast
@@ -70,19 +73,33 @@ def _flags_agree(fl_port, fl_ref, err, eps, margin=1e-4):
     np.testing.assert_array_equal(fl_port[clear], fl_ref[clear])
 
 
-def _port_fused(x, w, basis, mean, il, mask, h, eps, with_c, with_m):
+def _port_fused(x, w, basis, mean, il, mask, h, eps, with_c, with_m,
+                precision="fp32"):
     """The port's fused wrapper on a (rows, p) chunk written as K=rows
     rounds of n=1 epoch, so per-row weights and masks are per-round."""
     t = lambda a: None if a is None else torch.from_numpy(a)[None]
     return ops.fused_stream_update(
         t(x)[:, :, None, :], t(w), t(basis), t(mean), t(il), halfwidth=h,
-        epsilon=eps, with_compress=with_c, with_monitor=with_m, mask=t(mask))
+        epsilon=eps, with_compress=with_c, with_monitor=with_m, mask=t(mask),
+        precision=precision)
+
+
+def _tile_x(x, precision):
+    """The x the kernel's flag tests: fp32, or rounded to bf16."""
+    if precision == "fp32":
+        return x
+    return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+
+
+PRECISIONS = ["fp32", "bf16"]
 
 
 class TestFusedPlainVsReference:
     @pytest.mark.parametrize("rows,p,q,masked,zt", SHAPES)
     @pytest.mark.parametrize("stages", ["cm", "c", "m"])
-    def test_fused_matches_pallas(self, rows, p, q, masked, zt, stages):
+    @pytest.mark.parametrize("precision", PRECISIONS)
+    def test_fused_matches_pallas(self, rows, p, q, masked, zt, stages,
+                                  precision):
         h, eps = 3, 0.5
         x, w, basis, mean, il, mask = _operands(rows, p, q, masked=masked,
                                                 zero_tail=zt)
@@ -90,13 +107,19 @@ class TestFusedPlainVsReference:
         r = ref_ops.fused_stream_update(
             x, w, basis, mean, il, halfwidth=h, epsilon=eps,
             with_compress=with_c, with_monitor=with_m, mask=mask,
-            interpret=True)
-        o = _port_fused(x, w, basis, mean, il, mask, h, eps, with_c, with_m)
+            precision=precision, interpret=True)
+        ops.reset_counts()
+        o = _port_fused(x, w, basis, mean, il, mask, h, eps, with_c, with_m,
+                        precision)
+        kernel = "fused_stream_bf16" if precision == "bf16" \
+            else "fused_stream"
+        assert {k: v for k, v in ops.PLAIN_CALLS.items() if v} == {kernel: 1}
         _close(o[0][0], r[0])
         _close(o[1][0], r[1])
         if with_c:
             _close(o[2][0], r[2])
-            _flags_agree(o[3][0], r[3], np.abs(x - np.asarray(r[2])), eps)
+            err = np.abs(_tile_x(x, precision) - np.asarray(r[2]))
+            _flags_agree(o[3][0], r[3], err, eps)
         else:
             assert o[2] is None and o[3] is None
         if with_m:
@@ -136,29 +159,51 @@ class TestFusedPlainVsReference:
             err = np.abs(x[s].reshape(K * n, p) - np.asarray(r[2]))
             _flags_agree(o[3][s], r[3], err, eps)
 
-    def test_stages_blocked_equals_fused_stages(self):
+    @pytest.mark.parametrize("precision", PRECISIONS)
+    def test_stages_blocked_equals_fused_stages(self, precision):
+        """The recompute gives the kernel's stage bits; in bf16 it takes
+        the x the kernel took, already rounded, and rounds the basis by
+        the same rule."""
         x, w, basis, mean, il, mask = _operands(32, 37, 4, masked=True)
-        o = _port_fused(x, w, basis, mean, il, mask, 3, 0.5, True, True)
+        o = _port_fused(x, w, basis, mean, il, mask, 3, 0.5, True, True,
+                        precision)
         t = lambda a: torch.from_numpy(a)[None]
+        xt = t(x)[:, :, None, :]
+        if precision == "bf16":
+            xt = xt.to(torch.bfloat16)
         s = ops.fused_stream_stages_blocked(
-            t(x)[:, :, None, :], t(basis), t(mean), t(il), epsilon=0.5,
-            with_compress=True, with_monitor=True, mask=t(mask))
+            xt, t(basis), t(mean), t(il), epsilon=0.5,
+            with_compress=True, with_monitor=True, mask=t(mask),
+            precision=precision)
         for a, b in zip(s, o[1:]):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+    @pytest.mark.parametrize("masked", [False, True])
+    def test_bf16_tiles_round_the_operands(self, masked):
+        """The bf16 tile mode is not the fp32 one: the band and the stage
+        outputs move, by no more than the reference allows between the
+        two modes (0.02 relative), and match the fp32 arithmetic on the
+        bf16-rounded x and basis to the bit."""
+        x, w, basis, mean, il, mask = _operands(32, 64, 4, masked=masked)
+        args = (x, w, basis, mean, il, mask, 3, 0.5, True, True)
+        f32, b16 = (_port_fused(*args, precision=pr) for pr in PRECISIONS)
+        for i in (0, 1, 2, 4, 5):
+            assert b16[i].dtype == torch.float32
+            assert not torch.equal(b16[i], f32[i])
+        for a, b in zip(f32[:3], b16[:3]):        # band, z, x_hat
+            scale = float(a.abs().max()) + 1e-6
+            assert float((a - b).abs().max()) / scale < 0.02
+        rounded = lambda a: torch.from_numpy(a).to(torch.bfloat16).float()
+        same = _port_fused(rounded(x).numpy(), w, rounded(basis).numpy(),
+                           *args[3:])
+        for a, b in zip(b16, same):
+            if a is not None:
+                torch.testing.assert_close(a, b, rtol=0, atol=0)
 
     def test_band_only_rejected(self):
         x, w, basis, mean, il, _ = _operands(8, 8, 2)
         with pytest.raises(ValueError, match="band-only"):
             _port_fused(x, w, basis, mean, il, None, 1, 0.5, False, False)
-
-    def test_bf16_raises_not_implemented(self):
-        x, w, basis, mean, il, _ = _operands(8, 8, 2)
-        t = lambda a: torch.from_numpy(a)[None]
-        with pytest.raises(NotImplementedError, match="fused_stream_pallas"):
-            ops.fused_stream_update(
-                t(x)[:, :, None, :], t(w), t(basis), t(mean), t(il),
-                halfwidth=1, with_compress=True, with_monitor=True,
-                precision="bf16")
 
 
 def _port_split_operands(x, basis, mean, il, mask):
@@ -513,7 +558,8 @@ class TestNoJaxInPort:
 class TestChipAb:
     def test_parse_reads_rates_idle_shares_and_kernel_times(self):
         """``chip_ab.py`` reads both forms of chip_smoke.py's rate lines
-        (with and without a step time), the profiled idle share and the
+        (with and without a step time), phase 10's bf16 engine lines (and
+        skips its comparison line), the profiled idle share and the
         kernels' JSON record."""
         import importlib.util
         spec = importlib.util.spec_from_file_location("chip_ab",
@@ -529,6 +575,15 @@ class TestChipAb:
             "rounds/s (136533 epochs/s); refreshes 620",
             "   per-round fleet: 256 networks x 24 rounds in 0.48 s = "
             "12800.0 rounds/s, 20.0 ms a round; refreshes 668",
+            "== 10 engine: fused stages, bf16 tiles",
+            "   bf16 stages engine: 6 steps, 7680 rounds in 1.28 s = 6000.0 "
+            "rounds/s (192000 epochs/s), step 213.3 ms; refreshes 657",
+            "   bf16 vs fp32 (phase 4): 6000.0 vs 5120.0 rounds/s, step "
+            "213.3 vs 250.0 ms",
+            "   profiled bf16 stages engine: 6 steps, 7680 rounds in 1.50 s "
+            "= 5120.0 rounds/s (163840 epochs/s), step 250.0 ms",
+            "   profile: device busy 0.5 s of 1.5 s wall (33.3%, idle "
+            "66.7%)",
             '{"kernels": [{"name": "banded_matmul", "ms": 0.5}]}',
             '{"ok": true}'])
         got = chip_ab.parse(log)
@@ -540,4 +595,9 @@ class TestChipAb:
             "band-only engine: ms a step": 300.0,
             "per-round fleet: rounds/s": 12800.0,
             "per-round fleet: ms a round": 20.0,
+            "bf16 stages engine: rounds/s": 6000.0,
+            "bf16 stages engine: ms a step": 1280.0 / 6,
+            "profiled bf16 stages engine: rounds/s": 5120.0,
+            "profiled bf16 stages engine: ms a step": 250.0,
+            "profiled bf16 stages engine: device idle %": 66.7,
             "kernel banded_matmul: ms": 0.5})

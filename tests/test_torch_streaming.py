@@ -36,6 +36,10 @@ Tolerances, and why:
   their rows are left out of the reconstruction and flag comparisons
   (a flipped code moves x̂ by up to ``scale * |W|``), and the rest is
   compared as above.  The ε guarantee does not depend on any of this.
+* the bf16 tile mode (``fused_bf16*``): both sides round the same fp32
+  chunk and basis to bf16 (to nearest even) and compute in fp32, so every
+  tolerance above holds unchanged; a flag is decided on the bf16-rounded
+  reading, so the margin from ε is measured on that reading.
 """
 
 import ast
@@ -54,8 +58,7 @@ from repro_torch.core import costs
 from repro_torch.core.events import _norm_quantile
 from repro_torch.core.faults import expected_transmissions
 from repro_torch.kernels import ops
-from repro_torch.streaming import (CompressionConfig, DetectionConfig,
-                                   StreamConfig, batched_stream_init,
+from repro_torch.streaming import (StreamConfig, batched_stream_init,
                                    batched_stream_run, chunk_stream_step,
                                    chunked_stream_run, fleet_chunk_step,
                                    fleet_round_step, stream_init, stream_run,
@@ -71,7 +74,8 @@ from torch_parity import config_from_json, run_reference
 
 ROOT = Path(__file__).resolve().parents[1]
 SCENARIOS = ["fused", "fused_masked", "compress_masked", "monitor", "band",
-             "band_masked", "split", "split_masked", "quant", "quant_masked"]
+             "band_masked", "split", "split_masked", "quant", "quant_masked",
+             "fused_bf16", "fused_bf16_masked"]
 ROUND_SCENARIOS = ["r_stages", "r_stages_masked", "r_band", "r_quant"]
 QUANT_FLIP_BUDGET = 2
 N_CHUNKS = 6
@@ -158,7 +162,9 @@ def _plain_calls_of(cfg, masks, per_round=False):
         + ("" if masks is None else "_masked")
     calls = {"banded_matmul": cfg.refresh_iters + 3}
     if cfg.use_fused and not per_round:
-        return dict(calls, fused_stream=1)
+        kernel = ("fused_stream_bf16" if cfg.precision == "bf16"
+                  else "fused_stream")
+        return dict(calls, **{kernel: 1})
     calls[fold] = 1
     if cfg.compression is not None:
         calls.update(dict.fromkeys(
@@ -229,7 +235,10 @@ def _check_step(ref, key, cfg, x, new, m):
             _close(z_p, met("compression.z"), **tol)
         fl_p, fl_r = cp.flagged.numpy(), met("compression.flagged")
         sink_p, sink_r = cp.x_sink.numpy(), met("compression.x_sink")
-        _flip_budget(xv[ok], fl_p[ok], fl_r[ok], sink_p[ok], sink_r[ok],
+        # the reading the flag was decided on: bf16-rounded in that mode
+        x_dec = (torch.from_numpy(xv).to(torch.bfloat16).float().numpy()
+                 if cfg.use_fused and cfg.precision == "bf16" else xv)
+        _flip_budget(x_dec[ok], fl_p[ok], fl_r[ok], sink_p[ok], sink_r[ok],
                      cfg.compression.epsilon)
         d_extra = float(fl_p.sum() - fl_r.sum())
         same = (fl_p == fl_r) & ok[:, None]
@@ -283,7 +292,8 @@ def test_scenarios_cover_refreshes_flags_and_alarms(ref):
     fired = {n: [bool(ref[f"{n}/c{c}/m.did_refresh"])
                  for c in range(N_CHUNKS)] for n in SCENARIOS}
     assert all(sum(v) >= 2 for v in fired.values()), fired
-    for n in ("fused", "split", "split_masked", "quant", "quant_masked"):
+    for n in ("fused", "split", "split_masked", "quant", "quant_masked",
+              "fused_bf16", "fused_bf16_masked"):
         assert sum(float(ref[f"{n}/c{c}/m.compression.extra_packets"])
                    for c in range(N_CHUNKS)) > 0, n
     assert ref["fused/c5/m.compression.extra_packets"] > 0
@@ -296,7 +306,8 @@ def test_scenarios_cover_refreshes_flags_and_alarms(ref):
 
 @pytest.mark.parametrize("name", ["fused", "fused_masked", "band_masked",
                                   "split", "split_masked", "quant",
-                                  "quant_masked"])
+                                  "quant_masked", "fused_bf16",
+                                  "fused_bf16_masked"])
 def test_whole_run_matches_reference(ref, name):
     """``chunked_stream_run`` from the reference's initial state over the
     whole stream, against the reference's chunk-by-chunk trajectory."""
@@ -602,18 +613,60 @@ def test_fleet_round_step_is_per_network_step(ref_rounds):
         tree_map(same, m, m1)
 
 
+class TestPrecisionOnlyOnFusedBody:
+    """``precision`` acts on the fused chunk body and its recompute alone,
+    as in the reference (``repro/streaming/driver.py:294-297``): every
+    other body and every per-round path runs in fp32 whatever it says,
+    and so gives, on the CPU, the bits of its fp32 twin."""
+
+    @pytest.mark.parametrize("path", ["split_masked", "quant_masked",
+                                      "band_masked", "stream_run",
+                                      "batched_rounds"])
+    def test_bf16_config_gives_fp32_bits(self, ref, ref_rounds, path):
+        if path == "stream_run":
+            name, run = "r_stages_masked", stream_run
+            src, prefix = ref_rounds, "r_stages_masked/r0/pre."
+            xs, masks = _round_inputs(src, name)
+        elif path == "batched_rounds":
+            name, src, prefix = "batched", ref_rounds, "batched/init."
+            run = lambda c, s, x, m: batched_stream_run(c, s, x, m)
+            xs, masks = (torch.from_numpy(src[f"batched/{k}"])
+                         for k in ("x", "masks"))
+        else:
+            name, src, prefix = path, ref, f"{path}/c0/pre."
+            run = lambda c, s, x, m: chunked_stream_run(c, s, x, m, chunk=4)
+            R = int(src[f"{name}/rv"].sum())
+            xs = torch.from_numpy(src[f"{name}/x"][:R])
+            masks = torch.from_numpy(src[f"{name}/masks"][:R])
+        cfg = config_from_json(src[f"{name}/cfg"])
+        if path not in ("stream_run", "batched_rounds"):
+            assert not cfg.use_fused          # a chunk body off the kernel
+        runs = []
+        for c in (cfg, dataclasses.replace(cfg, precision="bf16")):
+            ops.reset_counts()
+            runs.append(run(c, state_from_numpy(src, device="cpu",
+                                                prefix=prefix), xs, masks))
+            assert ops.PLAIN_CALLS["fused_stream"] == 0
+            assert ops.PLAIN_CALLS["fused_stream_bf16"] == 0
+        same = lambda a, b: torch.testing.assert_close(a, b, rtol=0, atol=0)
+        tree_map(same, runs[0][0], runs[1][0])
+        tree_map(same, runs[0][1], runs[1][1])
+
+    def test_no_precision_refusal_left(self):
+        """No configuration check refuses bf16, and no
+        ``NotImplementedError`` of the port speaks of precision."""
+        assert not hasattr(StreamConfig, "check_ported")
+        for f in sorted((ROOT / "src" / "repro_torch").rglob("*.py")):
+            for node in ast.walk(ast.parse(f.read_text())):
+                if isinstance(node, ast.Raise) and node.exc is not None:
+                    text = ast.unparse(node.exc)
+                    if "NotImplementedError" in text:
+                        assert "precision" not in text, (f, text)
+                        assert "bf16" not in text, (f, text)
+
+
 class TestNotPortedRaises:
     BASE = dict(p=8, q=2, halfwidth=1)
-
-    @pytest.mark.parametrize("kw,kernel", [
-        (dict(precision="bf16", detection=DetectionConfig()),
-         "fused_stream_pallas"),
-    ])
-    def test_unported_kernel_configs_raise(self, kw, kernel):
-        cfg = StreamConfig(**self.BASE, **kw)
-        st = stream_init(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match=kernel):
-            chunk_stream_step(cfg, st, torch.zeros((2, 3, 8)))
 
     def test_driver_arguments_checked(self):
         """The drivers take per-round liveness masks, as the reference's

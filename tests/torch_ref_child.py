@@ -22,7 +22,8 @@ round i, plus ``{scenario}/run/final.*`` and ``/run/m.*`` (the reference's
 (the online covariance per round under each mask kind) and ``batched/*``
 (``batched_stream_run`` of a three-network fleet, per round and chunked).
 The engine run writes the default configuration's results at the top
-level and the quantized configuration's under ``quant/``.
+level, the quantized configuration's under ``quant/`` and the bf16 tile
+mode's under ``bf16/``.
 """
 
 from __future__ import annotations
@@ -108,15 +109,17 @@ STREAM_SCENARIOS = {
     "split_masked": (37, "cm", True, 22, dict(fused=False)),
     "quant": (64, "cm", False, 24, dict(score_bits=4)),
     "quant_masked": (37, "c", True, 22, dict(score_bits=4)),
+    "fused_bf16": (64, "cm", False, 24, dict(precision="bf16")),
+    "fused_bf16_masked": (37, "cm", True, 22, dict(precision="bf16")),
 }
 Q, H, K, N = 4, 3, 4, 8
 QUANT_BITS = (2, 4, 8, 16)
 
 
-def stream_cfg(p, stages, fused=True, score_bits=0):
+def stream_cfg(p, stages, fused=True, score_bits=0, precision="fp32"):
     return StreamConfig(
         p=p, q=Q, halfwidth=H, forgetting=0.97, warmup_rounds=6,
-        drift_threshold=0.05, fused=fused,
+        drift_threshold=0.05, fused=fused, precision=precision,
         compression=(CompressionConfig(epsilon=1.0, score_bits=score_bits)
                      if "c" in stages else None),
         detection=(DetectionConfig(alpha=1e-2, calib_rounds=1)
@@ -275,10 +278,10 @@ def run_rounds(out):
 ENGINE_P, ENGINE_SLOTS = 64, 4
 
 
-def engine_cfg(score_bits=0):
+def engine_cfg(score_bits=0, precision="fp32"):
     return StreamConfig(
         p=ENGINE_P, q=Q, halfwidth=H, forgetting=0.98, warmup_rounds=K - 1,
-        drift_threshold=0.05,
+        drift_threshold=0.05, precision=precision,
         compression=CompressionConfig(epsilon=1.0, score_bits=score_bits),
         detection=DetectionConfig(alpha=1e-3, calib_rounds=2))
 
@@ -286,6 +289,7 @@ def engine_cfg(score_bits=0):
 def run_engine(out):
     serve_engine(out, engine_cfg(), "")
     serve_engine(out, engine_cfg(score_bits=4), "quant/")
+    serve_engine(out, engine_cfg(precision="bf16"), "bf16/")
 
 
 def serve_engine(out, cfg, prefix):
