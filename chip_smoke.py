@@ -14,7 +14,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      warmed up) beside its bound and, where one PyTorch call computes the
      same function, that call's time on the same inputs (torch.bmm, TF32
      off; for the banded products on the dense (p, p) matrix formed
-     outside the timing); kernel 1 also in its bf16 tile mode, with the
+     outside the timing; kernels 8 and 9 and their torch.bmm over 50
+     calls, on a row-major basis, the layout the engine's refresh gives
+     them); kernel 1 also in its bf16 tile mode, with the
      bf16 cast of x (outside the kernel, as in the reference) timed on its
      own; plus a small engine run on the card against the same run on the
      CPU;
@@ -42,7 +44,13 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      same requests: one fused_stream_bf16 launch per step, no plain call,
      the worst sink error within eps + 2^-8 max|x| (the flag is decided on
      the bf16-rounded reading, the books read the fp32 one); its rate,
-     step time, flagged readings and refreshes beside phase 4's.
+     step time, flagged readings and refreshes beside phase 4's;
+ 11. kernels 8 and 9 and their torch.bmm again at phase 3's shape, on
+     inputs drawn anew (a dense product's time does not depend on the
+     values), under torch.profiler: each one's device time a call over 50
+     calls, beside its event time, so the wrapper's host time cannot hide
+     in the figure (last, so that no profiler run comes ahead of phase
+     4's measured run, and no tensor is kept for it through phases 4-10).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card, or without the rest
 of the repository beside it, the script exits non-zero and prints no
@@ -155,6 +163,34 @@ def compare(name, out, plain, rtol, atol):
     return err.max().item()
 
 
+def _dev_time(e) -> float:
+    """Device self time (us) of a torch.profiler key_averages() row."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def device_ms(fn, iters: int) -> tuple[float, str]:
+    """The device time of one call of ``fn`` (ms), from torch.profiler
+    over ``iters`` calls after one warm-up call: the device events' time
+    over the calls the profiler caught (the most events of one name; it
+    may miss the first few), so the host time of a wrapper cannot hide in
+    it; and the names and counts of those events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU and _dev_time(e) > 0]
+    names = "; ".join(f"{e.key[:48]} x{e.count}" for e in rows)
+    caught = max((e.count for e in rows), default=iters)
+    return sum(_dev_time(e) for e in rows) / 1e3 / caught, names
+
+
 def profile_breakdown(run, top: int = 8) -> None:
     """Where an engine run's device time goes: the kernels and copies with
     the most device time, and the device's busy share of the run's wall
@@ -169,16 +205,14 @@ def profile_breakdown(run, top: int = 8) -> None:
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    dev_time = lambda e: getattr(e, "self_device_time_total",
-                                 getattr(e, "self_cuda_time_total", 0.0))
     rows = sorted((e for e in prof.key_averages()
-                   if e.device_type != DeviceType.CPU and dev_time(e) > 0),
-                  key=dev_time, reverse=True)
-    busy = sum(dev_time(e) for e in rows) / 1e6
+                   if e.device_type != DeviceType.CPU and _dev_time(e) > 0),
+                  key=_dev_time, reverse=True)
+    busy = sum(_dev_time(e) for e in rows) / 1e6
     print(f"   profile: device busy {busy:.3f} s of {wall:.3f} s wall "
           f"({100 * busy / wall:.1f}%, idle {100 - 100 * busy / wall:.1f}%)")
     for e in rows[:top]:
-        print(f"     {dev_time(e) / 1e3:10.1f} ms  {e.count:6d}x  "
+        print(f"     {_dev_time(e) / 1e3:10.1f} ms  {e.count:6d}x  "
               f"{e.key[:90]}")
 
 
@@ -232,10 +266,29 @@ def fused_bf16(record, x, w, basis, mean, il, masks, eps) -> None:
     del xb, bb
 
 
+def products_8_9(xc, z8, wr) -> dict:
+    """Kernels 8 and 9 on ``xc`` (S, R, p), ``z8`` (S, R, q) and the
+    row-major basis ``wr`` (S, p, q): ``{name: (kernel call, plain call,
+    torch.bmm call)}``."""
+    from repro_torch.kernels import ops, ref
+    wt = wr.transpose(1, 2)
+    return {
+        "pca_project": (lambda: (ops.pca_project(xc, wr),),
+                        lambda: (ref.pca_project(xc, wr),),
+                        lambda: torch.bmm(xc, wr)),
+        "pca_reconstruct": (lambda: (ops.pca_reconstruct(z8, wr),),
+                            lambda: (ref.pca_reconstruct(z8, wr),),
+                            lambda: torch.bmm(z8, wt)),
+    }
+
+
 def split_kernels(record, xv, masks, basis, mean, il, eps) -> None:
     """Kernels 4, 5, 8 and 9 against their plain versions at the slice
     shape, per-round masks read at row r // N; times beside bounds, and
-    torch.bmm (TF32 off) beside the projection and reconstruction."""
+    torch.bmm (TF32 off) beside the projection and reconstruction.  Those
+    two and their torch.bmm are timed over 50 calls (some 5 ms: a 0.1 ms
+    kernel's time is not the event timer's or the launch gaps'), on the
+    basis made row-major, as the engine's refresh leaves it."""
     from repro_torch.kernels import ops, ref
     S, R, p = xv.shape
     q = basis.shape[-1]
@@ -257,17 +310,11 @@ def split_kernels(record, xv, masks, basis, mean, il, eps) -> None:
             lambda: ref.pca_monitor(xv, basis, mean, il, rows_mask),
             2 * prod, x_b + m_b + w_b + S * (p + q) * f32 + z_b + stat_b,
             None),
-        "pca_project": (
-            lambda: (ops.pca_project(xc, basis),),
-            lambda: (ref.pca_project(xc, basis),),
-            prod, x_b + w_b + z_b, lambda: torch.bmm(xc, basis)),
     }
-    z8 = cases["pca_project"][1]()[0]
-    bt = basis.transpose(1, 2)
-    cases["pca_reconstruct"] = (
-        lambda: (ops.pca_reconstruct(z8, basis),),
-        lambda: (ref.pca_reconstruct(z8, basis),),
-        prod, z_b + w_b + x_b, lambda: torch.bmm(z8, bt))
+    wr = basis.contiguous()
+    z8 = ref.pca_project(xc, wr)
+    for name, (run, plain_fn, lib) in products_8_9(xc, z8, wr).items():
+        cases[name] = (run, plain_fn, prod, x_b + w_b + z_b, lib)
     for name, (run, plain_fn, flops, nbytes, lib) in cases.items():
         out = run()
         torch.cuda.synchronize()
@@ -284,17 +331,22 @@ def split_kernels(record, xv, masks, basis, mean, il, eps) -> None:
                 continue
             errs.append(compare(f"{name}[{i}]", a, b, 1e-4, 1e-3))
         del out, plain
-        ms = time_ms(run, 10)
+        iters = 10 if lib is None else 50
+        ms = time_ms(run, iters)
         plain_ms = time_ms(plain_fn, 3, 1)
-        lib_ms = None if lib is None else time_ms(lib, 10)
         b_ms, b_by = bound(flops, nbytes)
-        lib_txt = "" if lib is None else f", torch.bmm {lib_ms:.3f} ms"
-        print(f"   {name} S={S} R={R} p={p} q={q}: kernel {ms:.3f} ms, "
+        rec = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        lib_txt = ""
+        if lib is not None:
+            rec["library_ms"] = time_ms(lib, iters)
+            lib_txt = (f", torch.bmm {rec['library_ms']:.4f} ms ({iters} "
+                       f"calls each)")
+        print(f"   {name} S={S} R={R} p={p} q={q}: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.3f} ms{lib_txt}, bound {b_ms:.4f} ms "
               f"({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e9:.3f} GB)")
-        record[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-    del xc, rows_mask, z8
+        record[name] = rec
+    del xc, rows_mask, z8, wr
 
 
 def band_entries(p, h):
@@ -790,6 +842,20 @@ def main() -> int:
                                     "profiled bf16 stages engine"))
     del res
 
+    phase("11 device time of kernels 8 and 9 (torch.profiler)")
+    xc = torch.randn((SLOTS, K * N, P), device=dev, generator=g)
+    wr = random_bases(SLOTS, P, Q, seed=5, device=dev).contiguous()
+    calls = products_8_9(xc, ref.pca_project(xc, wr), wr)
+    for name, (run, _, lib) in calls.items():
+        rec = record[name]
+        rec["device_ms"], names = device_ms(run, 50)
+        rec["library_device_ms"], lib_names = device_ms(lib, 50)
+        print(f"   {name}: device time a call over 50 calls: kernel "
+              f"{rec['device_ms']:.4f} ms [{names}] (events "
+              f"{rec['ms']:.4f}); torch.bmm {rec['library_device_ms']:.4f} "
+              f"ms [{lib_names}] (events {rec['library_ms']:.4f})")
+    del calls, xc, wr
+
     print(f"   total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
@@ -797,7 +863,8 @@ def main() -> int:
              max_abs_err=rec["max_abs_err"], ms=rec["ms"],
              plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
              bound_by=rec["bound_by"], library_ms=rec.get("library_ms"),
-             **{k: rec[k] for k in ("cast_ms", "cast_bound_ms") if k in rec})
+             **{k: rec[k] for k in ("cast_ms", "cast_bound_ms", "device_ms",
+                                    "library_device_ms") if k in rec})
         for name, rec in record.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

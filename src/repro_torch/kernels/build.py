@@ -33,7 +33,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # kernel 1's two entry points (fp32, bf16 tile mode) take the same arguments
 _FUSED = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P,
           _P, _P, _P, _P, _P, _P]
-# every C entry point returns cudaGetLastError() after its launch
+# every C entry point returns cudaGetLastError() after its launch, but
+# pca_reconstruct_max_q(device), which returns kernel 9's largest q
 SOURCES: dict[str, dict[str, list]] = {
     "band_fold": {
         "band_fold_f32": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
@@ -51,8 +52,11 @@ SOURCES: dict[str, dict[str, list]] = {
                                     _F, _P, _P, _P, _P],
         "pca_monitor_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                             _P, _P, _P],
+        # (x, basis, S, R, p, q, z, stream) and (z, basis, S, R, p, q, xh,
+        # stream): both read the (S, p, q) basis itself, not its transpose
         "pca_project_f32": [_P, _P, _I, _I, _I, _I, _P, _P],
         "pca_reconstruct_f32": [_P, _P, _I, _I, _I, _I, _P, _P],
+        "pca_reconstruct_max_q": [_I],
     },
 }
 

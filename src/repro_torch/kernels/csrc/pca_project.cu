@@ -12,38 +12,61 @@
 //    centred and masked by the caller);
 //  * pca_reconstruct_f32 (kernel 9) <- pca_reconstruct_pallas (:89, body
 //    _reconstruct_kernel :74): X^ = Z W^T.
-// Every kernel takes the whole fleet in one launch: slots on grid y, row
-// blocks of kRows rows on grid x.
+// Every kernel takes the whole fleet in one launch, the slots on grid y.
 //
-// Design.  The Pallas kernels tile (block_n, p) slabs through VMEM with
-// the whole (p, q) basis resident.  Here kernels 4 and 5 are the stage
-// device function of kernel 1 (stages.cuh): a block stages its kRows
-// centred, masked rows in shared memory, one thread per (row, component)
-// forms the scores reading W through L1/L2 (__ldg), and one warp per row
-// reconstructs, lanes striding over sensors so x^ and flags are written
-// coalesced (reading the wrapper's transposed copy W^T).  The per-round
-// (K, p) liveness mask is read at row r / n, never
-// expanded to the chunk's (K*n, p) in device memory (268 MB at 256 slots).
-// Kernel 8 is the score loop alone on raw rows; kernel 9 one warp per row
-// with the row's q scores in shared memory.
+// Kernels 4 and 5 are the stage device function of kernel 1 (stages.cuh):
+// a block stages its kRows centred, masked rows in shared memory, one
+// thread per (row, component) forms the scores reading W through L1/L2
+// (__ldg), and one warp per row reconstructs, lanes striding over sensors
+// so x^ and flags are written coalesced (reading the wrapper's transposed
+// copy W^T).  The per-round (K, p) liveness mask is read at row r / n,
+// never expanded to the chunk's (K*n, p) in device memory (268 MB at 256
+// slots).  Every block re-reads its slot's W (128 KB) from L1/L2 and the
+// scores loop is one dependent chain of p multiply-adds per thread: this
+// keeps them far above their bounds (PERF.md has the times).
 //
-// Bounds at the slice shape (S=256 slots, R=K*n=256 rows, p=1024, q=32;
-// 67 TFLOP/s fp32 on CUDA cores, 3.35 TB/s):
-//  * kernel 8: 2*S*R*p*q = 4.29 GFLOP (0.064 ms) against x 268 MB + W
-//    33.5 MB + z 8.4 MB = 310 MB (0.093 ms): bound by bytes, 0.093 ms;
-//  * kernel 9: 4.29 GFLOP against z 8.4 + W 33.5 + x^ 268 MB = 310 MB:
-//    bound by bytes, 0.093 ms;
-//  * kernel 4: two products, 8.59 GFLOP (0.128 ms), against x 268 +
-//    mask 8.4 + W 33.5 + mean 1 + z 8.4 + x^ 268 + flags 67 MB = 655 MB
-//    (0.196 ms): bound by bytes;
-//  * kernel 5: 8.59 GFLOP (0.128 ms) against ~320 MB (0.095 ms): bound by
-//    operations.
-// None of them uses tensor cores: fp32 products without TF32, as the
-// reference's fp32 accumulation asks.  Every block re-reads its slot's W
-// (128 KB) from L1/L2, and the scores loop is one dependent chain of p
-// multiply-adds per thread — these keep the kernels far above their bounds
-// (PERF.md has the times); staging W in shared memory and splitting p
-// across lanes is later work.
+// Kernels 8 and 9 are tall, skinny fp32 products, register-tiled and fed
+// through shared memory.  At the slice (S=256 slots, R=K*n=256 rows,
+// p=1024, q=32) each is 2*S*R*p*q = 4.29 GFLOP (0.064 ms at 67 TFLOP/s
+// fp32 on CUDA cores) against x or x^ 268 MB + W 33.5 MB + z 8.4 MB =
+// 310 MB (0.0927 ms at 3.35 TB/s): bound by bytes, 0.0927 ms, but with the
+// FMA pipe two thirds busy at that bound, so every multiply-add must find
+// its operands in registers and each shared-memory read must feed many.
+//  * Kernel 8: a block of 64 threads owns 64 rows of one slot and 32
+//    columns (grid z tiles wider q).  It walks p in slices of 32 sensors:
+//    each slice's x (64 x 32) and W (32 x 32) come into a ring of two
+//    shared-memory buffers by 16-byte cp.async (zero-filled past R, p and
+//    q: exact, a product with 0 adds +0), so the next slice's loads run
+//    under this slice's multiply-adds.  Each thread keeps 8 x 4
+//    accumulators and reads its operands as float4: 12 shared loads per
+//    128 FMAs (x rows padded to 36 floats, so the four rows a warp reads
+//    sit on different banks).  x is read from HBM once, coalesced, 128
+//    bytes a row a slice; W from L2 once per 64 rows, not once per 8.
+//  * Kernel 9: a block of 128 threads owns 64 rows and 8 consecutive
+//    tiles of 64 sensors.  The rows' scores stay in shared memory for all
+//    8 tiles; the W tiles (64 sensors x q) stream through a ring of three
+//    buffers by cp.async, so the loads of the next tiles run under this
+//    tile's multiply-adds and stores.  Each thread keeps 8 rows x 4
+//    adjacent sensors of accumulators and stores x^ as float4, a warp
+//    writing 128 contiguous bytes of each of 4 rows.
+// Both read the basis as it is, (S, p, q) row-major as the engine's
+// refresh leaves it; neither copies or transposes it in device memory
+// (kernel 9 XOR-swizzles a W tile's float4 chunks in shared memory so a
+// warp's reads hit 32 banks).  Both keep each output's order of sums:
+// one fp32 accumulator per output walks p (kernel 8) or q (kernel 9) in
+// increasing order with fused multiply-adds, as stage_scores and
+// reconstruct_one do — the bits of the kernels they replaced.  No
+// atomics, no split of a sum across threads or blocks, no tensor cores
+// (no TF32): fp32 FMAs on CUDA cores.
+// p or q not a multiple of 4, or an operand not 16-byte aligned, takes
+// the same kernels' 4-byte-copy variant (VEC false).
+//
+// Kernels 4, 5 at the slice: two products, 8.59 GFLOP (0.128 ms), against
+// x 268 + mask 8.4 + W 33.5 + mean 1 + z 8.4 + x^ 268 + flags 67 MB =
+// 655 MB (0.196 ms, kernel 4: bytes) or ~320 MB (0.095 ms, kernel 5:
+// operations).
+#include <cstdint>
+
 #include "stages.cuh"
 
 namespace repro_torch {
@@ -70,42 +93,316 @@ stage_kernel(const float* __restrict__ x, const float* __restrict__ m,
       WITH_M ? spe + rows : nullptr, smem);
 }
 
-__global__ void __launch_bounds__(kStageThreads)
-project_kernel(const float* __restrict__ x, const float* __restrict__ basis,
-               int R, int p, int q, float* __restrict__ z) {
-  const size_t s = blockIdx.y;
-  x += s * R * p;
-  extern __shared__ float smem[];
-  float* x_s = smem;               // (kRows, p) rows
-  float* z_s = smem + kRows * p;   // (kRows, q) scores
-  const int r0 = blockIdx.x * kRows;
-  for (int idx = threadIdx.x; idx < kRows * p; idx += blockDim.x) {
-    const int rr = idx / p, r = r0 + rr;
-    x_s[idx] = r < R ? x[(size_t)r0 * p + idx] : 0.0f;
-  }
-  __syncthreads();
-  stage_scores(x_s, basis + s * p * q, R, p, q, r0, z_s, z + s * R * q);
+// cp.async copies into shared memory; src_bytes 0 zero-fills (the source
+// is then not read, but must be a valid address).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
 }
 
-__global__ void __launch_bounds__(kStageThreads)
-reconstruct_kernel(const float* __restrict__ z,
-                   const float* __restrict__ basis_t, int R, int p, int q,
-                   float* __restrict__ xh) {
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// ---- kernel 8: Z = X W --------------------------------------------------
+
+constexpr int kColTile = 32;                  // columns of W a block owns
+constexpr int kTN = 4;                        // columns a thread owns
+constexpr int kColGroups = kColTile / kTN;    // 8
+constexpr int kProjThreads = 64;
+constexpr int kRowGroups = kProjThreads / kColGroups;   // 8
+constexpr int kProjRows = 64;                 // rows a block owns
+constexpr int kProjK = 32;                    // sensors a slice
+constexpr int kProjStages = 2;                // ring of slices
+constexpr int kProjMinBlocks = 6;             // registers for 6 blocks an SM
+constexpr int kProjSmemFloats =
+    kProjStages * (kProjRows * (kProjK + 4) + kProjK * kColTile);
+
+// x (S, R, p), basis (S, p, q) -> z (S, R, q); block (row block, slot,
+// column tile).  Thread t owns rows rg + 8 i (i < BM / 8) and columns
+// 4 cg .. 4 cg + 3 of the tile, rg = t / 8, cg = t % 8.
+template <bool VEC>
+__global__ void __launch_bounds__(kProjThreads, kProjMinBlocks)
+project_kernel(const float* __restrict__ x, const float* __restrict__ basis,
+               int R, int p, int q, float* __restrict__ z) {
+  constexpr int BM = kProjRows, BK = kProjK, STAGES = kProjStages;
+  constexpr int NT = kProjThreads, RG = kRowGroups, TM = BM / RG;
+  constexpr int XLD = BK + 4;   // rows 1 apart start 4 banks apart
+  constexpr int KC = BK / 4;    // float4 chunks of a slice row
+  extern __shared__ __align__(16) float proj_smem[];
+  float* xs = proj_smem;                     // STAGES x (BM, XLD)
+  float* ws = proj_smem + STAGES * BM * XLD; // STAGES x (BK, 32)
   const size_t s = blockIdx.y;
+  const int r0 = blockIdx.x * BM, c0 = blockIdx.z * kColTile;
+  x += s * R * p;
+  basis += s * p * q;
   z += s * R * q;
-  basis_t += s * p * q;
-  extern __shared__ float z_s[];   // (kRows, q) scores of the block's rows
-  const int r0 = blockIdx.x * kRows;
-  for (int o = threadIdx.x; o < kRows * q; o += blockDim.x)
-    z_s[o] = r0 + o / q < R ? z[(size_t)r0 * q + o] : 0.0f;
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = r0 + warp;
-  if (r >= R) return;
-  const float* zr = z_s + warp * q;
-  float* out = xh + (s * R + r) * (size_t)p;
-  for (int i = lane; i < p; i += 32)
-    out[i] = reconstruct_one(zr, basis_t, p, q, i);
+  const int tid = threadIdx.x, cg = tid % kColGroups, rg = tid / kColGroups;
+  const int slices = (p + BK - 1) / BK;
+
+  auto load = [&](int kt, int stage) {
+    const int k0 = kt * BK;
+    float* xd = xs + stage * BM * XLD;
+    float* wd = ws + stage * BK * kColTile;
+    if (VEC) {   // p % 4 == q % 4 == 0: a 16-byte chunk is all in or out
+      static_assert(BM * BK / 4 % NT == 0, "x slice chunks");
+      static_assert(BK * kColTile / 4 % NT == 0, "W chunks");
+#pragma unroll
+      for (int u = 0; u < BM * BK / 4 / NT; ++u) {
+        const int e = tid + u * NT;
+        const int m = e / KC, k = 4 * (e % KC);
+        const bool in = r0 + m < R && k0 + k < p;
+        cp_async16(xd + m * XLD + k,
+                   in ? x + (size_t)(r0 + m) * p + k0 + k : x, in ? 16 : 0);
+      }
+#pragma unroll
+      for (int u = 0; u < BK * kColTile / 4 / NT; ++u) {
+        const int e = tid + u * NT;
+        const int kk = e / (kColTile / 4), c = 4 * (e % (kColTile / 4));
+        const bool in = k0 + kk < p && c0 + c < q;
+        cp_async16(wd + kk * kColTile + c,
+                   in ? basis + (size_t)(k0 + kk) * q + c0 + c : basis,
+                   in ? 16 : 0);
+      }
+    } else {
+      for (int e = tid; e < BM * BK; e += NT) {
+        const int m = e / BK, k = e % BK;
+        const bool in = r0 + m < R && k0 + k < p;
+        cp_async4(xd + m * XLD + k,
+                  in ? x + (size_t)(r0 + m) * p + k0 + k : x, in ? 4 : 0);
+      }
+      for (int e = tid; e < BK * kColTile; e += NT) {
+        const int kk = e / kColTile, c = e % kColTile;
+        const bool in = k0 + kk < p && c0 + c < q;
+        cp_async4(wd + kk * kColTile + c,
+                  in ? basis + (size_t)(k0 + kk) * q + c0 + c : basis,
+                  in ? 4 : 0);
+      }
+    }
+  };
+
+  float acc[TM][kTN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int n = 0; n < kTN; ++n) acc[i][n] = 0.0f;
+
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < slices) load(st, st);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < slices; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();   // slice kt landed; slice kt - 1's buffer is free
+    if (kt + STAGES - 1 < slices)
+      load(kt + STAGES - 1, (kt + STAGES - 1) % STAGES);
+    cp_async_commit();
+    const float* xt = xs + (kt % STAGES) * BM * XLD + rg * XLD;
+    const float* wt = ws + (kt % STAGES) * BK * kColTile;
+#pragma unroll
+    for (int k = 0; k < BK; k += 4) {
+      float4 a[TM], b[4];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        a[i] = *reinterpret_cast<const float4*>(
+            xt + i * RG * XLD + k);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)   // b[j]: sensor k + j, columns 4 cg ..
+        b[j] = *reinterpret_cast<const float4*>(
+            wt + (k + j) * kColTile + cg * kTN);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)     // sensors k + j in increasing order
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float av = lane_of(a[i], j);
+#pragma unroll
+          for (int n = 0; n < kTN; ++n)
+            acc[i][n] = fmaf(av, lane_of(b[j], n), acc[i][n]);
+        }
+    }
+  }
+
+  const int c = c0 + cg * kTN;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = r0 + rg + i * RG;
+    if (r >= R || c >= q) continue;
+    float* out = z + (size_t)r * q + c;
+    if (VEC) {
+      *reinterpret_cast<float4*>(out) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    } else {
+#pragma unroll
+      for (int n = 0; n < kTN; ++n)
+        if (c + n < q) out[n] = acc[i][n];
+    }
+  }
+}
+
+// ---- kernel 9: X^ = Z W^T -----------------------------------------------
+
+// Kernel 9's tile: kRecRG x kRecSG threads, kRecTM rows a thread
+// (64 rows x 64 sensors a tile), a ring of kRecStages W tiles, kRecTiles
+// tiles a block.
+constexpr int kRecRG = 8, kRecSG = 16, kRecTM = 8, kRecStages = 3;
+constexpr int kRecTiles = 8;
+
+// Floats of kernel 9's dynamic shared memory: the block's scores
+// (64 rows x q4 + 4) and kRecStages W tiles of 64 sensors x q4 components;
+// q4 = q rounded up to 4.  Within a Hopper block's 227 KB for q <= 224
+// (pca_reconstruct_max_q).
+constexpr int rec_smem_floats(int q) {
+  return kRecRG * kRecTM * ((q + 3) / 4 * 4 + 4) +
+         kRecStages * 4 * kRecSG * ((q + 3) / 4 * 4);
+}
+
+// z (S, R, q), basis (S, p, q) -> xh (S, R, p).  Block (row block x
+// tile group, slot) of RG x SG threads owning BM = RG * TM rows and
+// kRecTiles consecutive tiles of BN = 4 SG sensors.  The rows' scores
+// stay in shared memory; the W tiles stream through a ring of STAGES
+// buffers by cp.async, so the next tile's loads run under this tile's
+// multiply-adds and stores.  Thread t owns rows
+// rg + RG i (i < TM) and sensors 4 sg .. 4 sg + 3 of a tile,
+// sg = t % SG, rg = t / SG.  A W tile is staged as (sensors, components),
+// the float4 chunks of sensor row i XOR-swizzled by i / 4 when a row has
+// a power of two of them (q = 32: 8 chunks), so that the float4 reads of
+// a quarter warp (8 sensor rows 4 apart) hit 32 banks; other q leave
+// them in place.
+template <bool VEC>
+__global__ void __launch_bounds__(kRecRG * kRecSG, 512 / (kRecRG * kRecSG))
+reconstruct_kernel(const float* __restrict__ z,
+                   const float* __restrict__ basis, int R, int p, int q,
+                   float* __restrict__ xh) {
+  constexpr int RG = kRecRG, SG = kRecSG, TM = kRecTM, STAGES = kRecStages;
+  constexpr int NT = RG * SG, BM = RG * TM, BN = 4 * SG;
+  extern __shared__ __align__(16) float rec_smem[];
+  const int q4 = (q + 3) / 4 * 4, qc = q4 / 4;
+  const int zld = q4 + 4;                       // rows 1 apart: 4 banks
+  const int rmask = (qc & (qc - 1)) == 0 ? qc - 1 : 0;
+  const int wtile = q4 * BN;
+  float* zs = rec_smem;                         // (BM, zld)
+  float* ws = rec_smem + BM * zld;              // STAGES x W tile
+  const size_t s = blockIdx.y;
+  const int ntiles = (p + BN - 1) / BN;
+  const int groups = (ntiles + kRecTiles - 1) / kRecTiles;
+  const int r0 = blockIdx.x / groups * BM;
+  const int t0 = blockIdx.x % groups * kRecTiles;
+  const int nt = min(kRecTiles, ntiles - t0);
+  z += s * R * q;
+  basis += s * p * q;
+  xh += s * R * p;
+  const int tid = threadIdx.x, sg = tid % SG, rg = tid / SG;
+  // chunk `ch` of sensor row i
+  auto swz = [rmask](int i, int ch) { return ch ^ ((i >> 2) & rmask); };
+
+  auto load_w = [&](int tile, int stage) {
+    const int i0 = (t0 + tile) * BN;
+    float* wd = ws + stage * wtile;
+    if (VEC) {   // p % 4 == q % 4 == 0: a 16-byte chunk is all in or out
+      for (int e = tid; e < BN * qc; e += NT) {
+        const int i = e / qc, ch = e % qc;
+        const bool in = i0 + i < p && 4 * ch < q;
+        cp_async16(wd + i * q4 + 4 * swz(i, ch),
+                   in ? basis + (size_t)(i0 + i) * q + 4 * ch : basis,
+                   in ? 16 : 0);
+      }
+    } else {
+      for (int e = tid; e < BN * q4; e += NT) {
+        const int i = e / q4, c = e % q4;
+        const bool in = i0 + i < p && c < q;
+        cp_async4(wd + i * q4 + 4 * swz(i, c >> 2) + (c & 3),
+                  in ? basis + (size_t)(i0 + i) * q + c : basis,
+                  in ? 4 : 0);
+      }
+    }
+  };
+
+  // the scores, zero past R and q: exact, a product with 0 adds +0
+  for (int e = tid; e < BM * (VEC ? q4 / 4 : q4); e += NT) {
+    const int w = VEC ? q4 / 4 : q4;
+    const int m = e / w, c = (e % w) * (VEC ? 4 : 1);
+    const bool in = r0 + m < R && c < q;
+    const float* src = in ? z + (size_t)(r0 + m) * q + c : z;
+    if (VEC)
+      cp_async16(zs + m * zld + c, src, in ? 16 : 0);
+    else
+      cp_async4(zs + m * zld + c, src, in ? 4 : 0);
+  }
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nt) load_w(st, st);
+    cp_async_commit();   // the scores land with tile 0
+  }
+
+  const float* zr = zs + rg * zld;
+  for (int tile = 0; tile < nt; ++tile) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();   // tile landed; the previous tile's buffer is free
+    if (tile + STAGES - 1 < nt)
+      load_w(tile + STAGES - 1, (tile + STAGES - 1) % STAGES);
+    cp_async_commit();
+    const float* wt = ws + (tile % STAGES) * wtile;
+    float acc[TM][4];
+#pragma unroll
+    for (int t = 0; t < TM; ++t)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) acc[t][n] = 0.0f;
+    for (int c = 0; c < q4; c += 4) {
+      float4 a[TM], b[4];
+#pragma unroll
+      for (int t = 0; t < TM; ++t)
+        a[t] = *reinterpret_cast<const float4*>(zr + t * RG * zld + c);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)   // b[j]: sensor 4 sg + j, components c ..
+        b[j] = *reinterpret_cast<const float4*>(
+            wt + (4 * sg + j) * q4 + 4 * swz(4 * sg + j, c >> 2));
+#pragma unroll
+      for (int j = 0; j < 4; ++j)     // components c + j in increasing order
+#pragma unroll
+        for (int t = 0; t < TM; ++t) {
+          const float zv = lane_of(a[t], j);
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+            acc[t][n] = fmaf(zv, lane_of(b[n], j), acc[t][n]);
+        }
+    }
+    const int i = (t0 + tile) * BN + 4 * sg;
+    if (i < p) {
+#pragma unroll
+      for (int t = 0; t < TM; ++t) {
+        const int r = r0 + rg + t * RG;
+        if (r >= R) break;
+        float* out = xh + (size_t)r * p + i;
+        if (VEC) {
+          *reinterpret_cast<float4*>(out) =
+              make_float4(acc[t][0], acc[t][1], acc[t][2], acc[t][3]);
+        } else {
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+            if (i + n < p) out[n] = acc[t][n];
+        }
+      }
+    }
+  }
 }
 
 template <typename Kernel, typename... Args>
@@ -123,6 +420,10 @@ static int launch(Kernel kernel, int S, int R, size_t smem, void* stream,
 
 static size_t stage_smem(int p, int q) {
   return sizeof(float) * (size_t)kRows * (p + q);
+}
+
+static bool aligned16(const void* ptr) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
 }
 
 }  // namespace repro_torch
@@ -169,21 +470,60 @@ int pca_monitor_f32(const float* x, const float* m, const float* basis,
 }
 
 // x (S, R, p) rows (already centred and masked), basis (S, p, q) ->
-// z (S, R, q).
+// z (S, R, q).  Contiguous.  Any p, q >= 1; no limit from shared memory.
 int pca_project_f32(const float* x, const float* basis, int S, int R, int p,
                     int q, float* z, void* stream) {
   using namespace repro_torch;
-  return launch(project_kernel, S, R, stage_smem(p, q), stream, x, basis, R,
-                p, q, z);
+  if (S < 1 || R < 1 || p < 1 || q < 1) return (int)cudaErrorInvalidValue;
+  const bool vec = p % 4 == 0 && q % 4 == 0 && aligned16(x) &&
+                   aligned16(basis) && aligned16(z);
+  auto kernel = vec ? project_kernel<true> : project_kernel<false>;
+  dim3 grid((R + kProjRows - 1) / kProjRows, S,
+            (q + kColTile - 1) / kColTile);
+  kernel<<<grid, kProjThreads, sizeof(float) * kProjSmemFloats,
+           (cudaStream_t)stream>>>(x, basis, R, p, q, z);
+  return (int)cudaGetLastError();
 }
 
-// z (S, R, q), basis_t (S, q, p) the transposed basis ->
-// xh (S, R, p) = z W^T.
-int pca_reconstruct_f32(const float* z, const float* basis_t, int S, int R,
+// z (S, R, q), basis (S, p, q) read as it is (no transposed copy) ->
+// xh (S, R, p) = z W^T.  Contiguous.  Any p >= 1, and
+// 1 <= q <= pca_reconstruct_max_q (the scores and the ring of W tiles in
+// shared memory).
+int pca_reconstruct_f32(const float* z, const float* basis, int S, int R,
                         int p, int q, float* xh, void* stream) {
   using namespace repro_torch;
-  return launch(reconstruct_kernel, S, R, sizeof(float) * (size_t)kRows * q,
-                stream, z, basis_t, R, p, q, xh);
+  if (S < 1 || R < 1 || p < 1 || q < 1) return (int)cudaErrorInvalidValue;
+  constexpr int BM = kRecRG * kRecTM, BN = 4 * kRecSG;
+  const size_t smem = sizeof(float) * rec_smem_floats(q);
+  const int tiles = (p + BN - 1) / BN;
+  const long long blocks = (long long)((R + BM - 1) / BM) *
+                           ((tiles + kRecTiles - 1) / kRecTiles);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const bool vec = p % 4 == 0 && q % 4 == 0 && aligned16(z) &&
+                   aligned16(basis) && aligned16(xh);
+  auto kernel = vec ? reconstruct_kernel<true> : reconstruct_kernel<false>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<dim3((unsigned)blocks, S), kRecRG * kRecSG, smem,
+           (cudaStream_t)stream>>>(z, basis, R, p, q, xh);
+  return (int)cudaGetLastError();
+}
+
+// The largest q kernel 9 takes on `device`: its block's scores and ring
+// of W tiles within the block's opt-in shared memory (224 on the H100);
+// 0 if the device cannot be queried.
+int pca_reconstruct_max_q(int device) {
+  using namespace repro_torch;
+  int optin = 0;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess)
+    return 0;
+  int q = 0;
+  while (sizeof(float) * rec_smem_floats(q + 1) <= (size_t)optin) ++q;
+  return q;
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
 // Per-row stage arithmetic shared by fused_stream.cu (kernel 1) and
-// pca_project.cu (kernels 4, 5, 8 and 9).
+// pca_project.cu (kernels 4 and 5).
 //
 // For one block of kRows rows of one slot, at the EXACT sensor count p:
 //   z   = ((x - mean) m) W                      (R, q)

@@ -67,8 +67,9 @@ def _cuda_operand(t: torch.Tensor, device: torch.device,
 
 
 def _transposed(basis: torch.Tensor) -> torch.Tensor:
-    """(S, q, p) contiguous copy of a (S, p, q) basis: the stage kernels'
-    reconstruction loop reads it so that a warp's loads are consecutive."""
+    """(S, q, p) contiguous copy of a (S, p, q) basis: the reconstruction
+    loop of the stage kernels (1, 4, 5) reads it so that a warp's loads
+    are consecutive."""
     return basis.transpose(1, 2).contiguous()
 
 
@@ -449,13 +450,21 @@ def pca_monitor(x: torch.Tensor, basis: torch.Tensor,
 
 def pca_project(x: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
     """``Z = X W`` for every slot in ONE launch, fp32 accumulation over p
-    (kernel 8, ``csrc/pca_project.cu``): ``x`` (S, R, p) rows, already
-    centred and masked, ``basis`` (S, p, q) -> (S, R, q)."""
-    S, R, p, q, _, _ = _stage_operands(x, basis, None)
+    in increasing order (kernel 8, ``csrc/pca_project.cu``: a register-tiled
+    product that streams p through shared memory, so any p fits): ``x``
+    (S, R, p) rows, already centred and masked, ``basis`` (S, p, q)
+    -> (S, R, q)."""
+    if x.dim() != 3:
+        raise ValueError(f"expected (slots, rows, p), got {tuple(x.shape)}")
+    S, R, p = x.shape
+    q = basis.shape[-1]
+    if basis.shape != (S, p, q):
+        raise ValueError(f"operand shapes basis {tuple(basis.shape)} do "
+                         f"not match x {(S, R, p)}")
     if not x.is_cuda:
         PLAIN_CALLS["pca_project"] += 1
         return ref.pca_project(x, basis)
-    _cuda_checks(S, R, p, q)
+    _cuda_checks(S, R, p, q, stage=False)
     dev = x.device
     xx, bs = _cuda_operand(x, dev), _cuda_operand(basis, dev)
     z = torch.empty((S, R, q), device=dev, dtype=torch.float32)
@@ -467,9 +476,11 @@ def pca_project(x: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
 
 
 def pca_reconstruct(z: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
-    """``X_hat = Z W^T`` for every slot in ONE launch (kernel 9,
-    ``csrc/pca_project.cu``): ``z`` (S, R, q), ``basis`` (S, p, q) ->
-    (S, R, p) fp32."""
+    """``X_hat = Z W^T`` for every slot in ONE launch, fp32 accumulation
+    over q in increasing order (kernel 9, ``csrc/pca_project.cu``: a
+    register-tiled product that reads the (S, p, q) basis itself, with no
+    transposed copy; q is bounded by its shared memory, 224 on the H100):
+    ``z`` (S, R, q), ``basis`` (S, p, q) -> (S, R, p) fp32."""
     if z.dim() != 3 or basis.dim() != 3 or basis.shape[0] != z.shape[0] \
             or basis.shape[2] != z.shape[2]:
         raise ValueError(f"scores {tuple(z.shape)} do not match basis "
@@ -481,10 +492,15 @@ def pca_reconstruct(z: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
         return ref.pca_reconstruct(z, basis)
     _cuda_checks(S, R, p, q, stage=False)
     dev = z.device
-    zz, bt = _cuda_operand(z, dev), _transposed(_cuda_operand(basis, dev))
+    lib = load_library("pca_project")
+    max_q = lib.pca_reconstruct_max_q(dev.index)
+    if q > max_q:
+        raise ValueError(f"q={q} exceeds kernel 9's shared memory "
+                         f"(q <= {max_q})")
+    zz, bs = _cuda_operand(z, dev), _cuda_operand(basis, dev)
     xh = torch.empty((S, R, p), device=dev, dtype=torch.float32)
-    ret = load_library("pca_project").pca_reconstruct_f32(
-        zz.data_ptr(), bt.data_ptr(), S, R, p, q, xh.data_ptr(), _stream())
+    ret = lib.pca_reconstruct_f32(zz.data_ptr(), bs.data_ptr(), S, R, p, q,
+                                  xh.data_ptr(), _stream())
     _check(ret, "pca_reconstruct")
     LAUNCHES["pca_reconstruct"] += 1
     return xh

@@ -165,6 +165,50 @@ class TestCudaSplitKernels:
         clear = ((x - xh).abs() - eps).abs() > 1e-4
         assert torch.equal(fl_g.cpu()[clear], fl[clear])
 
+    @pytest.mark.parametrize("layout", ["row-major", "column-major"])
+    @pytest.mark.parametrize("S,R,p,q", [
+        (3, 29, 37, 3),        # ragged rows; p and q not multiples of 4
+        (2, 256, 1024, 32),    # the slice
+        (2, 64, 4096, 8),      # wsn-1m-smoke
+        (2, 100, 1024, 48),    # q beyond one column tile
+        (1, 16, 8192, 32),     # p beyond a block's shared memory as rows
+    ])
+    def test_project_reconstruct_match_plain(self, S, R, p, q, layout):
+        """Kernels 8 and 9 alone, at their tile edges, against the plain
+        versions on the same card tensors (cuBLAS's order of sums, TF32
+        off): one launch each, no plain call, rtol/atol 1e-4.  The basis
+        comes row-major, as the engine's refresh leaves it, or as QR's
+        column-major Q, which the wrappers copy contiguous."""
+        assert not torch.backends.cuda.matmul.allow_tf32
+        g = torch.Generator().manual_seed(S * R + p + q)
+        x = torch.randn((S, R, p), generator=g).cuda()
+        basis = torch.linalg.qr(torch.randn((S, p, q), generator=g)).Q.cuda()
+        if layout == "row-major":
+            basis = basis.contiguous()
+        assert basis.is_contiguous() == (layout == "row-major" or q == 1)
+        ops.reset_counts()
+        z = ops.pca_project(x, basis)
+        xh = ops.pca_reconstruct(z, basis)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["pca_project"] == 1
+        assert ops.LAUNCHES["pca_reconstruct"] == 1
+        assert sum(ops.LAUNCHES.values()) == 2
+        assert sum(ops.PLAIN_CALLS.values()) == 0
+        tol = dict(rtol=1e-4, atol=1e-4)
+        assert z.shape == (S, R, q) and xh.shape == (S, R, p)
+        torch.testing.assert_close(z, ref.pca_project(x, basis), **tol)
+        torch.testing.assert_close(xh, ref.pca_reconstruct(z, basis), **tol)
+
+    def test_reconstruct_refuses_q_beyond_shared_memory(self):
+        """Kernel 9 keeps a block's scores in shared memory: q <= 224 on
+        the H100, the limit the library reports."""
+        z = torch.zeros((1, 4, 225), device="cuda")
+        with pytest.raises(ValueError, match=r"q=225 .*\(q <= 224\)"):
+            ops.pca_reconstruct(z, torch.zeros((1, 8, 225), device="cuda"))
+        xh = ops.pca_reconstruct(z[..., :224].contiguous(),
+                                 torch.ones((1, 8, 224), device="cuda"))
+        assert torch.equal(xh, torch.zeros((1, 4, 8), device="cuda"))
+
     def test_per_round_mask_matches_per_row(self):
         S, K, n, p, q = 2, 4, 8, 37, 4
         x, basis, mean, il, m = _split_operands(S, K * n, p, q, True, n)
