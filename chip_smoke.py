@@ -14,17 +14,22 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      warmed up) beside its bound and, where one PyTorch call computes the
      same function, that call's time on the same inputs (torch.bmm, TF32
      off; for the banded products on the dense (p, p) matrix formed
-     outside the timing; kernels 8 and 9 and their torch.bmm over 50
-     calls, on a row-major basis, the layout the engine's refresh gives
-     them); kernel 1 also in its bf16 tile mode, with the
-     bf16 cast of x (outside the kernel, as in the reference) timed on its
-     own; plus a small engine run on the card against the same run on the
-     CPU;
+     outside the timing; for the band folds (kernels 2, 3, 6, 7) the dense
+     (S, p, p) product of the weighted or masked rows, formed outside the
+     timing, its band checked against the kernel's; kernels 8 and 9 and
+     their torch.bmm over 50 calls, on a row-major basis, the layout the
+     engine's refresh gives them; kernel 10 over 50 calls, and again at
+     the retirement's single slot over 500, beside torch.bmm on the dense
+     (1, p, p) matrix, as banded_matmul_s1); kernel 1 also in its bf16
+     tile mode, with the bf16 cast of x (outside the kernel, as in the
+     reference) timed on its own; plus a small engine run on the card
+     against the same run on the CPU;
   4. the main path: StreamingPCAEngine with compression and detection on
      256 slots at one wsn-1m region's width, serving 320 requests of 24
      rounds (slots retire and readmit; the last 64 carry a liveness
      schedule); the fused kernel's launch count must equal the engine's
-     step count with no plain call;
+     step count with no plain call, and kernel 10's 1 + refresh_iters + 2
+     a decision plus exactly one a retired request;
   5. the band-only engine (no stages) on the same requests' first 16
      rounds: the band-fold kernels, plain and masked;
   6. the split stage engine (fused=False) on the same requests: one
@@ -45,12 +50,13 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      the worst sink error within eps + 2^-8 max|x| (the flag is decided on
      the bf16-rounded reading, the books read the fp32 one); its rate,
      step time, flagged readings and refreshes beside phase 4's;
- 11. kernels 8 and 9 and their torch.bmm again at phase 3's shape, on
-     inputs drawn anew (a dense product's time does not depend on the
-     values), under torch.profiler: each one's device time a call over 50
-     calls, beside its event time, so the wrapper's host time cannot hide
-     in the figure (last, so that no profiler run comes ahead of phase
-     4's measured run, and no tensor is kept for it through phases 4-10).
+ 11. kernels 8, 9 and 10 (at 256 slots and at one) and their torch.bmm
+     again at phase 3's shapes, on inputs drawn anew (a dense product's
+     time does not depend on the values), under torch.profiler: each one's
+     device time a call over 50 calls, beside its event time, so the
+     wrapper's host time cannot hide in the figure (last, so that no
+     profiler run comes ahead of phase 4's measured run, and no tensor is
+     kept for it through phases 4-10).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card, or without the rest
 of the repository beside it, the script exits non-zero and prints no
@@ -95,6 +101,9 @@ KERNELS = {
                           "src/repro/kernels/cov_update.py:108"),
     "banded_matmul": ("src/repro_torch/kernels/csrc/banded.cu",
                       "src/repro/kernels/banded_matvec.py:85"),
+    # kernel 10 at the retirement's single slot (S = 1)
+    "banded_matmul_s1": ("src/repro_torch/kernels/csrc/banded.cu",
+                         "src/repro/kernels/banded_matvec.py:85"),
     "banded_matvec": ("src/repro_torch/kernels/csrc/banded.cu",
                       "src/repro/kernels/banded_matvec.py:52"),
 }
@@ -214,6 +223,33 @@ def profile_breakdown(run, top: int = 8) -> None:
     for e in rows[:top]:
         print(f"     {_dev_time(e) / 1e3:10.1f} ms  {e.count:6d}x  "
               f"{e.key[:90]}")
+
+
+def band_of(dense: torch.Tensor, h: int) -> torch.Tensor:
+    """The (S, 2h+1, p) band ``band[k, i] = dense[i, i + k - h]`` of a
+    (S, p, p) matrix, zero where i + k - h falls outside [0, p)."""
+    S, p, _ = dense.shape
+    band = dense.new_zeros((S, 2 * h + 1, p))
+    for k in range(2 * h + 1):
+        d = torch.diagonal(dense, offset=k - h, dim1=1, dim2=2)
+        lo = max(0, h - k)
+        band[:, k, lo:lo + d.shape[-1]] = d
+    return band
+
+
+def dense_fold(rec: dict, name: str, out, xw, xm, h: int) -> None:
+    """A band fold's library call: one torch.bmm forming the dense
+    (S, p, p) product ``sum_r xw[r]^T xm[r]`` of the weighted or masked
+    rows (formed outside the timing); its band, extracted outside the
+    timing, is held against the kernel's ``out`` at the fold's tolerance,
+    and the bmm's time is ``rec["library_ms"]``."""
+    lib = lambda: torch.bmm(xw.transpose(1, 2), xm)
+    compare(f"{name} vs the band of torch.bmm's dense product", out,
+            band_of(lib(), h), 1e-4, 1e-3)
+    rec["library_ms"] = time_ms(lib, 10)
+    S, R, p = xw.shape
+    print(f"   {name}: torch.bmm forming the dense ({S}, {p}, {p}) product "
+          f"of {R} rows a slot {rec['library_ms']:.3f} ms")
 
 
 def fused_bf16(record, x, w, basis, mean, il, masks, eps) -> None:
@@ -389,12 +425,16 @@ def round_and_banded_kernels(record, dev, g) -> None:
               f"{nbytes / 1e9:.3f} GB)")
         if m is None or m.dim() == 2:
             record[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                bound_ms=b_ms, bound_by=b_by,
-                                library_ms=None)
+                                bound_ms=b_ms, bound_by=b_by)
+            xm = x if m is None else x * m[:, None, :]
+            dense_fold(record[name], f"{name}{kind}", out, xm, xm, H)
+            del xm
     del x, live, drop
     band = torch.randn((S, 2 * H + 1, P), device=dev, generator=g) \
         * band_valid(P, H, device=dev)
-    V = random_bases(S, P, Q, seed=2, device=dev)
+    # row-major, as the refresh passes it (QR's column-major basis would
+    # be copied contiguous by the wrapper inside the timing)
+    V = random_bases(S, P, Q, seed=2, device=dev).contiguous()
     dense = band_to_dense(band)
     torch.cuda.synchronize()
     dense_ms = time_ms(lambda: band_to_dense(band), 3, 1)
@@ -419,9 +459,10 @@ def round_and_banded_kernels(record, dev, g) -> None:
         print(f"   {name}: equal bits to the plain version: {same}")
         compare(f"{name} vs torch.bmm on the dense matrix", out,
                 lib().reshape(out.shape), 1e-4, 1e-4)
-        ms = time_ms(run, 10)
+        iters = 10 if vec else 50
+        ms = time_ms(run, iters)
         plain_ms = time_ms(plain_fn, 3, 1)
-        lib_ms = time_ms(lib, 10)
+        lib_ms = time_ms(lib, iters)
         flops = 2.0 * S * width * entries
         nbytes = S * entries * f32 + 2 * S * P * width * f32
         b_ms, b_by = bound(flops, nbytes)
@@ -432,8 +473,42 @@ def round_and_banded_kernels(record, dev, g) -> None:
         record[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
         del out, plain
+    record["banded_matmul_s1"] = banded_one_slot(band[:1].contiguous(),
+                                                 V[:1].contiguous(),
+                                                 dense[:1])
     del band, V, dense
     torch.cuda.empty_cache()
+
+
+def banded_one_slot(band, V, dense) -> dict:
+    """Kernel 10 at the retirement's shape (one slot): equal bits to its
+    plain version, its time over 500 calls beside torch.bmm on the dense
+    (1, p, p) matrix and its bound.  At this size the wrapper's host time
+    may exceed the device's; phase 11 gives the device time."""
+    from repro_torch.kernels import ops, ref
+    run = lambda: ops.banded_matmul(band, V)
+    plain_fn = lambda: ref.banded_matmul(band, V)
+    lib = lambda: torch.bmm(dense, V)
+    out = run()
+    torch.cuda.synchronize()
+    plain = plain_fn()
+    err = compare("banded_matmul S=1", out, plain, 1e-5, 1e-5)
+    check(bool(torch.equal(out, plain)),
+          "banded_matmul S=1: bits differ from the plain version")
+    compare("banded_matmul S=1 vs torch.bmm on the dense matrix", out,
+            lib(), 1e-4, 1e-4)
+    ms, plain_ms, lib_ms = (time_ms(run, 500), time_ms(plain_fn, 10, 2),
+                            time_ms(lib, 500))
+    entries = band_entries(P, H)
+    flops = 2.0 * Q * entries
+    nbytes = 4.0 * (entries + 2 * P * Q)
+    b_ms, b_by = bound(flops, nbytes)
+    print(f"   banded_matmul S=1 p={P} h={H} q={Q}: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.3f} ms, torch.bmm on dense {lib_ms:.4f} ms, "
+          f"bound {b_ms:.5f} ms ({b_by}; {flops / 1e6:.2f} MFLOP, "
+          f"{nbytes / 1e6:.3f} MB); equal bits to the plain version")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
 
 
 def main() -> int:
@@ -446,6 +521,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.covariance import band_to_dense, band_valid
     from repro_torch.kernels import build, ops, ref
     from repro_torch.serve.engine import StreamingPCAEngine, StreamRequest
     from repro_torch.streaming import (CompressionConfig, DetectionConfig,
@@ -558,6 +634,11 @@ def main() -> int:
                 record[name] = dict(max_abs_err=err, ms=ms,
                                     plain_ms=plain_ms, bound_ms=b_ms,
                                     bound_by=b_by)
+                xm = xb if m is None else xb * m[:, :, None, :]
+                xw = (xm * wb[:, :, None, None]).reshape(S, Kb * Nb, p)
+                dense_fold(record[name], name, out, xw,
+                           xm.reshape(S, Kb * Nb, p), H)
+                del xm, xw
         del xb, out, plain
     split_kernels(record, x.reshape(S, R, P), masks, basis, mean, il, eps)
     del x, masks, basis
@@ -656,6 +737,17 @@ def main() -> int:
     steps, launches, res = serve(cfg, ROUNDS, "stages engine")
     check(launches["fused_stream"] == steps,
           f"fused launches {launches['fused_stream']} != steps {steps}")
+    # 1 + refresh_iters + 2 banded products a decision (one a step, all
+    # slots at once), and one a retirement (a single slot)
+    per_decision = cfg.refresh_iters + 3
+    retired = launches["banded_matmul"] - per_decision * steps
+    print(f"   banded products: {launches['banded_matmul']} = "
+          f"{per_decision} x {steps} decisions + {retired} for "
+          f"{len(res)} retirements")
+    check(retired == len(res) == REQUESTS,
+          f"{launches['banded_matmul']} banded products, want "
+          f"{per_decision} x {steps} + {REQUESTS}")
+    record["banded_matmul_s1"]["launches"] = retired
     worst = max(r.compression_max_err for r in res)
     flagged = sum(r.compression_extra_packets for r in res)
     alarms = sum(r.detection_events for r in res)
@@ -756,7 +848,6 @@ def main() -> int:
     live[SLOTS - 64:] = torch.from_numpy(sched).to(dev)
     print(f"   fleet {tuple(xs.shape)} on the card "
           f"({xs.numel() * 4 / 1e6:.0f} MB), liveness {tuple(live.shape)}")
-    per_decision = cfg.refresh_iters + 3
 
     def fleet_run(config, rounds, masks, label):
         st = batched_stream_init(config, SLOTS, seed=0, device="cuda")
@@ -842,7 +933,7 @@ def main() -> int:
                                     "profiled bf16 stages engine"))
     del res
 
-    phase("11 device time of kernels 8 and 9 (torch.profiler)")
+    phase("11 device time of kernels 8, 9 and 10 (torch.profiler)")
     xc = torch.randn((SLOTS, K * N, P), device=dev, generator=g)
     wr = random_bases(SLOTS, P, Q, seed=5, device=dev).contiguous()
     calls = products_8_9(xc, ref.pca_project(xc, wr), wr)
@@ -855,6 +946,24 @@ def main() -> int:
               f"{rec['ms']:.4f}); torch.bmm {rec['library_device_ms']:.4f} "
               f"ms [{lib_names}] (events {rec['library_ms']:.4f})")
     del calls, xc, wr
+    band = torch.randn((SLOTS, 2 * H + 1, P), device=dev, generator=g) \
+        * band_valid(P, H, device=dev)
+    V = random_bases(SLOTS, P, Q, seed=6, device=dev).contiguous()
+    dense = band_to_dense(band)
+    for name, b, v, d in (("banded_matmul", band, V, dense),
+                          ("banded_matmul_s1", band[:1].contiguous(),
+                           V[:1].contiguous(), dense[:1])):
+        rec = record[name]
+        rec["device_ms"], names = device_ms(
+            lambda: ops.banded_matmul(b, v), 50)
+        rec["library_device_ms"], lib_names = device_ms(
+            lambda: torch.bmm(d, v), 50)
+        print(f"   {name}: device time a call over 50 calls: kernel "
+              f"{rec['device_ms']:.4f} ms [{names}] (events "
+              f"{rec['ms']:.4f}); torch.bmm on the dense matrix "
+              f"{rec['library_device_ms']:.4f} ms [{lib_names}] (events "
+              f"{rec['library_ms']:.4f})")
+    del band, V, dense
 
     print(f"   total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [

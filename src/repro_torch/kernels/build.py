@@ -44,6 +44,9 @@ SOURCES: dict[str, dict[str, list]] = {
     },
     "banded": {
         "banded_matmul_f32": [_P, _P, _I, _I, _I, _I, _P, _P],
+        # (band, V, S, p, h, q, tile, Y, stream): kernel 10 with its tile
+        # named (0 the choice of banded_matmul_f32, 1 rows64, 2 rows16)
+        "banded_matmul_tile_f32": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
         "banded_matvec_f32": [_P, _P, _I, _I, _I, _P, _P],
     },
     "fused_stream": {"fused_stream_f32": _FUSED, "fused_stream_bf16": _FUSED},

@@ -67,6 +67,7 @@
 // operations).
 #include <cstdint>
 
+#include "cp_async.cuh"
 #include "stages.cuh"
 
 namespace repro_torch {
@@ -91,31 +92,6 @@ stage_kernel(const float* __restrict__ x, const float* __restrict__ m,
       z + rows * q, WITH_C ? xh + rows * p : nullptr,
       WITH_C ? flags + rows * p : nullptr, WITH_M ? t2 + rows : nullptr,
       WITH_M ? spe + rows : nullptr, smem);
-}
-
-// cp.async copies into shared memory; src_bytes 0 zero-fills (the source
-// is then not read, but must be a valid address).
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ float lane_of(const float4& v, int j) {

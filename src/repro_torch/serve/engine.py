@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.core.faults import expected_transmissions
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.runtime.elastic import RescalePlan, plan_mesh
 from repro_torch.runtime.health import HealthMonitor, StragglerPolicy
 from repro_torch.serve.queue import AdmissionQueue, QueuePolicy
@@ -250,13 +251,16 @@ class StreamingPCAEngine:
         """The retiring slot's summary as device tensors, computed before
         any admission can overwrite the slot."""
         st = tree_map(lambda a: a[slot], self.states)
+        # one C W serves both the retained fraction and the energies
+        band_est = online_estimate(st.cov)
+        cw = ops.banded_matmul(band_est, st.sched.W)
         out = dict(
             W=st.sched.W,
-            rho=retained_fraction(online_estimate(st.cov), st.sched.W,
-                                  online_total_variance(st.cov)),
+            rho=retained_fraction(band_est, st.sched.W,
+                                  online_total_variance(st.cov), cw=cw),
             refreshes=st.sched.refreshes, comm_packets=st.sched.comm_packets,
             rounds=st.rounds)
-        out["lam"], out["total"] = region_energies(st)
+        out["lam"], out["total"] = region_energies(st, cw=cw)
         if self.cfg.compression is not None:
             out.update(comp_max=self._comp_max_err[slot],
                        comp_extra=self._comp_extras[slot],

@@ -13,10 +13,13 @@ from repro_torch.streaming.online_cov import (online_estimate,
 __all__ = ["region_energies"]
 
 
-def region_energies(state) -> tuple[torch.Tensor, torch.Tensor]:
+def region_energies(state, cw: torch.Tensor | None = None,
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """The (..., q) live subspace energies ``diag(W^T C W)`` of a region's
     basis plus its trace partial — what a region head sends up; ``C W``
-    is one banded-product launch on the band estimate."""
+    is one banded-product launch on the band estimate, or ``cw`` where
+    the caller has it already."""
     W = state.sched.W
-    cw = ops.banded_matmul(online_estimate(state.cov), W)
+    if cw is None:
+        cw = ops.banded_matmul(online_estimate(state.cov), W)
     return (W * cw).sum(-2), online_total_variance(state.cov)

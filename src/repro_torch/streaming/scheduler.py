@@ -41,9 +41,13 @@ __all__ = ["RecomputeScheduler", "SchedulerState", "retained_fraction",
 
 
 def retained_fraction(band_est: torch.Tensor, W: torch.Tensor,
-                      total_variance: torch.Tensor) -> torch.Tensor:
-    """rho = trace(W^T C W) / trace(C) for an orthonormal basis W."""
-    num = (W * ops.banded_matmul(band_est, W)).sum((-2, -1))
+                      total_variance: torch.Tensor,
+                      cw: torch.Tensor | None = None) -> torch.Tensor:
+    """rho = trace(W^T C W) / trace(C) for an orthonormal basis W; ``cw``
+    is ``C W`` if the caller has it already (no banded product then)."""
+    if cw is None:
+        cw = ops.banded_matmul(band_est, W)
+    num = (W * cw).sum((-2, -1))
     return num / total_variance.clamp(min=1e-30)
 
 

@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import build, ops
 from repro_torch.serve.engine import StreamingPCAEngine, StreamRequest
 from repro_torch.kernels import ref
 from repro_torch.streaming import (CompressionConfig, DetectionConfig,
@@ -29,6 +29,24 @@ from repro_torch.streaming import (CompressionConfig, DetectionConfig,
 from repro_torch.streaming.driver import random_bases, tree_map
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+
+# kernel 10's tiles, as banded_matmul_tile_f32 names them
+_TILES = {"rows64": 1, "rows16": 2}
+
+
+def _banded_tile(band, V, tile):
+    """Kernel 10 through its C entry point with the tile named (the port
+    always lets the kernel choose)."""
+    S, nb, p = band.shape
+    q = V.shape[-1]
+    V = V.contiguous()
+    Y = torch.empty((S, p, q), device=band.device)
+    ret = build.load_library("banded").banded_matmul_tile_f32(
+        band.data_ptr(), V.data_ptr(), S, p, (nb - 1) // 2, q, _TILES[tile],
+        Y.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    assert ret == 0, f"cudaError {ret}"
+    torch.cuda.synchronize()
+    return Y
 
 
 @pytest.mark.cuda
@@ -347,22 +365,53 @@ class TestCudaRoundAndBandedKernels:
             mask=None if m is None else m.cuda()[:, None])
         assert torch.equal(gpu, chunk)
 
-    @pytest.mark.parametrize("p,h", [(37, 0), (37, 4), (1024, 128)])
-    @pytest.mark.parametrize("q", [1, 3, 8, 32, 40])
-    def test_banded_products_match_plain(self, p, h, q):
-        S = 3
-        g = torch.Generator().manual_seed(p * q + h)
+    @pytest.mark.parametrize("layout", ["contiguous", "transposed"])
+    @pytest.mark.parametrize("q", [1, 3, 8, 32, 33, 40, 64])
+    @pytest.mark.parametrize("p,h", [(37, 0), (37, 4), (37, 128), (37, 36),
+                                     (130, 0), (130, 4), (130, 128),
+                                     (1024, 0), (1024, 4), (1024, 128)])
+    @pytest.mark.parametrize("S", [1, 3])
+    def test_banded_products_match_plain(self, S, p, h, q, layout):
+        """Kernel 10 with the tile it picks and with each tile named, and
+        kernel 11: equal bits to the plain version, one launch a call.
+        p = 130 is a multiple of neither tile's rows; h = 36 = p - 1 at
+        p = 37 and h = 128 > p reach past both ends; q = 33, 40 and 64
+        take two column tiles; a transposed V is not contiguous."""
+        g = torch.Generator().manual_seed(S * 7919 + p * q + h)
         band = torch.randn((S, 2 * h + 1, p), generator=g)
         V = torch.randn((S, p, q), generator=g)
+        if layout == "transposed":
+            V = V.transpose(1, 2).contiguous().transpose(1, 2)
+            assert not V.is_contiguous() or q == 1
+        want = ref.banded_matmul(band, V)
+        bc, vc = band.cuda(), V.cuda()
         ops.reset_counts()
-        Y = ops.banded_matmul(band.cuda(), V.cuda())
-        y = ops.banded_matvec(band.cuda(), V[..., 0].cuda())
+        Y = ops.banded_matmul(bc, vc)
+        y = ops.banded_matvec(bc, vc[..., 0])
         torch.cuda.synchronize()
         assert ops.LAUNCHES["banded_matmul"] == ops.LAUNCHES[
             "banded_matvec"] == 1
-        assert torch.equal(Y.cpu(), ref.banded_matmul(band, V))
+        assert sum(ops.PLAIN_CALLS.values()) == 0
+        assert torch.equal(Y.cpu(), want)
+        assert torch.equal(Y, ref.banded_matmul(bc, vc))
         assert torch.equal(y.cpu(), ref.banded_matvec(band, V[..., 0]))
-        assert torch.equal(Y, ref.banded_matmul(band.cuda(), V.cuda()))
+        for tile in _TILES:
+            assert torch.equal(_banded_tile(bc, vc, tile).cpu(), want), tile
+
+    @pytest.mark.parametrize("tile", [None, *_TILES])
+    def test_banded_matmul_at_the_refresh_shape(self, tile):
+        """The refresh's shape (256 slots, p = 1024, h = 128, q = 32) with
+        the tile the kernel picks and with each tile named: equal bits to
+        the plain version on the card."""
+        g = torch.Generator(device="cuda").manual_seed(10)
+        band = torch.randn((256, 257, 1024), device="cuda", generator=g)
+        V = torch.randn((256, 1024, 32), device="cuda", generator=g)
+        ops.reset_counts()
+        Y = ops.banded_matmul(band, V) if tile is None \
+            else _banded_tile(band, V, tile)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["banded_matmul"] == (1 if tile is None else 0)
+        assert torch.equal(Y, ref.banded_matmul(band, V))
 
 
 def _fleet_data(N, R, n, p, seed):

@@ -206,6 +206,20 @@ def test_cpu_engine_takes_plain_path_every_step(served):
                                     served[1])
 
 
+@pytest.mark.parametrize("which", ["fused", "quant"])
+def test_one_banded_product_per_retirement(served, served_quant, which):
+    """Every decision runs 1 + refresh_iters + 2 banded products (kernel
+    10's plain version on the CPU) and every retirement exactly one: the
+    retained fraction and the energies share one ``C W``."""
+    eng, reqs, (plain, launches) = served if which == "fused" \
+        else served_quant
+    decisions = sum(1 for r in eng.telemetry.steps if r.live > 0)
+    per_decision = eng.cfg.refresh_iters + 3
+    assert decisions > 0 and eng.telemetry.summary()["retired"] == len(reqs)
+    assert plain["banded_matmul"] == per_decision * decisions + len(reqs)
+    assert launches["banded_matmul"] == 0
+
+
 def test_band_only_engine_uses_band_kernels(ref):
     cfg = StreamConfig(p=64, q=4, halfwidth=3, warmup_rounds=3)
     eng = StreamingPCAEngine(cfg, slots=SLOTS, chunk=K, device="cpu",
