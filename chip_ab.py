@@ -14,8 +14,10 @@ from its tree's root; its output goes to ``<i>_<side>.log`` in ``--out``
 row of values per side, in run order, for every engine or fleet line of
 the runs (rounds/s, and the wall time over its steps or rounds), for the
 profiled runs' device idle shares and for every kernel of the JSON record
-(ms), and writes the same to ``summary.json`` there.  It exits non-zero
-if any run did.
+(ms), and which kernel functions kept their SASS (``cuobjdump -sass`` of
+each tree's build, ``build/repro_torch/``, function by function), and
+writes the same to ``summary.json`` there.  It exits non-zero if any run
+did.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from __future__ import annotations
 import argparse
 import json
 import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -54,6 +57,42 @@ def parse(log: str) -> dict[str, float]:
             for k in json.loads(line)["kernels"]:
                 out[f"kernel {k['name']}: ms"] = k["ms"]
     return out
+
+
+def sass_functions(tree: Path) -> dict[str, dict[str, str]]:
+    """``{library: {kernel function: its SASS}}`` of every library built
+    in ``tree`` (``cuobjdump -sass``; the library's name without its
+    content hash)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out: dict[str, dict[str, str]] = {}
+    for lib in sorted((tree / "build" / "repro_torch").glob("lib*.so")):
+        text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, check=True).stdout
+        funcs, name = {}, None
+        for line in text.splitlines():
+            m = re.match(r"\s*Function : (\S+)", line)
+            if m:
+                name = m[1]
+                funcs[name] = []
+            elif name is not None:   # cuobjdump pads to the file's widest line
+                funcs[name].append(" ".join(line.split()))
+        out[lib.name.rsplit("-", 1)[0]] = {k: "\n".join(v)
+                                            for k, v in funcs.items()}
+    return out
+
+
+def compare_sass(trees: dict[str, Path]) -> dict[str, str]:
+    """``{library:function: same | differs | base only | change only}``."""
+    base, change = (sass_functions(trees[k]) for k in ("b", "c"))
+    verdict = {}
+    for lib in sorted(set(base) | set(change)):
+        b, c = base.get(lib, {}), change.get(lib, {})
+        for fn in sorted(set(b) | set(c)):
+            verdict[f"{lib}:{fn}"] = ("base only" if fn not in c else
+                                      "change only" if fn not in b else
+                                      "same" if b[fn] == c[fn] else
+                                      "differs")
+    return verdict
 
 
 def main() -> int:
@@ -93,9 +132,13 @@ def main() -> int:
             "-" if v is None else f"{v:g}" for v in vals)
             for name, vals in sides.items())
         print(f"{key}: {cells}")
+    sass = compare_sass(trees)
+    for fn, v in sass.items():
+        print(f"sass {fn}: {v}")
     (out_dir / "summary.json").write_text(json.dumps(
         {"order": args.order, "base": str(trees["b"]),
-         "change": str(trees["c"]), "table": table}, indent=1))
+         "change": str(trees["c"]), "table": table, "sass": sass},
+        indent=1))
     return 1 if failed else 0
 
 

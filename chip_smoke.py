@@ -6,7 +6,8 @@
 Phases (each prints its lines; any failure raises and exits non-zero):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from src/repro_torch/kernels/csrc (one nvcc per
-     source, in parallel, into build/repro_torch/);
+     source, in parallel, into build/repro_torch/), with each kernel
+     function's registers and spills;
   3. each kernel against its plain PyTorch version on the card, at the
      engine's widths (256 slots, p=1024, h=128, q=32, K*n=8*32 rows, masks
      per round; the per-round folds at n=32 rows, the banded products on
@@ -22,8 +23,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      the retirement's single slot over 500, beside torch.bmm on the dense
      (1, p, p) matrix, as banded_matmul_s1); kernel 1 also in its bf16
      tile mode, with the bf16 cast of x (outside the kernel, as in the
-     reference) timed on its own; plus a small engine run on the card
-     against the same run on the CPU;
+     reference) timed on its own; kernels 2 and 3's bands checked exactly
+     symmetric and equal over two launches, and kernel 1's band (fp32 and
+     bf16 tiles) equal bit for bit to kernel 3's on the same operands;
+     plus a small engine run on the card against the same run on the CPU;
   4. the main path: StreamingPCAEngine with compression and detection on
      256 slots at one wsn-1m region's width, serving 320 requests of 24
      rounds (slots retire and readmit; the last 64 carry a liveness
@@ -50,11 +53,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      the worst sink error within eps + 2^-8 max|x| (the flag is decided on
      the bf16-rounded reading, the books read the fp32 one); its rate,
      step time, flagged readings and refreshes beside phase 4's;
- 11. kernels 8, 9 and 10 (at 256 slots and at one) and their torch.bmm
-     again at phase 3's shapes, on inputs drawn anew (a dense product's
-     time does not depend on the values), under torch.profiler: each one's
-     device time a call over 50 calls, beside its event time, so the
-     wrapper's host time cannot hide in the figure (last, so that no
+ 11. kernels 2, 3, 8, 9 and 10 (at 256 slots and at one) and their
+     torch.bmm again at phase 3's shapes, on inputs drawn anew (a dense
+     product's time does not depend on the values), under torch.profiler:
+     each one's device time a call over 50 calls, beside its event time,
+     so the wrapper's host time cannot hide in the figure (last, so that no
      profiler run comes ahead of phase 4's measured run, and no tensor is
      kept for it through phases 4-10).
 The line before the last is the kernels' JSON record; the last line is
@@ -67,6 +70,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -225,6 +229,31 @@ def profile_breakdown(run, top: int = 8) -> None:
               f"{e.key[:90]}")
 
 
+def ptxas_summary(log: str) -> list[str]:
+    """One line a kernel function of an ``nvcc -Xptxas -v`` log: its
+    (mangled) name, registers and spills."""
+    out, name, spill = [], "?", ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = m[1], ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            out.append(f"{name}: {regs[1] if regs else '?'} registers; "
+                       f"{spill}")
+    return out
+
+
+def mirrored(band: torch.Tensor, h: int) -> bool:
+    """The band is exactly symmetric: band[h - d, i + d] == band[h + d, i]
+    for every d in 1..h and i + d < p."""
+    p = band.shape[-1]
+    return all(torch.equal(band[:, h - d, d:], band[:, h + d, :p - d])
+               for d in range(1, min(h, p - 1) + 1))
+
+
 def band_of(dense: torch.Tensor, h: int) -> torch.Tensor:
     """The (S, 2h+1, p) band ``band[k, i] = dense[i, i + k - h]`` of a
     (S, p, p) matrix, zero where i + k - h falls outside [0, p)."""
@@ -272,6 +301,11 @@ def fused_bf16(record, x, w, basis, mean, il, masks, eps) -> None:
     errs = [compare(f"fused_bf16 {name}", out[i], plain[i], 1e-4, 1e-3)
             for i, name in ((0, "band"), (1, "z"), (2, "x_hat"), (4, "t2"),
                             (5, "spe"))]
+    same = torch.equal(out[0], ops.cov_band_update_chunk_batched(
+        xb.float(), w, H, mask=masks))
+    print(f"   fused_bf16 band == band_fold_masked's band on the bf16-rounded "
+          f"x (bit for bit): {same}")
+    check(same, "kernel 1's bf16 band differs from kernel 3's")
     xv = xb.float().reshape(S, R, p)
     clear = ((xv - plain[2]).abs() - eps).abs() > 1e-3
     bad = int(((out[3] != plain[3]) & clear).sum())
@@ -550,9 +584,8 @@ def main() -> int:
     print(f"   built {sorted(logs)} in {time.perf_counter() - t0:.1f} s "
           f"into {build.BUILD_DIR.relative_to(ROOT)}")
     for name, info in logs.items():
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"   {name}: {line.strip()}")
+        for line in ptxas_summary(info["log"]):
+            print(f"   {name}: {line}")
 
     phase("3 kernels vs plain at slice width")
     record: dict[str, dict] = {}
@@ -605,6 +638,12 @@ def main() -> int:
               f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
               f"({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e9:.3f} GB)")
         if stages == "cm":
+            band3 = ops.cov_band_update_chunk_batched(x, w, H, mask=masks)
+            same = torch.equal(out[0], band3)
+            print(f"   fused[cm] band == band_fold_masked's band on the same "
+                  f"x, w, masks (bit for bit): {same}")
+            check(same, "kernel 1's band differs from kernel 3's")
+            del band3
             record["fused_stream"] = dict(max_abs_err=max(errs), ms=ms,
                                           plain_ms=plain_ms, bound_ms=b_ms,
                                           bound_by=b_by)
@@ -622,6 +661,11 @@ def main() -> int:
             plain = ref.band_fold(xb, wb, H, m)
             err = compare(f"{name} p={p} rows={Kb * Nb}", out, plain, 1e-4,
                           1e-3)
+            sym, again = mirrored(out, H), torch.equal(out, run())
+            print(f"   {name} p={p}: band exactly symmetric {sym}; a second "
+                  f"launch gives equal bits {again}")
+            check(sym and again, f"{name} p={p}: band not mirrored or not "
+                  f"repeatable")
             ms = time_ms(run, 10)
             plain_ms = time_ms(lambda: ref.band_fold(xb, wb, H, m), 2, 1)
             nbytes = 4.0 * (xb.numel() + wb.numel() + out.numel()
@@ -933,7 +977,26 @@ def main() -> int:
                                     "profiled bf16 stages engine"))
     del res
 
-    phase("11 device time of kernels 8, 9 and 10 (torch.profiler)")
+    phase("11 device time of kernels 2, 3, 8, 9 and 10 (torch.profiler)")
+    xb = torch.randn((SLOTS, K, N, P), device=dev, generator=g)
+    wb = torch.rand((SLOTS, K), device=dev, generator=g)
+    mb = (torch.rand((SLOTS, K, P), device=dev, generator=g) > 0.05).float()
+    for name, m in (("band_fold", None), ("band_fold_masked", mb)):
+        xm = xb if m is None else xb * m[:, :, None, :]
+        xw = (xm * wb[:, :, None, None]).reshape(SLOTS, K * N, P)
+        xm = xm.reshape(SLOTS, K * N, P)
+        rec = record[name]
+        rec["device_ms"], names = device_ms(
+            lambda: ops.cov_band_update_chunk_batched(xb, wb, H, mask=m), 50)
+        rec["library_device_ms"], lib_names = device_ms(
+            lambda: torch.bmm(xw.transpose(1, 2), xm), 50)
+        print(f"   {name}: device time a call over 50 calls: kernel "
+              f"{rec['device_ms']:.4f} ms [{names}] (events "
+              f"{rec['ms']:.4f}); torch.bmm forming the dense product "
+              f"{rec['library_device_ms']:.4f} ms [{lib_names}] (events "
+              f"{rec['library_ms']:.4f})")
+        del xm, xw
+    del xb, wb, mb
     xc = torch.randn((SLOTS, K * N, P), device=dev, generator=g)
     wr = random_bases(SLOTS, P, Q, seed=5, device=dev).contiguous()
     calls = products_8_9(xc, ref.pca_project(xc, wr), wr)

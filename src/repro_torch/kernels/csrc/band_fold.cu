@@ -8,13 +8,19 @@
 // cov_band_update_masked_pallas (:108, body _masked_kernel :66).  The
 // Pallas kernels accumulate a (2h+1, block_p) tile in VMEM over a
 // sequential row grid; here the fleet's slot axis is a grid dimension
-// (one launch folds every slot's chunk or round) and each thread owns one
-// band entry (band_fold.cuh).  The per-round kernels are the chunk kernel
-// at K = 1 without the weight (cov_update.py:159-162 says the same of the
-// reference): the per-round mask is a (S, p) liveness row read once for
-// all n rows, or a (S, n, p) dropout mask — never a liveness row
-// broadcast to (S, n, p) in device memory, as the reference wrapper does
-// (repro/kernels/ops.py:245).
+// (one launch folds every slot's chunk or round).  The per-round kernels
+// are the chunk fold at K = 1 without the weight (cov_update.py:159-162
+// says the same of the reference): the per-round mask is a (S, p)
+// liveness row read once for all n rows, or a (S, n, p) dropout mask —
+// never a liveness row broadcast to (S, n, p) in device memory, as the
+// reference wrapper does (repro/kernels/ops.py:245).
+//
+// Kernels 2 and 3 are a banded SYRK (band_syrk.cuh): register-tiled 64 x
+// 64 tiles of the upper band, x staged through shared memory by cp.async,
+// half the band computed and mirrored, in a per-round order of sums that
+// is symmetric in (i, j), so the mirror, kernel 1's fold blocks and, at
+// K = 1 and w = 1, kernels 6 and 7 all give the same bits.  Kernels 6 and
+// 7 keep one thread an output (band_fold.cuh).
 //
 // Bound at the slice shape (p=1024, h=128, R=K*n=256 rows), per slot per
 // step: the band is symmetric (band[h-d, i] = band[h+d, i-d]), so the
@@ -22,20 +28,20 @@
 // (h+1)p - h(h+1)/2 = 123,840 pairs: 2*256*123,840 = 63 MFLOP (the weight
 // and mask multiplies are not counted); bytes: x 1 MB (+ mask 32 KB
 // per-round) read once and the band 1.05 MB written once, ~2.1 MB.  At
-// 67 TFLOP/s fp32 (no tensor cores) against 3.35 TB/s that is 0.95 us of
-// arithmetic against 0.63 us of memory: bound by operations.  A round
-// (R = n = 32 rows) does an eighth of the arithmetic and writes the same
-// band: 0.12 us against 0.35 us, bound by the band's writeback — which is
-// why the chunk kernel exists.  This simple version computes both halves
-// of the band and runs far above either bound (PERF.md): every output
-// re-reads two rows of x per row from L1/L2 and does one multiply-add per
-// two loads; a version that folds half the band and mirrors it, keeps a
-// row window in shared memory and gives each thread several diagonals is
-// later work.
+// 67 TFLOP/s fp32 (no tensor cores: TF32 would change the reference's
+// precision) against 3.35 TB/s that is 0.95 us of arithmetic against 0.63
+// us of memory: bound by operations.  The tiles compute ~1.24x the unique
+// pairs (the quarters of a tile that meet the band), and each fused
+// multiply-add needs 3/32 of a shared load.  A round (R = n = 32 rows)
+// does an eighth of the arithmetic and writes the same band: 0.12 us
+// against 0.35 us, bound by the band's writeback — which is why the chunk
+// kernel exists.
 #include "band_fold.cuh"
+#include "band_syrk.cuh"
 
 namespace repro_torch {
 
+// Kernels 6 and 7: one thread an output (band_fold.cuh), K = 1.
 template <bool HAS_MASK, bool WEIGHTED>
 __global__ void __launch_bounds__(kFoldThreads)
 band_fold_kernel(const float* __restrict__ x, const float* __restrict__ w,
@@ -49,7 +55,7 @@ band_fold_kernel(const float* __restrict__ x, const float* __restrict__ w,
       K, n, per_reading, p, h, blockIdx.x, band + s * (2 * h + 1) * p);
 }
 
-template <bool HAS_MASK, bool WEIGHTED = true>
+template <bool HAS_MASK, bool WEIGHTED>
 static int launch(const float* x, const float* w, const float* m, int S,
                   int K, int n, int per_reading, int p, int h, float* band,
                   void* stream) {
@@ -61,6 +67,47 @@ static int launch(const float* x, const float* w, const float* m, int S,
   return (int)cudaGetLastError();
 }
 
+// Kernels 2 and 3: one block a tile of the upper band (band_syrk.cuh),
+// grid (row tiles x column offsets, S).  Four blocks an SM at most 128
+// registers a thread.
+template <bool HAS_MASK, bool PER_READING>
+__global__ void __launch_bounds__(kSyrkThreads, 4)
+band_syrk_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                 const float* __restrict__ m, int K, int n, int p, int h,
+                 bool vec, float* __restrict__ band) {
+  extern __shared__ __align__(16) float syrk_smem[];
+  const size_t s = blockIdx.y;
+  const size_t m_rows = PER_READING ? (size_t)K * n : (size_t)K;
+  band_syrk_tile<HAS_MASK, PER_READING>(
+      x + s * K * n * p, w + s * K, HAS_MASK ? m + s * m_rows * p : nullptr,
+      K, n, p, h, vec, blockIdx.x, band + s * (2 * h + 1) * p, syrk_smem);
+}
+
+static bool aligned16(const void* ptr) {
+  return (reinterpret_cast<size_t>(ptr) & 15) == 0;
+}
+
+template <bool HAS_MASK, bool PER_READING>
+static int launch_syrk(const float* x, const float* w, const float* m,
+                       int S, int K, int n, int p, int h, float* band,
+                       void* stream) {
+  constexpr size_t smem =
+      sizeof(float) * syrk_smem_floats<HAS_MASK && PER_READING>();
+  if (S < 1 || K < 1 || n < 1 || p < 1 || h < 0)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = band_syrk_kernel<HAS_MASK, PER_READING>;
+  if (smem > 48 * 1024) {   // the dropout mask's stages: 64 KB
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const bool vec = p % 4 == 0 && aligned16(x) && (!HAS_MASK || aligned16(m));
+  dim3 grid((p + kSyrkT - 1) / kSyrkT * syrk_offsets(p, h), S);
+  kernel<<<grid, kSyrkThreads, smem, (cudaStream_t)stream>>>(
+      x, w, m, K, n, p, h, vec, band);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace repro_torch
 
 extern "C" {
@@ -68,8 +115,8 @@ extern "C" {
 // x (S, K*n, p), w (S, K), band (S, 2h+1, p); all fp32, contiguous.
 int band_fold_f32(const float* x, const float* w, int S, int K, int n,
                   int p, int h, float* band, void* stream) {
-  return repro_torch::launch<false>(x, w, nullptr, S, K, n, 0, p, h, band,
-                                    stream);
+  return repro_torch::launch_syrk<false, false>(x, w, nullptr, S, K, n, p,
+                                                h, band, stream);
 }
 
 // As band_fold_f32 with a 0/1 mask: (S, K, p) per-round liveness, or
@@ -77,8 +124,11 @@ int band_fold_f32(const float* x, const float* w, int S, int K, int n,
 int band_fold_masked_f32(const float* x, const float* w, const float* m,
                          int S, int K, int n, int per_reading, int p, int h,
                          float* band, void* stream) {
-  return repro_torch::launch<true>(x, w, m, S, K, n, per_reading, p, h, band,
-                                   stream);
+  if (per_reading)
+    return repro_torch::launch_syrk<true, true>(x, w, m, S, K, n, p, h, band,
+                                                stream);
+  return repro_torch::launch_syrk<true, false>(x, w, m, S, K, n, p, h, band,
+                                               stream);
 }
 
 // Kernel 6: x (S, n, p) one round per slot, band (S, 2h+1, p);

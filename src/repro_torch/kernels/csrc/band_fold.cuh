@@ -1,5 +1,7 @@
-// Banded, forgetting-weighted outer-product fold shared by band_fold.cu
-// (kernels 2 and 3) and fused_stream.cu (kernel 1).
+// Banded, forgetting-weighted outer-product fold, one thread an output:
+// the fold blocks of kernel 1 (fused_stream.cu) and kernels 6 and 7, the
+// per-round fold (band_fold.cu).  Kernels 2 and 3 tile the same sum
+// (band_syrk.cuh).
 //
 //   band[s, k, i] = sum_r w[s, r / n] * (m x)[s, r, i] * (m x)[s, r, i + k - h]
 //
@@ -10,18 +12,26 @@
 // per ROUND; the optional 0/1 mask has one row per round ((K, p) liveness)
 // or, with per_reading set, one row per row of x ((K, n, p) dropout) — a
 // liveness mask is never broadcast to the chunk's size in device memory.
-// With WEIGHTED false (the per-round fold of kernels 6 and 7: K = 1, unit
-// weight) w is not read and the product is xi * xj — the same bits as
-// (xi * 1.0f) * xj, so a round folds to the chunk fold's bits at K = 1.
 //
-// One thread owns one output (k, i) and walks the rows in order, round by
-// round (so no integer division in the loop): no atomics, no cross-block
-// reduction, so the result is deterministic (the engine's replay
-// determinism depends on that).  The halo column i + k - h is read with a
-// bounds check instead of padding x in device memory.  Threads of a warp
-// share k and hold consecutive i, so both loads of a row are coalesced;
-// the 2h+1 blocks of one column tile re-read the same rows, which then
-// come from L1/L2.
+// WEIGHTED (kernel 1) sums in the order of band_syrk.cuh, with the same
+// intrinsics: s_t = fma(mx_i, mx_j, s_t) over the round's rows from 0,
+// then acc = fma(w_t, s_t, acc) — symmetric in (i, j), so kernel 1's band
+// equals kernels 2 and 3's bit for bit, both halves, in both tile modes
+// (mx = x m: one rounding, which no contraction can remove, as the
+// product feeds a multiplication).
+// With WEIGHTED false (kernels 6 and 7: K = 1, unit weight) w is not read
+// and acc += xi * xj, contracted to fma(xi, xj, acc): kernel 2's s_0, and
+// acc = fma(1, s_0, 0) = s_0, so a round folds to the chunk fold's bits
+// at K = 1.
+//
+// One thread owns one output (k, i), lower half included, and walks the
+// rows in order, round by round (so no integer division in the loop): no
+// atomics, no cross-block reduction, so the result is deterministic (the
+// engine's replay determinism depends on that).  The halo column
+// i + k - h is read with a bounds check instead of padding x in device
+// memory.  Threads of a warp share k and hold consecutive i, so both loads
+// of a row are coalesced; the 2h+1 blocks of one column tile re-read the
+// same rows, which then come from L1/L2.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -45,12 +55,12 @@ __device__ __forceinline__ void band_fold_block(
   float acc = 0.0f;
   if (j >= 0 && j < p) {
     for (int t = 0; t < K; ++t) {
-      const float wt = WEIGHTED ? w[t] : 1.0f;
       float mi = 1.0f, mj = 1.0f;
       if (HAS_MASK && !per_reading) {
         mi = m[(size_t)t * p + i];
         mj = m[(size_t)t * p + j];
       }
+      float s = 0.0f;
       for (int e = 0; e < n; ++e) {
         const size_t r = (size_t)t * n + e;
         float xi = to_f32(x[r * p + i]);
@@ -63,8 +73,12 @@ __device__ __forceinline__ void band_fold_block(
           xi *= mi;
           xj *= mj;
         }
-        acc += (WEIGHTED ? xi * wt : xi) * xj;
+        if constexpr (WEIGHTED)
+          s = __fmaf_rn(xi, xj, s);
+        else
+          acc += xi * xj;
       }
+      if constexpr (WEIGHTED) acc = __fmaf_rn(w[t], s, acc);
     }
   }
   band[(size_t)k * p + i] = acc;

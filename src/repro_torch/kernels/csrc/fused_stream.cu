@@ -33,8 +33,11 @@
 // ~3.5 MB.  At 256 slots that is 24.8 GFLOP against ~0.93 GB: 0.37 ms at
 // 67 TFLOP/s fp32 against 0.28 ms at 3.35 TB/s — bound by operations
 // (CUDA-core fp32; the fold has no tensor-core form in fp32 without TF32).
-// This kernel computes every in-range band entry, both halves: folding
-// half the band and mirroring it is later work.
+// This kernel's fold blocks still compute every in-range band entry, both
+// halves, one thread an output; they sum in the symmetric per-round order
+// of kernels 2 and 3 (band_syrk.cuh), which fold half the band and mirror
+// it, so the bands agree bit for bit.  Moving these blocks onto that tile
+// is later work.
 //
 // bf16 tile mode (fused_stream_bf16; the reference's precision="bf16",
 // repro/kernels/ops.py::_fused_prep): x, the basis and its transpose come

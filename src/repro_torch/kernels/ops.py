@@ -162,7 +162,9 @@ def cov_band_update_chunk_batched(xs: torch.Tensor, weights: torch.Tensor,
     (B, K, p) liveness, (B, K, n, p) dropout, or None.  Returns the
     (B, 2h+1, p) fp32 bands
     ``delta[b, k, i] = sum_t w[b,t] sum_r (m x)[b,t,r,i] (m x)[b,t,r,i+k-h]``.
-    Kernels 2 and 3 (``csrc/band_fold.cu``)."""
+    Kernels 2 and 3 (``csrc/band_fold.cu``, tiled in ``csrc/band_syrk.cuh``:
+    half the band summed per round, weighted, and mirrored, so the band is
+    exactly symmetric)."""
     if xs.dim() != 4:
         raise ValueError(f"expected (networks, chunk, n, p), got "
                          f"{tuple(xs.shape)}")

@@ -11,7 +11,12 @@ to the same, against its plain version on the same bf16-rounded operands,
 which it widens to fp32 as it loads them.  Flags are compared exactly
 wherever the error is more than 1e-4 from ε.  The banded products
 (kernels 10, 11) sum the diagonals in the plain version's order with the
-plain version's roundings, so they are held to equal bits.
+plain version's roundings, so they are held to equal bits.  The chunk
+folds (kernels 2, 3) are held to ``TOL`` against the plain version on the
+card up to 32 rows (1e-4 beyond: up to 256 products a pair, summed per
+round in a chain, then weighted), and
+to equal bits where their order of sums promises them: the mirrored half,
+a second launch, kernel 1's band and, at K = 1, kernels 6 and 7.
 """
 
 import dataclasses
@@ -20,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.covariance import band_valid
 from repro_torch.kernels import build, ops
 from repro_torch.serve.engine import StreamingPCAEngine, StreamRequest
 from repro_torch.kernels import ref
@@ -124,6 +130,117 @@ class TestCudaKernels:
         xb = x.to(torch.bfloat16).float().reshape(S, K * n, p)
         clear = ((xb - cpu[2]).abs() - eps).abs() > 1e-4
         assert torch.equal(gpu[3].cpu()[clear], cpu[3][clear])
+
+
+def _fold_operands(S, K, n, p, mask_kind, seed):
+    """A chunk fold's card operands: x (S, K, n, p); weights (S, K) with a
+    padded last round (weight 0) and, at S = 3, a slot of zero weights;
+    no mask, a (S, K, p) liveness or a (S, K, n, p) dropout mask."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((S, K, n, p), generator=g)
+    w = torch.rand((S, K), generator=g) + 0.25
+    if K > 1:
+        w[:, -1] = 0.0
+    if S > 1:
+        w[1] = 0.0
+    m = {None: None,
+         "live": (torch.rand((S, K, p), generator=g) > 0.2).float(),
+         "drop": (torch.rand((S, K, n, p), generator=g) > 0.2).float(),
+         }[mask_kind]
+    return x.cuda(), w.cuda(), None if m is None else m.cuda()
+
+
+def _assert_mirrored(band, h):
+    """The band is exactly symmetric, band[h - d, i + d] == band[h + d, i],
+    and exactly 0 where i + k - h falls outside [0, p)."""
+    p = band.shape[-1]
+    for d in range(1, min(h, p - 1) + 1):
+        assert torch.equal(band[:, h - d, d:], band[:, h + d, :p - d]), d
+    outside = 1.0 - band_valid(p, h, device=band.device)
+    assert torch.equal(band * outside, torch.zeros_like(band))
+
+
+def _halfwidth(h, p):
+    return {"p-1": p - 1, "p+7": p + 7}.get(h, h)
+
+
+@pytest.mark.cuda
+class TestCudaChunkFold:
+    """Kernels 2 and 3 (the banded SYRK of ``csrc/band_syrk.cuh``: 64 x 64
+    tiles of the upper band, mirrored) against the plain version on the
+    same card tensors (``TOL`` up to 32 rows, 1e-4 beyond: the module
+    docstring), with the bits the design promises: an
+    exactly symmetric band with exact zeros outside it, equal bits from
+    two launches, and kernel 1's band (fp32 and bf16 tiles) equal to
+    theirs.  The K = 1 equal-bits checks against kernels 6 and 7 are
+    ``TestCudaRoundAndBandedKernels.test_round_fold_matches_plain``."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+
+    def _fold(self, x, w, h, m):
+        ops.reset_counts()
+        band = ops.cov_band_update_chunk_batched(x, w, h, mask=m)
+        again = ops.cov_band_update_chunk_batched(x, w, h, mask=m)
+        torch.cuda.synchronize()
+        kernel = "band_fold" if m is None else "band_fold_masked"
+        assert ops.LAUNCHES[kernel] == 2
+        assert sum(ops.PLAIN_CALLS.values()) == 0
+        assert torch.equal(band, again)
+        _assert_mirrored(band, h)
+        # each round's products in a chain, then the weighted rounds; the
+        # plain version sums in a tree.  Over 250 rows the chain's rounding
+        # reaches ~2e-5 on pairs that cancel to near 0 (1.2e-5 seen at
+        # p=130, 10 x 25 rows), so the longer chunks are held to 1e-4, as
+        # a 1024-product score is above.
+        tol = TOL if x.shape[1] * x.shape[2] <= 32 \
+            else dict(rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(band, ref.band_fold(x, w, h, m), **tol)
+        return band
+
+    @pytest.mark.parametrize("mask_kind", [None, "live", "drop"])
+    @pytest.mark.parametrize("K,n", [(1, 13), (4, 8), (10, 25), (8, 32)])
+    @pytest.mark.parametrize("h", [0, 3, 63, 64, 128, "p-1", "p+7"])
+    @pytest.mark.parametrize("p", [17, 37, 63, 64, 65, 130, 1021, 1024])
+    def test_chunk_fold_matches_plain(self, p, h, K, n, mask_kind):
+        """Three slots (one of zero weights, the others with a padded
+        round); p below, at and across the 64-column tile, odd p (4-byte
+        copies); h from 0 past both ends of the band; rounds that straddle
+        the 16-row stages (n = 13, 25) and that fill them (n = 8, 32)."""
+        h = _halfwidth(h, p)
+        x, w, m = _fold_operands(3, K, n, p, mask_kind, p * 131 + h * 7 + K)
+        self._fold(x, w, h, m)
+
+    @pytest.mark.parametrize("mask_kind", [None, "live", "drop"])
+    @pytest.mark.parametrize("p", [17, 65, 1021, 1024])
+    def test_chunk_fold_one_slot(self, p, mask_kind):
+        """A fleet of one slot at the slice's halfwidth and ten rounds of
+        25 epochs."""
+        x, w, m = _fold_operands(1, 10, 25, p, mask_kind, p)
+        self._fold(x, w, 128, m)
+
+    @pytest.mark.parametrize("precision", ["fp32", "bf16"])
+    @pytest.mark.parametrize("masked", [False, True])
+    @pytest.mark.parametrize("p,h", [(17, 3), (37, 36), (64, 63), (130, 64),
+                                     (1021, 128), (1024, 128)])
+    def test_fused_band_equals_chunk_fold(self, p, h, masked, precision):
+        """Kernel 1's fold blocks (one thread an output, both halves) sum
+        in the tile's per-round order: its band equals kernel 2's or 3's
+        bit for bit on the same operands — in the bf16 tile mode on the
+        bf16-rounded x, which kernel 1 widens exactly."""
+        S, K, n, q = 3, 10, 25, 4
+        x, w, m = _fold_operands(S, K, n, p, "live" if masked else None, p)
+        g = torch.Generator().manual_seed(p + 1)
+        basis = torch.linalg.qr(torch.randn((S, p, q), generator=g)).Q.cuda()
+        out = ops.fused_stream_update(x, w, basis, halfwidth=h, epsilon=0.5,
+                                      with_compress=True, with_monitor=True,
+                                      mask=m, precision=precision)
+        xt = ops.fused_tiles(x, precision).float()
+        band = ops.cov_band_update_chunk_batched(xt, w, h, mask=m)
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], band)
 
 
 def _split_operands(S, R, p, q, masked, n):
