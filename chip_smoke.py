@@ -21,11 +21,15 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      their torch.bmm over 50 calls, on a row-major basis, the layout the
      engine's refresh gives them; kernel 10 over 50 calls, and again at
      the retirement's single slot over 500, beside torch.bmm on the dense
-     (1, p, p) matrix, as banded_matmul_s1); kernel 1 also in its bf16
-     tile mode, with the bf16 cast of x (outside the kernel, as in the
-     reference) timed on its own; kernels 2 and 3's bands checked exactly
-     symmetric and equal over two launches, and kernel 1's band (fp32 and
-     bf16 tiles) equal bit for bit to kernel 3's on the same operands;
+     (1, p, p) matrix, as banded_matmul_s1; kernels 6 and 7 over 50 calls
+     beside their torch.bmm, kernel 7 with a (S, p) liveness row and, as
+     band_round_masked_drop, with a (S, n, p) dropout mask); kernel 1 also
+     in its bf16 tile mode, with the bf16 cast of x (outside the kernel, as
+     in the reference) timed on its own; kernels 2, 3, 6 and 7's bands
+     checked exactly symmetric and equal over two launches, kernel 1's band
+     (fp32 and bf16 tiles) equal bit for bit to kernel 3's on the same
+     operands, and kernel 6's and 7's equal bit for bit to kernel 2's and
+     3's at K = 1, w = 1;
      plus a small engine run on the card against the same run on the CPU;
   4. the main path: StreamingPCAEngine with compression and detection on
      256 slots at one wsn-1m region's width, serving 320 requests of 24
@@ -43,18 +47,21 @@ Phases (each prints its lines; any failure raises and exits non-zero):
   8. the per-round fleet path: batched_stream_run(chunk=None) on 256
      networks x 24 rounds with compression and detection, the last 64
      networks carrying the death wave, the others all-ones masks: every
-     round one masked per-round fold, one supervised-compression and one
-     monitoring launch and 1 + refresh_iters + 2 banded products; plus a
-     small per-round fleet on the card against the same fleet on the CPU;
+     round one masked per-round fold (liveness: no dropout launch), one
+     supervised-compression and one monitoring launch and 1 +
+     refresh_iters + 2 banded products; plus a small per-round fleet on
+     the card against the same fleet on the CPU; a repeat under
+     torch.profiler gives the device time of each of the port's kernels;
   9. the band-only per-round path without masks: one per-round fold and
-     1 + refresh_iters + 2 banded products a round;
+     1 + refresh_iters + 2 banded products a round, profiled as phase 8;
  10. the engine of phase 4 in the bf16 tile mode (precision="bf16") on the
      same requests: one fused_stream_bf16 launch per step, no plain call,
      the worst sink error within eps + 2^-8 max|x| (the flag is decided on
      the bf16-rounded reading, the books read the fp32 one); its rate,
      step time, flagged readings and refreshes beside phase 4's;
- 11. kernels 2, 3, 8, 9 and 10 (at 256 slots and at one) and their
-     torch.bmm again at phase 3's shapes, on inputs drawn anew (a dense
+ 11. kernels 2, 3, 6, 7 (both masks), 8, 9 and 10 (at 256 slots and at
+     one) and their torch.bmm again at phase 3's shapes, on inputs drawn
+     anew (a dense
      product's time does not depend on the values), under torch.profiler:
      each one's device time a call over 50 calls, beside its event time,
      so the wrapper's host time cannot hide in the figure (last, so that no
@@ -103,6 +110,10 @@ KERNELS = {
                    "src/repro/kernels/cov_update.py:53"),
     "band_round_masked": ("src/repro_torch/kernels/csrc/band_fold.cu",
                           "src/repro/kernels/cov_update.py:108"),
+    # kernel 7 with a (S, n, p) dropout mask, counted apart from the
+    # liveness row; the fleet drivers pass liveness masks only
+    "band_round_masked_drop": ("src/repro_torch/kernels/csrc/band_fold.cu",
+                               "src/repro/kernels/cov_update.py:108"),
     "banded_matmul": ("src/repro_torch/kernels/csrc/banded.cu",
                       "src/repro/kernels/banded_matvec.py:85"),
     # kernel 10 at the retirement's single slot (S = 1)
@@ -206,10 +217,11 @@ def device_ms(fn, iters: int) -> tuple[float, str]:
 
 def profile_breakdown(run, top: int = 8) -> None:
     """Where an engine run's device time goes: the kernels and copies with
-    the most device time, and the device's busy share of the run's wall
-    time (the run is a repeat of the measured one, under torch.profiler).
-    Only device events count: an operator's row carries the time of the
-    kernels it launched, which have rows of their own."""
+    the most device time, every kernel of the port's below them, and the
+    device's busy share of the run's wall time (the run is a repeat of the
+    measured one, under torch.profiler).  Only device events count: an
+    operator's row carries the time of the kernels it launched, which have
+    rows of their own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -224,7 +236,8 @@ def profile_breakdown(run, top: int = 8) -> None:
     busy = sum(_dev_time(e) for e in rows) / 1e6
     print(f"   profile: device busy {busy:.3f} s of {wall:.3f} s wall "
           f"({100 * busy / wall:.1f}%, idle {100 - 100 * busy / wall:.1f}%)")
-    for e in rows[:top]:
+    ours = [e for e in rows[top:] if "repro_torch::" in e.key]
+    for e in rows[:top] + ours:
         print(f"     {_dev_time(e) / 1e3:10.1f} ms  {e.count:6d}x  "
               f"{e.key[:90]}")
 
@@ -266,16 +279,17 @@ def band_of(dense: torch.Tensor, h: int) -> torch.Tensor:
     return band
 
 
-def dense_fold(rec: dict, name: str, out, xw, xm, h: int) -> None:
+def dense_fold(rec: dict, name: str, out, xw, xm, h: int,
+               iters: int = 10) -> None:
     """A band fold's library call: one torch.bmm forming the dense
     (S, p, p) product ``sum_r xw[r]^T xm[r]`` of the weighted or masked
     rows (formed outside the timing); its band, extracted outside the
     timing, is held against the kernel's ``out`` at the fold's tolerance,
-    and the bmm's time is ``rec["library_ms"]``."""
+    and the bmm's time over ``iters`` calls is ``rec["library_ms"]``."""
     lib = lambda: torch.bmm(xw.transpose(1, 2), xm)
     compare(f"{name} vs the band of torch.bmm's dense product", out,
             band_of(lib(), h), 1e-4, 1e-3)
-    rec["library_ms"] = time_ms(lib, 10)
+    rec["library_ms"] = time_ms(lib, iters)
     S, R, p = xw.shape
     print(f"   {name}: torch.bmm forming the dense ({S}, {p}, {p}) product "
           f"of {R} rows a slot {rec['library_ms']:.3f} ms")
@@ -425,23 +439,41 @@ def band_entries(p, h):
     return (2 * h + 1) * p - h * (h + 1)
 
 
+def round_operands(dev, g):
+    """One round of n=32 rows a slot, a (S, p) liveness row and a
+    (S, n, p) dropout mask: ``{record name: (x, mask)}`` for kernels 6, 7
+    and 7 with dropout."""
+    x = torch.randn((SLOTS, N, P), device=dev, generator=g)
+    live = (torch.rand((SLOTS, P), device=dev, generator=g) > 0.05).float()
+    drop = (torch.rand((SLOTS, N, P), device=dev, generator=g)
+            > 0.05).float()
+    return {"band_round": (x, None), "band_round_masked": (x, live),
+            "band_round_masked_drop": (x, drop)}
+
+
+def round_rows(x, m):
+    """The rows of a round as its fold multiplies them: ``x`` masked by a
+    (S, p) liveness row or a (S, n, p) dropout mask."""
+    return x if m is None else x * (m[:, None, :] if m.dim() == 2 else m)
+
+
 def round_and_banded_kernels(record, dev, g) -> None:
     """Kernels 6, 7 (the per-round folds: one round of n=32 rows per
     slot, a (S, p) liveness row or a (S, n, p) dropout mask) and 10, 11
     (the banded products on the refresh's band) against their plain
     versions; times beside bounds, and torch.bmm on the dense (p, p)
-    matrix beside the banded products."""
+    matrix beside the banded products.  The round folds' bands must be
+    exactly symmetric, equal over two launches and equal bit for bit to
+    kernel 2's or 3's at K = 1, w = 1; they and their torch.bmm are timed
+    over 50 calls (a ~0.2 ms kernel)."""
     from repro_torch.core.covariance import band_to_dense, band_valid
     from repro_torch.kernels import ops, ref
     from repro_torch.streaming.driver import random_bases
     S = SLOTS
-    x = torch.randn((S, N, P), device=dev, generator=g)
-    live = (torch.rand((S, P), device=dev, generator=g) > 0.05).float()
-    drop = (torch.rand((S, N, P), device=dev, generator=g) > 0.05).float()
     f32 = 4.0
     band_b = S * (2 * H + 1) * P * f32
-    for name, m in (("band_round", None), ("band_round_masked", live),
-                    ("band_round_masked", drop)):
+    ones = torch.ones((S, 1), device=dev)
+    for name, (x, m) in round_operands(dev, g).items():
         run = lambda: ops.cov_band_update_batched(x, H, mask=m)
         plain_fn = lambda: ref.cov_band_update(x, H, m)
         out = run()
@@ -449,21 +481,30 @@ def round_and_banded_kernels(record, dev, g) -> None:
         kind = ("" if m is None else " liveness (S, p)" if m.dim() == 2
                 else " dropout (S, n, p)")
         err = compare(f"{name}{kind}", out, plain_fn(), 1e-4, 1e-3)
-        ms = time_ms(run, 10)
+        sym, again = mirrored(out, H), torch.equal(out, run())
+        chunk = ops.cov_band_update_chunk_batched(
+            x[:, None], ones, H, mask=None if m is None else m[:, None])
+        same = torch.equal(out, chunk)
+        print(f"   {name}{kind}: band exactly symmetric {sym}; a second "
+              f"launch gives equal bits {again}; == the chunk fold's band "
+              f"at K = 1, w = 1 (bit for bit) {same}")
+        check(sym and again and same, f"{name}{kind}: band not mirrored, "
+              f"not repeatable or not the chunk fold's at K = 1")
+        del chunk
+        ms = time_ms(run, 50)
         plain_ms = time_ms(plain_fn, 3, 1)
         nbytes = x.numel() * f32 + band_b + (0 if m is None
                                              else m.numel() * f32)
         b_ms, b_by = bound(fold_flops(S, N, P, H), nbytes)
-        print(f"   {name}{kind} S={S} n={N} p={P} h={H}: kernel {ms:.3f} "
-              f"ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
-              f"{nbytes / 1e9:.3f} GB)")
-        if m is None or m.dim() == 2:
-            record[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                bound_ms=b_ms, bound_by=b_by)
-            xm = x if m is None else x * m[:, None, :]
-            dense_fold(record[name], f"{name}{kind}", out, xm, xm, H)
-            del xm
-    del x, live, drop
+        print(f"   {name}{kind} S={S} n={N} p={P} h={H}: kernel {ms:.4f} "
+              f"ms (50 calls), plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}; {nbytes / 1e9:.3f} GB)")
+        record[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=b_by)
+        xm = round_rows(x, m)
+        dense_fold(record[name], f"{name}{kind}", out, xm, xm, H, iters=50)
+        del xm, out
+    del x, m
     band = torch.randn((S, 2 * H + 1, P), device=dev, generator=g) \
         * band_valid(P, H, device=dev)
     # row-major, as the refresh passes it (QR's column-major basis would
@@ -926,6 +967,7 @@ def main() -> int:
     fin, met, launches = fleet_run(cfg, ROUNDS, live, "per-round fleet")
     check(launches["band_round_masked"] == ROUNDS
           and launches["band_round"] == 0
+          and launches["band_round_masked_drop"] == 0
           and launches["supervised_compress"] == ROUNDS
           and launches["pca_monitor"] == ROUNDS
           and launches["fused_stream"] == launches["band_fold"]
@@ -938,7 +980,8 @@ def main() -> int:
           f"epochs; rho of the last round "
           f"{float(met.rho[:, -1].min()):.4f}..{float(met.rho[:, -1].max()):.4f}")
     check(worst <= EPS, "per-round fleet: the eps guarantee was broken")
-    for name in ("band_round_masked", "banded_matmul", "banded_matvec"):
+    for name in ("band_round_masked", "band_round_masked_drop",
+                 "banded_matmul", "banded_matvec"):
         record[name]["launches"] = launches[name]
     del fin, met
     profile_breakdown(lambda: fleet_run(cfg, ROUNDS, live,
@@ -947,9 +990,12 @@ def main() -> int:
     phase("9 per-round fleet: band only")
     _, _, launches = fleet_run(band_cfg, 16, None, "band-only per-round fleet")
     check(launches["band_round"] == 16 and launches["band_round_masked"] == 0
+          and launches["band_round_masked_drop"] == 0
           and launches["band_fold"] == launches["band_fold_masked"] == 0,
           f"band-only per-round launches {launches}")
     record["band_round"]["launches"] = launches["band_round"]
+    profile_breakdown(lambda: fleet_run(band_cfg, 16, None,
+                                        "profiled band-only per-round fleet"))
     del xs, live
 
     phase("10 engine: fused stages, bf16 tiles")
@@ -977,7 +1023,8 @@ def main() -> int:
                                     "profiled bf16 stages engine"))
     del res
 
-    phase("11 device time of kernels 2, 3, 8, 9 and 10 (torch.profiler)")
+    phase("11 device time of kernels 2, 3, 6, 7, 8, 9 and 10 "
+          "(torch.profiler)")
     xb = torch.randn((SLOTS, K, N, P), device=dev, generator=g)
     wb = torch.rand((SLOTS, K), device=dev, generator=g)
     mb = (torch.rand((SLOTS, K, P), device=dev, generator=g) > 0.05).float()
@@ -997,6 +1044,20 @@ def main() -> int:
               f"{rec['library_ms']:.4f})")
         del xm, xw
     del xb, wb, mb
+    for name, (xr, m) in round_operands(dev, g).items():
+        xm = round_rows(xr, m)
+        rec = record[name]
+        rec["device_ms"], names = device_ms(
+            lambda: ops.cov_band_update_batched(xr, H, mask=m), 50)
+        rec["library_device_ms"], lib_names = device_ms(
+            lambda: torch.bmm(xm.transpose(1, 2), xm), 50)
+        print(f"   {name}: device time a call over 50 calls: kernel "
+              f"{rec['device_ms']:.4f} ms [{names}] (events "
+              f"{rec['ms']:.4f}); torch.bmm forming the dense product "
+              f"{rec['library_device_ms']:.4f} ms [{lib_names}] (events "
+              f"{rec['library_ms']:.4f})")
+        del xm
+    del xr, m
     xc = torch.randn((SLOTS, K * N, P), device=dev, generator=g)
     wr = random_bases(SLOTS, P, Q, seed=5, device=dev).contiguous()
     calls = products_8_9(xc, ref.pca_project(xc, wr), wr)

@@ -15,12 +15,14 @@
 // never a liveness row broadcast to (S, n, p) in device memory, as the
 // reference wrapper does (repro/kernels/ops.py:245).
 //
-// Kernels 2 and 3 are a banded SYRK (band_syrk.cuh): register-tiled 64 x
-// 64 tiles of the upper band, x staged through shared memory by cp.async,
+// All four are one banded SYRK (band_syrk.cuh): register-tiled 64 x 64
+// tiles of the upper band, x staged through shared memory by cp.async,
 // half the band computed and mirrored, in a per-round order of sums that
 // is symmetric in (i, j), so the mirror, kernel 1's fold blocks and, at
 // K = 1 and w = 1, kernels 6 and 7 all give the same bits.  Kernels 6 and
-// 7 keep one thread an output (band_fold.cuh).
+// 7 are the tile at K = 1 with unit weight, in the round's shape
+// (band_syrk.cuh, ROUND: one accumulator set, 16-row stages, a leaner
+// epilogue), on the same grid as kernels 2 and 3.
 //
 // Bound at the slice shape (p=1024, h=128, R=K*n=256 rows), per slot per
 // step: the band is symmetric (band[h-d, i] = band[h+d, i-d]), so the
@@ -35,37 +37,13 @@
 // multiply-add needs 3/32 of a shared load.  A round (R = n = 32 rows)
 // does an eighth of the arithmetic and writes the same band: 0.12 us
 // against 0.35 us, bound by the band's writeback — which is why the chunk
-// kernel exists.
-#include "band_fold.cuh"
+// kernel exists.  On the card a round is held by its instructions instead
+// (the arithmetic and the epilogue's stores, band_syrk.cuh): a band kept
+// in L2 makes it barely faster, so kernels 6 and 7 take the tile's round
+// shape.
 #include "band_syrk.cuh"
 
 namespace repro_torch {
-
-// Kernels 6 and 7: one thread an output (band_fold.cuh), K = 1.
-template <bool HAS_MASK, bool WEIGHTED>
-__global__ void __launch_bounds__(kFoldThreads)
-band_fold_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                 const float* __restrict__ m, int K, int n,
-                 bool per_reading, int p, int h, float* __restrict__ band) {
-  const size_t s = blockIdx.y;
-  const size_t m_rows = per_reading ? (size_t)K * n : (size_t)K;
-  band_fold_block<HAS_MASK, WEIGHTED>(
-      x + s * K * n * p, WEIGHTED ? w + s * K : nullptr,
-      HAS_MASK ? m + s * m_rows * p : nullptr,
-      K, n, per_reading, p, h, blockIdx.x, band + s * (2 * h + 1) * p);
-}
-
-template <bool HAS_MASK, bool WEIGHTED>
-static int launch(const float* x, const float* w, const float* m, int S,
-                  int K, int n, int per_reading, int p, int h, float* band,
-                  void* stream) {
-  const int col_blocks = (p + kFoldThreads - 1) / kFoldThreads;
-  dim3 grid(col_blocks * (2 * h + 1), S);
-  band_fold_kernel<HAS_MASK, WEIGHTED><<<grid, kFoldThreads, 0,
-                                         (cudaStream_t)stream>>>(
-      x, w, m, K, n, per_reading != 0, p, h, band);
-  return (int)cudaGetLastError();
-}
 
 // Kernels 2 and 3: one block a tile of the upper band (band_syrk.cuh),
 // grid (row tiles x column offsets, S).  Four blocks an SM at most 128
@@ -83,20 +61,40 @@ band_syrk_kernel(const float* __restrict__ x, const float* __restrict__ w,
       K, n, p, h, vec, blockIdx.x, band + s * (2 * h + 1) * p, syrk_smem);
 }
 
+// Kernels 6 and 7: the same tile over one round, in the round's shape
+// (ROUND: K = 1, unit weight; the weight and K arguments, which
+// launch_syrk passes to either kernel, are unread).  Five blocks an SM at
+// most 102 registers a thread (the round keeps one accumulator set).
+template <bool HAS_MASK, bool PER_READING>
+__global__ void __launch_bounds__(kSyrkThreads, 5)
+band_round_kernel(const float* __restrict__ x, const float* __restrict__,
+                  const float* __restrict__ m, int, int n, int p, int h,
+                  bool vec, float* __restrict__ band) {
+  extern __shared__ __align__(16) float syrk_smem[];
+  const size_t s = blockIdx.y;
+  const size_t m_rows = PER_READING ? (size_t)n : 1;
+  band_syrk_tile<HAS_MASK, PER_READING, /*ROUND=*/true>(
+      x + s * n * p, nullptr, HAS_MASK ? m + s * m_rows * p : nullptr, 1, n,
+      p, h, vec, blockIdx.x, band + s * (2 * h + 1) * p, syrk_smem);
+}
+
 static bool aligned16(const void* ptr) {
   return (reinterpret_cast<size_t>(ptr) & 15) == 0;
 }
 
-template <bool HAS_MASK, bool PER_READING>
+// Kernels 2 and 3 (a chunk of K rounds, one weight each), or with ROUND
+// kernels 6 and 7 (one round: K = 1, w unread).
+template <bool HAS_MASK, bool PER_READING, bool ROUND>
 static int launch_syrk(const float* x, const float* w, const float* m,
                        int S, int K, int n, int p, int h, float* band,
                        void* stream) {
   constexpr size_t smem =
-      sizeof(float) * syrk_smem_floats<HAS_MASK && PER_READING>();
+      sizeof(float) * syrk_smem_floats<HAS_MASK && PER_READING, ROUND>();
   if (S < 1 || K < 1 || n < 1 || p < 1 || h < 0)
     return (int)cudaErrorInvalidValue;
-  auto kernel = band_syrk_kernel<HAS_MASK, PER_READING>;
-  if (smem > 48 * 1024) {   // the dropout mask's stages: 64 KB
+  auto kernel = ROUND ? band_round_kernel<HAS_MASK, PER_READING>
+                      : band_syrk_kernel<HAS_MASK, PER_READING>;
+  if (smem > 48 * 1024) {   // the chunk's dropout mask stages: 64 KB
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -115,8 +113,8 @@ extern "C" {
 // x (S, K*n, p), w (S, K), band (S, 2h+1, p); all fp32, contiguous.
 int band_fold_f32(const float* x, const float* w, int S, int K, int n,
                   int p, int h, float* band, void* stream) {
-  return repro_torch::launch_syrk<false, false>(x, w, nullptr, S, K, n, p,
-                                                h, band, stream);
+  return repro_torch::launch_syrk<false, false, false>(x, w, nullptr, S, K, n,
+                                                      p, h, band, stream);
 }
 
 // As band_fold_f32 with a 0/1 mask: (S, K, p) per-round liveness, or
@@ -125,18 +123,18 @@ int band_fold_masked_f32(const float* x, const float* w, const float* m,
                          int S, int K, int n, int per_reading, int p, int h,
                          float* band, void* stream) {
   if (per_reading)
-    return repro_torch::launch_syrk<true, true>(x, w, m, S, K, n, p, h, band,
-                                                stream);
-  return repro_torch::launch_syrk<true, false>(x, w, m, S, K, n, p, h, band,
-                                               stream);
+    return repro_torch::launch_syrk<true, true, false>(x, w, m, S, K, n, p, h,
+                                                      band, stream);
+  return repro_torch::launch_syrk<true, false, false>(x, w, m, S, K, n, p, h,
+                                                     band, stream);
 }
 
 // Kernel 6: x (S, n, p) one round per slot, band (S, 2h+1, p);
 // band[s, k, i] = sum_r x[s, r, i] x[s, r, i + k - h].
 int band_round_f32(const float* x, int S, int n, int p, int h, float* band,
                    void* stream) {
-  return repro_torch::launch<false, false>(x, nullptr, nullptr, S, 1, n, 0,
-                                           p, h, band, stream);
+  return repro_torch::launch_syrk<false, false, true>(
+      x, nullptr, nullptr, S, 1, n, p, h, band, stream);
 }
 
 // Kernel 7: as band_round_f32 with a 0/1 mask: (S, p) liveness, or
@@ -144,8 +142,11 @@ int band_round_f32(const float* x, int S, int n, int p, int h, float* band,
 int band_round_masked_f32(const float* x, const float* m, int S, int n,
                           int per_reading, int p, int h, float* band,
                           void* stream) {
-  return repro_torch::launch<true, false>(x, nullptr, m, S, 1, n,
-                                          per_reading, p, h, band, stream);
+  if (per_reading)
+    return repro_torch::launch_syrk<true, true, true>(x, nullptr, m, S, 1, n,
+                                                       p, h, band, stream);
+  return repro_torch::launch_syrk<true, false, true>(x, nullptr, m, S, 1, n,
+                                                      p, h, band, stream);
 }
 
 }  // extern "C"

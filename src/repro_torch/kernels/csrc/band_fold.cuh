@@ -1,7 +1,6 @@
 // Banded, forgetting-weighted outer-product fold, one thread an output:
-// the fold blocks of kernel 1 (fused_stream.cu) and kernels 6 and 7, the
-// per-round fold (band_fold.cu).  Kernels 2 and 3 tile the same sum
-// (band_syrk.cuh).
+// the fold blocks of kernel 1 (fused_stream.cu).  Kernels 2, 3, 6 and 7
+// (band_fold.cu) tile the same sum (band_syrk.cuh).
 //
 //   band[s, k, i] = sum_r w[s, r / n] * (m x)[s, r, i] * (m x)[s, r, i + k - h]
 //
@@ -9,20 +8,15 @@
 // row r = t*n + e is epoch e of round t), fp32 or — kernel 1's bf16 tile
 // mode — bf16, converted to fp32 as it is loaded, so every product and the
 // accumulator stay fp32 whatever the operand type; w holds one weight
-// per ROUND; the optional 0/1 mask has one row per round ((K, p) liveness)
-// or, with per_reading set, one row per row of x ((K, n, p) dropout) — a
-// liveness mask is never broadcast to the chunk's size in device memory.
+// per ROUND; the optional 0/1 mask has one row per round ((K, p) liveness,
+// never broadcast to the chunk's size in device memory).
 //
-// WEIGHTED (kernel 1) sums in the order of band_syrk.cuh, with the same
-// intrinsics: s_t = fma(mx_i, mx_j, s_t) over the round's rows from 0,
-// then acc = fma(w_t, s_t, acc) — symmetric in (i, j), so kernel 1's band
+// The sums follow the order of band_syrk.cuh, with the same intrinsics:
+// s_t = fma(mx_i, mx_j, s_t) over the round's rows from 0, then
+// acc = fma(w_t, s_t, acc) — symmetric in (i, j), so kernel 1's band
 // equals kernels 2 and 3's bit for bit, both halves, in both tile modes
 // (mx = x m: one rounding, which no contraction can remove, as the
 // product feeds a multiplication).
-// With WEIGHTED false (kernels 6 and 7: K = 1, unit weight) w is not read
-// and acc += xi * xj, contracted to fma(xi, xj, acc): kernel 2's s_0, and
-// acc = fma(1, s_0, 0) = s_0, so a round folds to the chunk fold's bits
-// at K = 1.
 //
 // One thread owns one output (k, i), lower half included, and walks the
 // rows in order, round by round (so no integer division in the loop): no
@@ -42,11 +36,11 @@ namespace repro_torch {
 
 constexpr int kFoldThreads = 256;
 
-template <bool HAS_MASK, bool WEIGHTED = true, typename T = float>
+template <bool HAS_MASK, typename T = float>
 __device__ __forceinline__ void band_fold_block(
     const T* __restrict__ x, const float* __restrict__ w,
-    const float* __restrict__ m, int K, int n, bool per_reading, int p,
-    int h, int block, float* __restrict__ band) {
+    const float* __restrict__ m, int K, int n, int p, int h, int block,
+    float* __restrict__ band) {
   const int col_blocks = (p + kFoldThreads - 1) / kFoldThreads;
   const int k = block / col_blocks;
   const int i = (block % col_blocks) * kFoldThreads + threadIdx.x;
@@ -56,7 +50,7 @@ __device__ __forceinline__ void band_fold_block(
   if (j >= 0 && j < p) {
     for (int t = 0; t < K; ++t) {
       float mi = 1.0f, mj = 1.0f;
-      if (HAS_MASK && !per_reading) {
+      if (HAS_MASK) {
         mi = m[(size_t)t * p + i];
         mj = m[(size_t)t * p + j];
       }
@@ -65,20 +59,13 @@ __device__ __forceinline__ void band_fold_block(
         const size_t r = (size_t)t * n + e;
         float xi = to_f32(x[r * p + i]);
         float xj = to_f32(x[r * p + j]);
-        if (HAS_MASK && per_reading) {
-          mi = m[r * p + i];
-          mj = m[r * p + j];
-        }
         if (HAS_MASK) {
           xi *= mi;
           xj *= mj;
         }
-        if constexpr (WEIGHTED)
-          s = __fmaf_rn(xi, xj, s);
-        else
-          acc += xi * xj;
+        s = __fmaf_rn(xi, xj, s);
       }
-      if constexpr (WEIGHTED) acc = __fmaf_rn(w[t], s, acc);
+      acc = __fmaf_rn(w[t], s, acc);
     }
   }
   band[(size_t)k * p + i] = acc;

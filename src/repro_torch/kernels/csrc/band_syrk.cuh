@@ -1,4 +1,5 @@
-// The banded, forgetting-weighted SYRK of kernels 2 and 3 (band_fold.cu):
+// The banded, forgetting-weighted SYRK of kernels 2 and 3 (a chunk) and 6
+// and 7 (one round) (band_fold.cu):
 //
 //   band[k, i] = sum_t w[t] sum_e (m x)[t n + e, i] (m x)[t n + e, i + k - h]
 //
@@ -16,11 +17,12 @@
 // band[h + d, i] carries the bits a direct computation of it gives, and
 // kernel 1's fold blocks (band_fold.cuh, one thread an output, both halves)
 // give the same bits.  At K = 1 and w = 1, acc = fma(1, s_0, 0) = s_0:
-// the chain of kernels 6 and 7, which sum one round (WEIGHTED false reads
-// no weight: w_t = 1).  A 0/1 liveness mask enters at the round's end,
-// acc = fma((w_t m_ti) m_tj, s_t, acc) over the unmasked s_t: a live pair
-// gives the masked chain's bits (x 1 = x), a dead one adds exactly 0, as
-// the masked chain's s_t = +0 does.
+// the chain of kernels 6 and 7, which sum one round (ROUND: K = 1, no
+// weight read, w_t = 1, and s_0 is scaled in place, s_0 = fma(f, s_0, 0),
+// the bits of acc = fma(f, s_0, acc) from acc = 0).  A 0/1 liveness mask
+// enters at the round's end, acc = fma((w_t m_ti) m_tj, s_t, acc) over the
+// unmasked s_t: a live pair gives the masked chain's bits (x 1 = x), a
+// dead one adds exactly 0, as the masked chain's s_t = +0 does.
 //
 // Design.  The p x p matrix is cut into T x T tiles (I, J), J >= I, and a
 // block computes one tile that meets the band 0 <= j - i <= h: at p = 1024,
@@ -47,10 +49,22 @@
 // zeros of their rows, so every entry of the band is written once (no
 // memset).  No atomics, no split of a slot's rows across blocks: two
 // launches give equal bits.
+//
+// A round (ROUND) is bound by its launch's instructions, not by the band's
+// writeback: at n = 32 rows a block does 32 rows of fused multiply-adds
+// and then writes up to 8,192 entries, so the epilogue weighs as much as
+// the arithmetic.  Its shape: one accumulator set (the round's s, which
+// frees 32 registers: five blocks an SM instead of four), stages of
+// kRoundRows rows (two in flight over a 32-row round, so the second half's
+// copy overlaps the first half's arithmetic), and an epilogue whose loop
+// keeps per thread the row ii, the range of jj inside the band and the
+// two base offsets, so an entry costs one range test, a shared load and
+// its stores.  It writes the same entries in the same order as the chunk's.
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include <cstddef>
 #include <type_traits>
 
 #include "cp_async.cuh"
@@ -62,6 +76,8 @@ constexpr int kSyrkRM = 8;          // rows a thread
 constexpr int kSyrkCM = 4;          // columns a thread
 constexpr int kSyrkRows = 32;       // rows of x a stage
 constexpr int kSyrkStages = 2;      // stages in flight
+constexpr int kRoundRows = 16;      // the same for a round (ROUND)
+constexpr int kRoundStages = 2;
 // a warp's 4 x 8 lanes cover (4 RM) x (8 CM) of the tile: 32 x 32, a quarter
 constexpr int kSyrkWR = 4 * kSyrkRM, kSyrkWC = 8 * kSyrkCM;
 constexpr int kSyrkThreads = 32 * (kSyrkT / kSyrkWR) * (kSyrkT / kSyrkWC);
@@ -75,13 +91,15 @@ __host__ __device__ inline int syrk_offsets(int p, int h) {
 }
 
 // Shared memory of a block: kSyrkStages stages of x at I and J (and, for a
-// dropout mask, the mask at I and J), each (kSyrkRows, kSyrkT); the (T, T)
-// output tile reuses them.
-template <bool STAGED_MASK>
+// dropout mask, the mask at I and J), each (kSyrkRows, kSyrkT), or for a
+// round kRoundStages of kRoundRows; the (T, T) output tile reuses them.
+template <bool STAGED_MASK, bool ROUND = false>
 constexpr int syrk_smem_floats() {
-  return kSyrkStages * (STAGED_MASK ? 4 : 2) * kSyrkRows * kSyrkT;
+  return (ROUND ? kRoundStages * kRoundRows : kSyrkStages * kSyrkRows) *
+         (STAGED_MASK ? 4 : 2) * kSyrkT;
 }
-static_assert(syrk_smem_floats<false>() >= kSyrkT * kSyrkT,
+static_assert(syrk_smem_floats<false>() >= kSyrkT * kSyrkT &&
+                  syrk_smem_floats<false, true>() >= kSyrkT * kSyrkT,
               "the output tile reuses the stages");
 static_assert(kSyrkT % kSyrkWR == 0 && kSyrkT % kSyrkWC == 0 &&
               kSyrkRM % 4 == 0 && kSyrkCM % 4 == 0 &&
@@ -89,13 +107,13 @@ static_assert(kSyrkT % kSyrkWR == 0 && kSyrkT % kSyrkWC == 0 &&
               "warps of 4 x 8 lanes tile the tile; float4 operands");
 
 // One tile (blockIdx-free: ``tile`` = I * syrk_offsets(p, h) + (J - I)) of
-// one slot: x (R, p), w (K) (unread unless WEIGHTED), m (K, p), or (R, p)
-// with PER_READING, or null, band (2h+1, p).  vec: x and m may be copied
-// 16 bytes at a time (p % 4 == 0, both aligned).  smem:
-// syrk_smem_floats<HAS_MASK && PER_READING>() floats, 16-byte aligned.
-// The operand type T is fp32 (a bf16 x would be widened as it is staged,
-// which the copies here do not do).
-template <bool HAS_MASK, bool PER_READING, bool WEIGHTED = true,
+// one slot: x (R, p), w (K) (unread with ROUND, which takes K = 1), m
+// (K, p), or (R, p) with PER_READING, or null, band (2h+1, p).  vec: x and
+// m may be copied 16 bytes at a time (p % 4 == 0, both aligned).  smem:
+// syrk_smem_floats<HAS_MASK && PER_READING, ROUND>() floats, 16-byte
+// aligned.  The operand type T is fp32 (a bf16 x would be widened as it is
+// staged, which the copies here do not do).
+template <bool HAS_MASK, bool PER_READING, bool ROUND = false,
           typename T = float>
 __device__ __forceinline__ void band_syrk_tile(
     const T* __restrict__ x, const float* __restrict__ w,
@@ -105,8 +123,10 @@ __device__ __forceinline__ void band_syrk_tile(
                 "the staging copies fp32 rows");
   constexpr bool STAGED = HAS_MASK && PER_READING;   // mask rows staged
   constexpr bool ROUND_MASK = HAS_MASK && !PER_READING;
-  constexpr int TT = kSyrkT, NT = kSyrkThreads, RB = kSyrkRows;
-  constexpr int ST = kSyrkStages, RM = kSyrkRM, CM = kSyrkCM;
+  constexpr int TT = kSyrkT, NT = kSyrkThreads;
+  constexpr int RB = ROUND ? kRoundRows : kSyrkRows;
+  constexpr int ST = ROUND ? kRoundStages : kSyrkStages;
+  constexpr int RM = kSyrkRM, CM = kSyrkCM;
   constexpr int WR = kSyrkWR, WC = kSyrkWC, WGC = TT / WC;
   constexpr int BUF = RB * TT;                  // one operand of a stage
   constexpr int STAGE = (STAGED ? 4 : 2) * BUF;
@@ -196,7 +216,7 @@ __device__ __forceinline__ void band_syrk_tile(
 #pragma unroll
     for (int b = 0; b < CM; ++b) s[a][b] = acc[a][b] = 0.0f;
   int t = 0, round_end = n;   // the round of the next row, its last row + 1
-  float wt = WEIGHTED ? __ldg(w) : 1.0f;
+  float wt = ROUND ? 1.0f : __ldg(w);
   // round t's liveness at the thread's rows and columns (1 without a mask),
   // loaded ahead of the round's last rows where the stage allows
   float mi[RM], mj[CM];
@@ -217,7 +237,8 @@ __device__ __forceinline__ void band_syrk_tile(
   };
   // end of round t: acc = fma(w_t, s_t, acc), or with a liveness mask
   // acc = fma((w_t m_ti) m_tj, s_t, acc); the next round's weight is
-  // loaded here, ahead of its rows
+  // loaded here, ahead of its rows.  A ROUND ends once, from acc = 0: s
+  // takes acc's value in place, and acc is never used
   auto flush = [&]() {
 #pragma unroll
     for (int a = 0; a < RM; ++a) {
@@ -225,12 +246,16 @@ __device__ __forceinline__ void band_syrk_tile(
 #pragma unroll
       for (int b = 0; b < CM; ++b) {
         const float f = ROUND_MASK ? __fmul_rn(wa, mj[b]) : wa;
-        acc[a][b] = __fmaf_rn(f, s[a][b], acc[a][b]);
-        s[a][b] = 0.0f;
+        if constexpr (ROUND) {
+          s[a][b] = __fmaf_rn(f, s[a][b], 0.0f);
+        } else {
+          acc[a][b] = __fmaf_rn(f, s[a][b], acc[a][b]);
+          s[a][b] = 0.0f;
+        }
       }
     }
     ++t;
-    if constexpr (WEIGHTED) wt = t < K ? __ldg(w + t) : 0.0f;
+    if constexpr (!ROUND) wt = t < K ? __ldg(w + t) : 0.0f;
     round_end += n;
   };
   // one row: the thread's RM values at I and CM at J (float4 loads),
@@ -291,23 +316,45 @@ __device__ __forceinline__ void band_syrk_tile(
   cp_async_wait<0>();
   __syncthreads();     // every stage consumed: the ring is free
   float* cs = smem;    // (T, T)
+  float(&out)[RM][CM] = ROUND ? s : acc;
   if (active) {
 #pragma unroll
     for (int a = 0; a < RM; ++a)
 #pragma unroll
       for (int b = 0; b < CM; b += 4)
         *reinterpret_cast<float4*>(cs + (ri + a) * TT + cj + b) =
-            make_float4(acc[a][b], acc[a][b + 1], acc[a][b + 2],
-                        acc[a][b + 3]);
+            make_float4(out[a][b], out[a][b + 1], out[a][b + 2],
+                        out[a][b + 3]);
   }
   __syncthreads();
-  for (int f = tid; f < TT * TT; f += NT) {
-    const int ii = f % TT, jj = (ii + f / TT) % TT;
-    const int i = i0 + ii, j = j0 + jj, d = j - i;
-    if (d < 0 || d > h || j >= p) continue;
-    const float v = cs[ii * TT + jj];
-    band[(size_t)(h + d) * p + i] = v;
-    if (d > 0) band[(size_t)(h - d) * p + j] = v;
+  if constexpr (ROUND) {
+    // thread: row ii, entries jj = (ii + tid / T + k NT / T) mod T, the
+    // pair in the band iff lo <= jj <= hi; d = base + jj - ii, so
+    // band[h + d, i] and band[h - d, j] lie at od + jj p and om + jj (1 - p)
+    const int ii = tid % TT, base = j0 - i0;
+    const int lo = max(0, ii - base);
+    const int hi = min(min(TT - 1, ii - base + h), p - 1 - j0);
+    const float* crow = cs + ii * TT;
+    const ptrdiff_t od = (ptrdiff_t)(h + base - ii) * p + i0 + ii;
+    const ptrdiff_t om = (ptrdiff_t)(h - base + ii) * p + j0;
+    const int first = ii + tid / TT;
+#pragma unroll
+    for (int k = 0; k < TT * TT / NT; ++k) {
+      const int jj = (first + k * (NT / TT)) & (TT - 1);
+      if (jj < lo || jj > hi) continue;
+      const float v = crow[jj];
+      band[od + (ptrdiff_t)jj * p] = v;
+      if (jj + base > ii) band[om + (ptrdiff_t)jj * (1 - p)] = v;
+    }
+  } else {
+    for (int f = tid; f < TT * TT; f += NT) {
+      const int ii = f % TT, jj = (ii + f / TT) % TT;
+      const int i = i0 + ii, j = j0 + jj, d = j - i;
+      if (d < 0 || d > h || j >= p) continue;
+      const float v = cs[ii * TT + jj];
+      band[(size_t)(h + d) * p + i] = v;
+      if (d > 0) band[(size_t)(h - d) * p + j] = v;
+    }
   }
   // the zeros of the tile's rows: band[h - d, i] for i < d, band[h + d, i]
   // for i + d >= p (1 <= d <= h)

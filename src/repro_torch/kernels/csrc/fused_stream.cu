@@ -5,7 +5,8 @@
 // every slot of the fleet (grid y) and has two parts along grid x:
 //
 //  * blocks [0, band_blocks): the masked, forgetting-weighted band fold,
-//    the same device function as kernels 2 and 3 (band_fold.cuh);
+//    one thread an output (band_fold.cuh), in the order of sums of
+//    kernels 2 and 3 (band_syrk.cuh);
 //  * blocks [band_blocks, band_blocks + ceil(R / kRows)): the stages for
 //    kRows rows each, at the EXACT sensor count p —
 //      z   = ((x - mean) m) W                      (R, q)
@@ -74,8 +75,8 @@ fused_stream_kernel(const T* __restrict__ x, const float* __restrict__ w,
   x += s * R * p;
   if (HAS_MASK) m += s * K * (size_t)p;
   if (blockIdx.x < band_blocks) {
-    band_fold_block<HAS_MASK>(x, w + s * K, m, K, n, false, p, h,
-                              blockIdx.x, band + s * (2 * h + 1) * p);
+    band_fold_block<HAS_MASK>(x, w + s * K, m, K, n, p, h, blockIdx.x,
+                              band + s * (2 * h + 1) * p);
     return;
   }
   extern __shared__ float smem[];

@@ -31,7 +31,7 @@ __all__ = ["LAUNCHES", "PLAIN_CALLS", "reset_counts",
 
 _KERNELS = ("fused_stream", "fused_stream_bf16", "band_fold",
             "band_fold_masked", "band_round", "band_round_masked",
-            "supervised_compress", "pca_monitor", "pca_project",
+            "band_round_masked_drop", "supervised_compress", "pca_monitor", "pca_project",
             "pca_reconstruct", "banded_matmul", "banded_matvec")
 LAUNCHES = dict.fromkeys(_KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(_KERNELS, 0)
@@ -110,12 +110,17 @@ def cov_band_update_batched(x: torch.Tensor, halfwidth: int, *,
     or None.  Returns the (B, 2h+1, p) fp32 bands
     ``delta[b, k, i] = sum_r (m x)[b,r,i] (m x)[b,r,i+k-h]``: the chunk
     fold at K = 1 with unit weight.  Kernels 6 and 7
-    (``csrc/band_fold.cu``)."""
+    (``csrc/band_fold.cu``: the tile of ``csrc/band_syrk.cuh`` in its round
+    shape, half the band summed and mirrored, so the band is exactly
+    symmetric and carries the chunk fold's bits at K = 1).  Kernel 7 counts
+    under ``band_round_masked`` with a liveness row and under
+    ``band_round_masked_drop`` with a dropout mask."""
     if x.dim() != 3:
         raise ValueError(f"expected (networks, n, p), got {tuple(x.shape)}")
     B, n, p = x.shape
     h = int(halfwidth)
-    kernel = "band_round" if mask is None else "band_round_masked"
+    kernel = ("band_round" if mask is None else "band_round_masked"
+              if mask.dim() == 2 else "band_round_masked_drop")
     if mask is not None and mask.shape not in ((B, p), (B, n, p)):
         raise ValueError(f"mask shape {tuple(mask.shape)} is neither "
                          f"{(B, p)} nor {(B, n, p)}")

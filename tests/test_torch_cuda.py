@@ -12,9 +12,9 @@ which it widens to fp32 as it loads them.  Flags are compared exactly
 wherever the error is more than 1e-4 from ε.  The banded products
 (kernels 10, 11) sum the diagonals in the plain version's order with the
 plain version's roundings, so they are held to equal bits.  The chunk
-folds (kernels 2, 3) are held to ``TOL`` against the plain version on the
-card up to 32 rows (1e-4 beyond: up to 256 products a pair, summed per
-round in a chain, then weighted), and
+folds (kernels 2, 3, 6, 7) are held to ``TOL`` against the plain version
+up to 32 rows (1e-4 beyond: up to 256 products a pair, summed per round
+in a chain, then weighted), and
 to equal bits where their order of sums promises them: the mirrored half,
 a second launch, kernel 1's band and, at K = 1, kernels 6 and 7.
 """
@@ -458,28 +458,45 @@ class TestCudaRoundAndBandedKernels:
         if not torch.cuda.is_available():
             pytest.skip("needs a CUDA card: the kernels have no CPU mode")
 
-    @pytest.mark.parametrize("p,h", [(37, 3), (1024, 128)])
     @pytest.mark.parametrize("mask_kind", [None, "live", "drop"])
-    def test_round_fold_matches_plain(self, p, h, mask_kind):
-        S, n = 3, 13
-        g = torch.Generator().manual_seed(p + n)
+    @pytest.mark.parametrize("S", [1, 3])
+    @pytest.mark.parametrize("h", [0, 3, 128, "p+7"])
+    @pytest.mark.parametrize("p", [37, 64, 65, 1021, 1024])
+    @pytest.mark.parametrize("n", [13, 32, 33, 70])
+    def test_round_fold_matches_plain(self, n, p, h, S, mask_kind):
+        """Kernels 6 and 7 (the tile of ``csrc/band_syrk.cuh`` in its round
+        shape, 16-row stages) at the tile's edges: one stage, exactly two,
+        and rounds that straddle stages (n = 13, 32, 33, 70); odd p (4-byte
+        copies), p below, at and across the 64-column tile; h from 0 past
+        both ends of the band; one slot and three.  Against the plain
+        version on the CPU (``TOL`` up to 32 rows, 1e-4 beyond, as the
+        chunk folds), with an exactly symmetric band, equal bits on a
+        second launch, and kernel 2's or 3's bits at K = 1, w = 1."""
+        h = _halfwidth(h, p)
+        g = torch.Generator().manual_seed(p * 131 + h * 7 + n * 3 + S)
         x = torch.randn((S, n, p), generator=g)
         m = {None: None,
              "live": (torch.rand((S, p), generator=g) > 0.2).float(),
              "drop": (torch.rand((S, n, p), generator=g) > 0.2).float(),
              }[mask_kind]
         cpu = ops.cov_band_update_batched(x, h, mask=m)
+        xc, mc = x.cuda(), None if m is None else m.cuda()
         ops.reset_counts()
-        gpu = ops.cov_band_update_batched(
-            x.cuda(), h, mask=None if m is None else m.cuda())
+        gpu = ops.cov_band_update_batched(xc, h, mask=mc)
+        again = ops.cov_band_update_batched(xc, h, mask=mc)
         torch.cuda.synchronize()
-        kernel = "band_round" if m is None else "band_round_masked"
-        assert ops.LAUNCHES[kernel] == 1 and sum(ops.PLAIN_CALLS.values()) == 0
-        torch.testing.assert_close(gpu.cpu(), cpu, **TOL)
+        kernel = {None: "band_round", "live": "band_round_masked",
+                  "drop": "band_round_masked_drop"}[mask_kind]
+        assert ops.LAUNCHES[kernel] == 2 and sum(ops.LAUNCHES.values()) == 2
+        assert sum(ops.PLAIN_CALLS.values()) == 0
+        assert torch.equal(gpu, again)
+        _assert_mirrored(gpu, h)
+        tol = TOL if n <= 32 else dict(rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(gpu.cpu(), cpu, **tol)
         # kernel 6/7 is kernel 2/3 at K = 1 with unit weight: same bits
         chunk = ops.cov_band_update_chunk_batched(
-            x.cuda()[:, None], torch.ones((S, 1), device="cuda"), h,
-            mask=None if m is None else m.cuda()[:, None])
+            xc[:, None], torch.ones((S, 1), device="cuda"), h,
+            mask=None if mc is None else mc[:, None])
         assert torch.equal(gpu, chunk)
 
     @pytest.mark.parametrize("layout", ["contiguous", "transposed"])

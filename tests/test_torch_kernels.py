@@ -410,7 +410,8 @@ class TestBandRoundPlainVsReference:
         ops.reset_counts()
         o = ops.cov_band_update(T(x), h,
                                 mask=None if mask is None else T(mask))
-        kernel = "band_round" if mask is None else "band_round_masked"
+        kernel = {None: "band_round", "live": "band_round_masked",
+                  "drop": "band_round_masked_drop"}[mask_kind]
         assert ops.PLAIN_CALLS[kernel] == 1
         _close(o, r)
 

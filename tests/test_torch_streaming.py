@@ -540,7 +540,7 @@ def test_online_update_matches_reference(ref_rounds, kind):
         st = online_update(st, x[r], 0.9, None if mk is None else mk[r])
         assert _plain_calls() == {
             "none": {"band_round": 1}, "live": {"band_round_masked": 1},
-            "drop": {"band_round_masked": 1, "band_round": 1}}[kind]
+            "drop": {"band_round_masked_drop": 1, "band_round": 1}}[kind]
         for f, v in zip(st._fields, st):
             _close(v, ref[f"online/{kind}/r{r}.{f}"])
 
