@@ -7,7 +7,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from src/repro_torch/kernels/csrc (one nvcc per
      source, in parallel, into build/repro_torch/), with each kernel
-     function's registers and spills;
+     function's registers and spills, and the spills of kernel 1's two
+     device functions (its fold and stage blocks, not inlined);
   3. each kernel against its plain PyTorch version on the card, at the
      engine's widths (256 slots, p=1024, h=128, q=32, K*n=8*32 rows, masks
      per round; the per-round folds at n=32 rows, the banded products on
@@ -29,7 +30,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      checked exactly symmetric and equal over two launches, kernel 1's band
      (fp32 and bf16 tiles) equal bit for bit to kernel 3's on the same
      operands, and kernel 6's and 7's equal bit for bit to kernel 2's and
-     3's at K = 1, w = 1;
+     3's at K = 1, w = 1; kernel 1's other outputs (both tile modes) bit
+     for bit against the kernels whose order of sums they keep: z kernel
+     8's on the centred, masked rows, x_hat kernel 9's plus the mean, T2
+     and SPE kernel 5's, the flags kernel 4's; and a second launch of
+     kernel 1 equal bit for bit;
      plus a small engine run on the card against the same run on the CPU;
   4. the main path: StreamingPCAEngine with compression and detection on
      256 slots at one wsn-1m region's width, serving 320 requests of 24
@@ -59,9 +64,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      the worst sink error within eps + 2^-8 max|x| (the flag is decided on
      the bf16-rounded reading, the books read the fp32 one); its rate,
      step time, flagged readings and refreshes beside phase 4's;
- 11. kernels 2, 3, 6, 7 (both masks), 8, 9 and 10 (at 256 slots and at
-     one) and their torch.bmm again at phase 3's shapes, on inputs drawn
-     anew (a dense
+ 11. kernels 1 (fp32 and bf16 tiles), 2, 3, 6, 7 (both masks), 8, 9 and
+     10 (at 256 slots and at one) and the folds' and products' torch.bmm
+     again at phase 3's shapes, on inputs drawn anew (a dense
      product's time does not depend on the values), under torch.profiler:
      each one's device time a call over 50 calls, beside its event time,
      so the wrapper's host time cannot hide in the figure (last, so that no
@@ -244,14 +249,22 @@ def profile_breakdown(run, top: int = 8) -> None:
 
 def ptxas_summary(log: str) -> list[str]:
     """One line a kernel function of an ``nvcc -Xptxas -v`` log: its
-    (mangled) name, registers and spills."""
-    out, name, spill = [], "?", ""
+    (mangled) name, registers and spills; and one line a device function
+    that is not inlined (kernel 1's two kinds of block): its stack frame
+    and spills."""
+    out, name, spill, callee = [], "?", "", None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
+        f = re.search(r"Function properties for (\S+)", line)
         if m:
-            name, spill = m[1], ""
+            name, spill, callee = m[1], "", None
+        elif f:
+            callee = None if f[1] == name else f[1]
         elif "spill" in line:
-            spill = line.strip()
+            if callee is not None:
+                out.append(f"{callee} (device function): {line.strip()}")
+            else:
+                spill = line.strip()
         elif "Used" in line and "registers" in line:
             regs = re.search(r"Used (\d+) registers", line)
             out.append(f"{name}: {regs[1] if regs else '?'} registers; "
@@ -315,11 +328,8 @@ def fused_bf16(record, x, w, basis, mean, il, masks, eps) -> None:
     errs = [compare(f"fused_bf16 {name}", out[i], plain[i], 1e-4, 1e-3)
             for i, name in ((0, "band"), (1, "z"), (2, "x_hat"), (4, "t2"),
                             (5, "spe"))]
-    same = torch.equal(out[0], ops.cov_band_update_chunk_batched(
-        xb.float(), w, H, mask=masks))
-    print(f"   fused_bf16 band == band_fold_masked's band on the bf16-rounded "
-          f"x (bit for bit): {same}")
-    check(same, "kernel 1's bf16 band differs from kernel 3's")
+    fused_yardsticks("fused_bf16", out, xb.float(), w, bb.float(), mean, il,
+                     masks, eps)
     xv = xb.float().reshape(S, R, p)
     clear = ((xv - plain[2]).abs() - eps).abs() > 1e-3
     bad = int(((out[3] != plain[3]) & clear).sum())
@@ -348,6 +358,42 @@ def fused_bf16(record, x, w, basis, mean, il, masks, eps) -> None:
         bound_by=b_by, library_ms=None, cast_ms=cast_ms,
         cast_bound_ms=cast_bound)
     del xb, bb
+
+
+def fused_yardsticks(label, out, x, w, basis, mean, il, masks, eps) -> None:
+    """Kernel 1's outputs ``out`` (all stages) bit for bit against the
+    kernels whose order of sums each keeps, on the same (widened) operands:
+    the band kernel 3's, z kernel 8's on the centred, masked rows formed in
+    torch, x_hat kernel 9's on that z plus the mean, and T2, SPE and the
+    flags kernels 5's and 4's (the stage arithmetic kernel 1 had before its
+    stage tile)."""
+    from repro_torch.kernels import ops
+    S, Kc, Nc, p = x.shape
+    R = Kc * Nc
+    wr = basis.contiguous()
+    xv = x.reshape(S, R, p)
+    xc = ((xv - mean[:, None, :]) * masks.repeat_interleave(Nc, dim=1))
+    z8 = ops.pca_project(xc, wr)
+    del xc
+    xh9 = ops.pca_reconstruct(z8, wr) + mean[:, None, :]
+    _, _, fl4 = ops.supervised_compress(xv, wr, mean, epsilon=eps,
+                                        mask=masks, n=Nc)
+    _, t25, spe5 = ops.pca_monitor(xv, wr, mean, il, mask=masks, n=Nc)
+    same = {
+        "band == band_fold_masked's (kernel 3)": torch.equal(
+            out[0], ops.cov_band_update_chunk_batched(x, w, H, mask=masks)),
+        "z == pca_project's (kernel 8) on (x - mean) m": torch.equal(
+            out[1], z8),
+        "x_hat == pca_reconstruct's (kernel 9) + mean": torch.equal(
+            out[2], xh9),
+        "flags == supervised_compress's (kernel 4)": torch.equal(out[3], fl4),
+        "t2 == pca_monitor's (kernel 5)": torch.equal(out[4], t25),
+        "spe == pca_monitor's (kernel 5)": torch.equal(out[5], spe5),
+    }
+    for what, ok in same.items():
+        print(f"   {label} {what} (bit for bit): {ok}")
+        check(ok, f"{label}: {what} does not hold")
+    del z8, xh9, fl4, t25, spe5
 
 
 def products_8_9(xc, z8, wr) -> dict:
@@ -679,12 +725,13 @@ def main() -> int:
               f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
               f"({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e9:.3f} GB)")
         if stages == "cm":
-            band3 = ops.cov_band_update_chunk_batched(x, w, H, mask=masks)
-            same = torch.equal(out[0], band3)
-            print(f"   fused[cm] band == band_fold_masked's band on the same "
-                  f"x, w, masks (bit for bit): {same}")
-            check(same, "kernel 1's band differs from kernel 3's")
-            del band3
+            fused_yardsticks("fused[cm]", out, x, w, basis, mean, il, masks,
+                             eps)
+            again = run()
+            same = all(torch.equal(a, b) for a, b in zip(out, again))
+            print(f"   fused[cm]: a second launch gives equal bits {same}")
+            check(same, "kernel 1 is not repeatable")
+            del again
             record["fused_stream"] = dict(max_abs_err=max(errs), ms=ms,
                                           plain_ms=plain_ms, bound_ms=b_ms,
                                           bound_by=b_by)
@@ -841,7 +888,7 @@ def main() -> int:
     check(worst <= EPS, "the eps guarantee was broken")
     check(flagged > 0, "no reading flagged")
     record["fused_stream"]["launches"] = launches["fused_stream"]
-    fp32_books = (flagged, sum(r.refreshes for r in res))
+    fp32_books = (flagged, sum(r.refreshes for r in res), alarms)
     profile_breakdown(lambda: serve(cfg, ROUNDS, "profiled stages engine"))
 
     phase("5 engine: band only")
@@ -1008,10 +1055,12 @@ def main() -> int:
     worst = max(r.compression_max_err for r in res)
     flagged = sum(r.compression_extra_packets for r in res)
     refreshes = sum(r.refreshes for r in res)
+    alarms = sum(r.detection_events for r in res)
     print(f"   worst sink error {worst:.4f} <= eps {EPS} + 2^-8 max|x| "
           f"{slack:.4f}; {flagged:.0f} flagged readings (fp32, phase 4: "
           f"{fp32_books[0]:.0f}); refreshes {refreshes} (fp32: "
-          f"{fp32_books[1]})")
+          f"{fp32_books[1]}); {alarms:.0f} alarmed epochs (fp32: "
+          f"{fp32_books[2]:.0f})")
     check(worst <= EPS + slack, "bf16: the eps + bf16 rounding bound broke")
     check(flagged > 0, "bf16: no reading flagged")
     (r32, s32), (r16, s16) = (rates["stages engine"],
@@ -1023,11 +1072,28 @@ def main() -> int:
                                     "profiled bf16 stages engine"))
     del res
 
-    phase("11 device time of kernels 2, 3, 6, 7, 8, 9 and 10 "
+    phase("11 device time of kernels 1 (fp32, bf16), 2, 3, 6, 7, 8, 9 and 10 "
           "(torch.profiler)")
     xb = torch.randn((SLOTS, K, N, P), device=dev, generator=g)
     wb = torch.rand((SLOTS, K), device=dev, generator=g)
     mb = (torch.rand((SLOTS, K, P), device=dev, generator=g) > 0.05).float()
+    basis = random_bases(SLOTS, P, Q, seed=7, device=dev).contiguous()
+    mean = 0.1 * torch.randn((SLOTS, P), device=dev, generator=g)
+    il = torch.rand((SLOTS, Q), device=dev, generator=g) + 0.5
+    for name, prec in (("fused_stream", "fp32"), ("fused_stream_bf16",
+                                                  "bf16")):
+        xt, bt = ops.fused_tiles(xb, prec), ops.fused_tiles(basis, prec)
+        rec = record[name]
+        rec["device_ms"], names = device_ms(
+            lambda: ops.fused_stream_update(
+                xt, wb, bt, mean, il, halfwidth=H, epsilon=2.5,
+                with_compress=True, with_monitor=True, mask=mb,
+                precision=prec), 50)
+        print(f"   {name}: device time a call over 50 calls: kernel "
+              f"{rec['device_ms']:.4f} ms [{names}] (events "
+              f"{rec['ms']:.4f}); bound {rec['bound_ms']:.4f} ms")
+        del xt, bt
+    del basis, mean, il
     for name, m in (("band_fold", None), ("band_fold_masked", mb)):
         xm = xb if m is None else xb * m[:, :, None, :]
         xw = (xm * wb[:, :, None, None]).reshape(SLOTS, K * N, P)

@@ -31,10 +31,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # kernel 1's two entry points (fp32, bf16 tile mode) take the same arguments
-_FUSED = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P,
-          _P, _P, _P, _P, _P, _P]
+_FUSED = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P,
+          _P, _P, _P, _P, _P]
 # every C entry point returns cudaGetLastError() after its launch, but
-# pca_reconstruct_max_q(device), which returns kernel 9's largest q
+# pca_reconstruct_max_q(device) and fused_stream_max_q(device, bf16), which
+# return kernel 9's and kernel 1's largest q
 SOURCES: dict[str, dict[str, list]] = {
     "band_fold": {
         "band_fold_f32": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
@@ -49,7 +50,8 @@ SOURCES: dict[str, dict[str, list]] = {
         "banded_matmul_tile_f32": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
         "banded_matvec_f32": [_P, _P, _I, _I, _I, _P, _P],
     },
-    "fused_stream": {"fused_stream_f32": _FUSED, "fused_stream_bf16": _FUSED},
+    "fused_stream": {"fused_stream_f32": _FUSED, "fused_stream_bf16": _FUSED,
+                     "fused_stream_max_q": [_I, _I]},
     "pca_project": {
         "supervised_compress_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                     _F, _P, _P, _P, _P],

@@ -14,9 +14,9 @@
 // with explicit __fmaf_rn / __fmul_rn, so no contraction can differ between
 // files.  A product inside an fma commutes exactly, so the order is
 // symmetric in (i, j): the mirrored entry band[h - d, i + d] :=
-// band[h + d, i] carries the bits a direct computation of it gives, and
-// kernel 1's fold blocks (band_fold.cuh, one thread an output, both halves)
-// give the same bits.  At K = 1 and w = 1, acc = fma(1, s_0, 0) = s_0:
+// band[h + d, i] carries the bits a direct computation of it gives.
+// Kernel 1's fold blocks (fused_stream.cu) are this tile too, in both of its
+// tile modes.  At K = 1 and w = 1, acc = fma(1, s_0, 0) = s_0:
 // the chain of kernels 6 and 7, which sum one round (ROUND: K = 1, no
 // weight read, w_t = 1, and s_0 is scaled in place, s_0 = fma(f, s_0, 0),
 // the bits of acc = fma(f, s_0, acc) from acc = 0).  A 0/1 liveness mask
@@ -50,6 +50,15 @@
 // memset).  No atomics, no split of a slot's rows across blocks: two
 // launches give equal bits.
 //
+// bf16 rows (T = __nv_bfloat16: kernel 1's bf16 tile mode, the chunk fold
+// with a liveness mask or none).  Where p % 8 == 0 and the rows are
+// aligned, a stage's rows are copied as they lie, 16 bytes (8 values) a
+// cp.async, into a second ring beside the fp32 one; each thread widens the
+// chunks it copied into the fp32 stage before the stage's barrier, as the
+// dropout mask is applied.  Elsewhere (odd p) the thread loads each value
+// and widens it as it stores it (cp.async has no 2-byte form).  Widening
+// is exact, so the band is the fp32 fold's of the widened rows, bit for bit.
+//
 // A round (ROUND) is bound by its launch's instructions, not by the band's
 // writeback: at n = 32 rows a block does 32 rows of fused multiply-adds
 // and then writes up to 8,192 entries, so the epilogue weighs as much as
@@ -60,6 +69,8 @@
 // keeps per thread the row ii, the range of jj inside the band and the
 // two base offsets, so an entry costs one range test, a shared load and
 // its stores.  It writes the same entries in the same order as the chunk's.
+// The chunk keeps its own loop: on the round's, kernel 3 ran 2-3% slower
+// on the H100 (0.836 / 0.842 ms against 0.817 / 0.817 at the slice).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -68,6 +79,7 @@
 #include <type_traits>
 
 #include "cp_async.cuh"
+#include "operand.cuh"
 
 namespace repro_torch {
 
@@ -93,10 +105,11 @@ __host__ __device__ inline int syrk_offsets(int p, int h) {
 // Shared memory of a block: kSyrkStages stages of x at I and J (and, for a
 // dropout mask, the mask at I and J), each (kSyrkRows, kSyrkT), or for a
 // round kRoundStages of kRoundRows; the (T, T) output tile reuses them.
-template <bool STAGED_MASK, bool ROUND = false>
+// WIDE (bf16 rows) adds the ring of raw rows, half the size in floats.
+template <bool STAGED_MASK, bool ROUND = false, bool WIDE = false>
 constexpr int syrk_smem_floats() {
   return (ROUND ? kRoundStages * kRoundRows : kSyrkStages * kSyrkRows) *
-         (STAGED_MASK ? 4 : 2) * kSyrkT;
+         ((STAGED_MASK ? 4 : 2) + (WIDE ? 1 : 0)) * kSyrkT;
 }
 static_assert(syrk_smem_floats<false>() >= kSyrkT * kSyrkT &&
                   syrk_smem_floats<false, true>() >= kSyrkT * kSyrkT,
@@ -109,18 +122,24 @@ static_assert(kSyrkT % kSyrkWR == 0 && kSyrkT % kSyrkWC == 0 &&
 // One tile (blockIdx-free: ``tile`` = I * syrk_offsets(p, h) + (J - I)) of
 // one slot: x (R, p), w (K) (unread with ROUND, which takes K = 1), m
 // (K, p), or (R, p) with PER_READING, or null, band (2h+1, p).  vec: x and
-// m may be copied 16 bytes at a time (p % 4 == 0, both aligned).  smem:
-// syrk_smem_floats<HAS_MASK && PER_READING, ROUND>() floats, 16-byte
-// aligned.  The operand type T is fp32 (a bf16 x would be widened as it is
-// staged, which the copies here do not do).
+// m may be copied 16 bytes at a time (p a multiple of 16 bytes' worth of
+// T, both aligned).  smem: syrk_smem_floats<HAS_MASK && PER_READING,
+// ROUND, WIDE>() floats, 16-byte aligned.  x is fp32 or, for the chunk
+// fold without a dropout mask, bf16 (WIDE: widened as it is staged).
+// MASK_AT_FLUSH (kernel 1) loads a round's liveness values as the round
+// ends instead of as its last stage starts: 12 registers fewer through the
+// stage's multiply-adds, for a tile that is a called function (whose
+// calling convention leaves it fewer registers than a kernel's own body).
 template <bool HAS_MASK, bool PER_READING, bool ROUND = false,
-          typename T = float>
+          typename T = float, bool MASK_AT_FLUSH = false>
 __device__ __forceinline__ void band_syrk_tile(
     const T* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ m, int K, int n, int p, int h, bool vec,
     int tile, float* __restrict__ band, float* __restrict__ smem) {
-  static_assert(std::is_same<T, float>::value,
-                "the staging copies fp32 rows");
+  constexpr bool WIDE = !std::is_same<T, float>::value;
+  static_assert(!WIDE || (std::is_same<T, __nv_bfloat16>::value && !ROUND &&
+                          !PER_READING),
+                "bf16 rows: the chunk fold without a dropout mask");
   constexpr bool STAGED = HAS_MASK && PER_READING;   // mask rows staged
   constexpr bool ROUND_MASK = HAS_MASK && !PER_READING;
   constexpr int TT = kSyrkT, NT = kSyrkThreads;
@@ -130,6 +149,11 @@ __device__ __forceinline__ void band_syrk_tile(
   constexpr int WR = kSyrkWR, WC = kSyrkWC, WGC = TT / WC;
   constexpr int BUF = RB * TT;                  // one operand of a stage
   constexpr int STAGE = (STAGED ? 4 : 2) * BUF;
+  constexpr int EV = 16 / sizeof(T);             // values a 16-byte copy
+  // WIDE: the raw rows of stage slot st at raw + (st % ST) STAGE, laid out
+  // as the fp32 stage (an fp32 address d has its raw value at raw + (d -
+  // smem))
+  T* raw = reinterpret_cast<T*>(smem + ST * STAGE);
   const int offsets = syrk_offsets(p, h);
   const int ti = tile / offsets, dj = tile % offsets;
   const int i0 = ti * TT, j0 = (ti + dj) * TT;
@@ -153,9 +177,9 @@ __device__ __forceinline__ void band_syrk_tile(
   auto for_chunks = [&](int st, auto&& f) {
     float* buf = smem + (st % ST) * STAGE;
     const int r0 = st * RB, rows = min(RB, R - r0);
-    if (vec) {        // 16-byte chunks: chunk tid % (T / 4)
-      constexpr int CH = TT / 4;
-      const int c = 4 * (tid % CH);
+    if (vec) {        // 16-byte chunks: chunk tid % (T / EV)
+      constexpr int CH = TT / EV;
+      const int c = EV * (tid % CH);
       for (int rr = tid / CH; rr < rows; rr += NT / CH)
         f(buf + rr * TT + c, r0 + rr, c);
     } else {          // 4-byte copies: column tid % T
@@ -167,9 +191,23 @@ __device__ __forceinline__ void band_syrk_tile(
   auto stage = [&](int st) {
     for_chunks(st, [&](float* d, int r, int c) {
       const bool in_i = i0 + c < p, in_j = j0 + c < p;
-      const float* xr = x + (size_t)r * p;
+      const T* xr = x + (size_t)r * p;
       const float* mr = STAGED ? m + (size_t)r * p : nullptr;
-      if (vec) {
+      if constexpr (WIDE) {
+        if (vec) {    // the raw rows, widened by widen() before the barrier
+          T* rd = raw + (d - smem);
+          cp_async16(reinterpret_cast<float*>(rd),
+                     reinterpret_cast<const float*>(in_i ? xr + i0 + c : x),
+                     in_i ? 16 : 0);
+          if (!diag)
+            cp_async16(reinterpret_cast<float*>(rd + BUF),
+                       reinterpret_cast<const float*>(in_j ? xr + j0 + c : x),
+                       in_j ? 16 : 0);
+        } else {      // a plain load, widened as it is stored
+          *d = in_i ? to_f32(xr[i0 + c]) : 0.0f;
+          if (!diag) d[BUF] = in_j ? to_f32(xr[j0 + c]) : 0.0f;
+        }
+      } else if (vec) {
         cp_async16(d, in_i ? xr + i0 + c : x, in_i ? 16 : 0);
         if (!diag) cp_async16(d + BUF, in_j ? xr + j0 + c : x, in_j ? 16 : 0);
         if (STAGED) {
@@ -206,6 +244,20 @@ __device__ __forceinline__ void band_syrk_tile(
         } else {
           *v = __fmul_rn(*v, *mv);
         }
+      }
+    });
+  };
+
+  // WIDE, 16-byte copies: the chunks this thread copied, widened into the
+  // fp32 stage (its own cp.async groups have landed)
+  auto widen = [&](int st) {
+    for_chunks(st, [&](float* d, int, int) {
+      for (int o = 0; o < (diag ? 1 : 2); ++o) {
+        float4 lo, hi;
+        widen8(*reinterpret_cast<const uint4*>(raw + (d - smem) + o * BUF),
+               lo, hi);
+        *reinterpret_cast<float4*>(d + o * BUF) = lo;
+        *reinterpret_cast<float4*>(d + o * BUF + 4) = hi;
       }
     });
   };
@@ -287,6 +339,9 @@ __device__ __forceinline__ void band_syrk_tile(
   for (int st = 0; st < stages; ++st) {
     cp_async_wait<ST - 2>();
     if constexpr (STAGED) apply_mask(st);
+    if constexpr (WIDE) {
+      if (vec) widen(st);
+    }
     __syncthreads();   // stage st landed; stage st - 1's slot is free
     if (st + ST - 1 < stages) stage(st + ST - 1);
     cp_async_commit();
@@ -296,10 +351,13 @@ __device__ __forceinline__ void band_syrk_tile(
     const int r0 = st * RB, rows = min(RB, R - r0);
     if (rows == RB && round_end - r0 >= RB) {   // a whole stage, one round
       const bool ends = round_end == r0 + RB;
-      if (ends) load_mask();
+      if (ends && !MASK_AT_FLUSH) load_mask();
 #pragma unroll
       for (int q = 0; q < RB; ++q) row(ar + q * TT, br + q * TT);
-      if (ends) flush();
+      if (ends) {
+        if (MASK_AT_FLUSH) load_mask();
+        flush();
+      }
     } else {
       for (int q = 0; q < rows;) {
         const int seg = min(rows, round_end - r0);

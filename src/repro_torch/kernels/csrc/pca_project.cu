@@ -14,7 +14,8 @@
 //    _reconstruct_kernel :74): X^ = Z W^T.
 // Every kernel takes the whole fleet in one launch, the slots on grid y.
 //
-// Kernels 4 and 5 are the stage device function of kernel 1 (stages.cuh):
+// Kernels 4 and 5 are the stage device function of stages.cuh (kernel 1's
+// stage half before its register tile, stage_tile.cuh):
 // a block stages its kRows centred, masked rows in shared memory, one
 // thread per (row, component) forms the scores reading W through L1/L2
 // (__ldg), and one warp per row reconstructs, lanes striding over sensors
@@ -92,10 +93,6 @@ stage_kernel(const float* __restrict__ x, const float* __restrict__ m,
       z + rows * q, WITH_C ? xh + rows * p : nullptr,
       WITH_C ? flags + rows * p : nullptr, WITH_M ? t2 + rows : nullptr,
       WITH_M ? spe + rows : nullptr, smem);
-}
-
-__device__ __forceinline__ float lane_of(const float4& v, int j) {
-  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
 // ---- kernel 8: Z = X W --------------------------------------------------

@@ -68,8 +68,8 @@ def _cuda_operand(t: torch.Tensor, device: torch.device,
 
 def _transposed(basis: torch.Tensor) -> torch.Tensor:
     """(S, q, p) contiguous copy of a (S, p, q) basis: the reconstruction
-    loop of the stage kernels (1, 4, 5) reads it so that a warp's loads
-    are consecutive."""
+    loop of the stage kernels 4 and 5 reads it so that a warp's loads are
+    consecutive (kernels 1, 8 and 9 read the basis as it lies)."""
     return basis.transpose(1, 2).contiguous()
 
 
@@ -79,7 +79,8 @@ def _ptr(t: torch.Tensor | None):
 
 def _cuda_checks(S, R, p, q, stage=True):
     """What a stage-kernel launch cannot take: more slots than grid y, no
-    rows, or (``stage``) rows too wide for the block's shared memory."""
+    rows, or (``stage``: kernels 4 and 5, which stage 8 whole rows) rows
+    too wide for the block's shared memory."""
     if S > _MAX_SLOTS:
         raise ValueError(f"{S} slots exceed the grid's {_MAX_SLOTS}")
     if R < 1:
@@ -261,7 +262,11 @@ def fused_stream_update(x: torch.Tensor, weights: torch.Tensor,
     """ONE launch over every slot's chunk: the forgetting-weighted band
     fold plus the configured per-row stages (kernel 1,
     ``csrc/fused_stream.cu``: ``fused_stream_f32``, or ``fused_stream_bf16``
-    with ``precision="bf16"``, counted under its own key).
+    with ``precision="bf16"``, counted under its own key).  The fold is
+    kernel 3's banded SYRK tile (``csrc/band_syrk.cuh``), the stages a
+    register tile over 64 rows (``csrc/stage_tile.cuh``) that reads the
+    basis as it lies; any p, and q up to the stage tile's shared memory
+    (``fused_stream_max_q``: a ``ValueError`` beyond it).
 
     ``x`` (S, K, n, p) chunks, ``weights`` (S, K) per-round weights,
     ``basis`` (S, p, q), ``mean`` (S, p), ``inv_lam`` (S, q), ``mask``
@@ -297,8 +302,13 @@ def fused_stream_update(x: torch.Tensor, weights: torch.Tensor,
         band, z, xh, fl, t2, spe = ref.fused_stream(
             x, weights, basis, mean, inv_lam, h, float(epsilon), mask)
     else:
-        _cuda_checks(S, K * n, p, q)
+        _cuda_checks(S, K * n, p, q, stage=False)
         dev = x.device
+        lib = load_library("fused_stream")
+        max_q = lib.fused_stream_max_q(dev.index, int(precision == "bf16"))
+        if q > max_q:
+            raise ValueError(f"q={q} exceeds kernel 1's shared memory "
+                             f"(q <= {max_q} with {precision} tiles)")
         xx, bs = (_cuda_operand(t, dev, x.dtype) for t in (x, basis))
         w, mu, il = (_cuda_operand(t, dev) for t in (weights, mean, inv_lam))
         R = K * n
@@ -311,13 +321,11 @@ def fused_stream_update(x: torch.Tensor, weights: torch.Tensor,
         t2 = torch.empty((S, R), **f32) if with_monitor else None
         spe = torch.empty((S, R), **f32) if with_monitor else None
         m = None if mask is None else _cuda_operand(mask, dev)
-        bt = _transposed(bs)
-        entry = getattr(load_library("fused_stream"),
-                        "fused_stream_bf16" if precision == "bf16"
+        entry = getattr(lib, "fused_stream_bf16" if precision == "bf16"
                         else "fused_stream_f32")
         ret = entry(
             xx.data_ptr(), w.data_ptr(), _ptr(m), bs.data_ptr(),
-            bt.data_ptr(), mu.data_ptr(), il.data_ptr(), S, K, n, p, q, h,
+            mu.data_ptr(), il.data_ptr(), S, K, n, p, q, h,
             float(epsilon), int(with_compress), int(with_monitor),
             band.data_ptr(), z.data_ptr(), _ptr(xh), _ptr(fl), _ptr(t2),
             _ptr(spe), _stream())

@@ -16,7 +16,9 @@ folds (kernels 2, 3, 6, 7) are held to ``TOL`` against the plain version
 up to 32 rows (1e-4 beyond: up to 256 products a pair, summed per round
 in a chain, then weighted), and
 to equal bits where their order of sums promises them: the mirrored half,
-a second launch, kernel 1's band and, at K = 1, kernels 6 and 7.
+a second launch, kernel 1's band and, at K = 1, kernels 6 and 7.  Kernel
+1's stage outputs are held bit for bit to the kernels whose order of sums
+they keep (``TestCudaFusedTiles``).
 """
 
 import dataclasses
@@ -226,10 +228,10 @@ class TestCudaChunkFold:
     @pytest.mark.parametrize("p,h", [(17, 3), (37, 36), (64, 63), (130, 64),
                                      (1021, 128), (1024, 128)])
     def test_fused_band_equals_chunk_fold(self, p, h, masked, precision):
-        """Kernel 1's fold blocks (one thread an output, both halves) sum
-        in the tile's per-round order: its band equals kernel 2's or 3's
-        bit for bit on the same operands — in the bf16 tile mode on the
-        bf16-rounded x, which kernel 1 widens exactly."""
+        """Kernel 1's fold blocks are kernel 2's or 3's tile: its band
+        equals theirs bit for bit on the same operands — in the bf16 tile
+        mode on the bf16-rounded x, which kernel 1 stages as it lies and
+        widens exactly."""
         S, K, n, q = 3, 10, 25, 4
         x, w, m = _fold_operands(S, K, n, p, "live" if masked else None, p)
         g = torch.Generator().manual_seed(p + 1)
@@ -241,6 +243,154 @@ class TestCudaChunkFold:
         band = ops.cov_band_update_chunk_batched(xt, w, h, mask=m)
         torch.cuda.synchronize()
         assert torch.equal(out[0], band)
+
+
+def _fused_operands(S, K, n, p, q, masked, seed):
+    """Kernel 1's card operands: x (S, K, n, p); weights (S, K) with a
+    padded last round; a (S, K, p) liveness mask or None; a row-major
+    (S, p, q) basis (orthonormal where q <= p); mean (S, p); inv_lam
+    (S, q)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((S, K, n, p), generator=g)
+    w = torch.rand((S, K), generator=g) + 0.25
+    w[:, -1] = 0.0
+    m = (torch.rand((S, K, p), generator=g) > 0.2).float() if masked \
+        else None
+    basis = torch.randn((S, p, q), generator=g)
+    if q <= p:
+        basis = torch.linalg.qr(basis).Q
+    mean = 0.1 * torch.randn((S, p), generator=g)
+    il = torch.rand((S, q), generator=g) + 0.5
+    c = lambda t: None if t is None else t.contiguous().cuda()
+    return c(x), c(w), c(m), c(basis), c(mean), c(il)
+
+
+@pytest.mark.cuda
+class TestCudaFusedTiles:
+    """Kernel 1 (``fused_stream_f32`` and ``fused_stream_bf16``) at the
+    edges of its tiles: the fold is kernel 3's (2's) banded SYRK tile, the
+    stages the register tile of ``csrc/stage_tile.cuh`` (64 rows a block,
+    p streamed in 32- and 64-sensor slices, q in 32-column passes).
+    Against the plain version on the same card tensors (``TOL`` at p <= 64,
+    1e-4 beyond, and 1e-4 for the band of 10 x 25 rows, as the chunk
+    folds), and bit for bit against the kernels whose order of sums each
+    output keeps: the band kernel 3's (2's), z kernel 8's on the centred,
+    masked rows formed in torch, x̂ kernel 9's on that z plus the mean, T²
+    and SPE kernel 5's and the flags kernel 4's (the stage arithmetic of
+    kernel 1 before its tile), in both tile modes (kernels 2-9 take the
+    bf16-rounded operands widened).  One launch, no plain call, equal
+    bits on a second launch."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+
+    def _check(self, S, K, n, p, q, h, masked, stages, precision):
+        x, w, m, basis, mean, il = _fused_operands(
+            S, K, n, p, q, masked, p * 7 + q * 3 + h + S + K)
+        wc, wm, eps = "c" in stages, "m" in stages, 0.5
+        kernel = "fused_stream_bf16" if precision == "bf16" \
+            else "fused_stream"
+        run = lambda: ops.fused_stream_update(
+            x, w, basis, mean, il, halfwidth=h, epsilon=eps,
+            with_compress=wc, with_monitor=wm, mask=m, precision=precision)
+        ops.reset_counts()
+        out = run()
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES[kernel] == 1 and sum(ops.LAUNCHES.values()) == 1
+        assert sum(ops.PLAIN_CALLS.values()) == 0
+        again = run()
+        assert all(a is None and b is None or torch.equal(a, b)
+                   for a, b in zip(out, again))
+        band, z, xh, fl, t2, spe = out
+        assert (xh is None, fl is None) == (not wc, not wc)
+        assert (t2 is None, spe is None) == (not wm, not wm)
+        # the plain version and the yardsticks on the widened tile operands
+        xt = ops.fused_tiles(x, precision).float()
+        bt = ops.fused_tiles(basis, precision).float().contiguous()
+        plain = ref.fused_stream(xt, w, bt, mean, il, h, eps, m)
+        tol = TOL if p <= 64 else dict(rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(band, plain[0], rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(z, plain[1], **tol)
+        assert torch.equal(band, ops.cov_band_update_chunk_batched(
+            xt, w, h, mask=m))
+        R = K * n
+        xv = xt.reshape(S, R, p)
+        xc = xv - mean[:, None, :]
+        if m is not None:
+            xc = xc * m.repeat_interleave(n, dim=1)
+        z8 = ops.pca_project(xc.contiguous(), bt)
+        assert torch.equal(z, z8)
+        if wc:
+            torch.testing.assert_close(xh, plain[2], **tol)
+            assert torch.equal(xh, ops.pca_reconstruct(z8, bt)
+                               + mean[:, None, :])
+            clear = ((xv - plain[2]).abs() - eps).abs() > 1e-4
+            assert fl.dtype == torch.bool
+            assert torch.equal(fl[clear], plain[3][clear])
+            _, _, fl4 = ops.supervised_compress(xv.contiguous(), bt, mean,
+                                                epsilon=eps, mask=m, n=n)
+            assert torch.equal(fl, fl4)
+        if wm:
+            torch.testing.assert_close(t2, plain[4], **tol)
+            torch.testing.assert_close(spe, plain[5], **tol)
+            _, t25, spe5 = ops.pca_monitor(xv.contiguous(), bt, mean, il,
+                                           mask=m, n=n)
+            assert torch.equal(t2, t25)
+            assert torch.equal(spe, spe5)
+
+    @pytest.mark.parametrize("precision", ["fp32", "bf16"])
+    @pytest.mark.parametrize("masked", [False, True])
+    @pytest.mark.parametrize("h", [0, 64, "p+7"])
+    @pytest.mark.parametrize("p,q", [(p, q) for p in (17, 37, 64, 1021, 1024)
+                                     for q in (1, 4, 7, 32) if q <= p])
+    def test_fused_tiles_match_plain(self, p, q, h, masked, precision):
+        """Three slots of 10 rounds x 25 epochs (250 rows: four stage
+        blocks, the last one ragged); odd p (plain loads in the bf16 mode,
+        single values in fp32) and p at and across the 64-sensor tiles; q
+        below, at and not a multiple of the 16-byte copies; h from 0 past
+        both ends of the band."""
+        self._check(3, 10, 25, p, q, _halfwidth(h, p), masked, "cm",
+                    precision)
+
+    @pytest.mark.parametrize("precision", ["fp32", "bf16"])
+    @pytest.mark.parametrize("S", [1, 3])
+    @pytest.mark.parametrize("masked", [False, True])
+    @pytest.mark.parametrize("stages", ["cm", "c", "m"])
+    @pytest.mark.parametrize("p,q", [(37, 7), (1024, 32), (136, 40)])
+    def test_fused_stages_and_slots(self, p, q, stages, masked, S,
+                                    precision):
+        """Compression only, monitoring only and both, one slot and three,
+        at the slice's width and h, and q = 40 (two passes of phase A)."""
+        self._check(S, 8, 32, p, q, 128, masked, stages, precision)
+
+    @pytest.mark.parametrize("precision", ["fp32", "bf16"])
+    def test_fused_q_limit(self, precision):
+        """q up to the stage tile's shared memory (``fused_stream_max_q``,
+        at least the slice's 32); one more raises a ``ValueError``."""
+        lib = build.load_library("fused_stream")
+        max_q = lib.fused_stream_max_q(torch.cuda.current_device(),
+                                       int(precision == "bf16"))
+        assert max_q >= 32
+        x, w, m, basis, mean, il = _fused_operands(1, 2, 4, 16, max_q + 1,
+                                                   True, max_q)
+        with pytest.raises(ValueError, match=rf"q={max_q + 1} exceeds "
+                           rf"kernel 1's shared memory \(q <= {max_q}"):
+            ops.fused_stream_update(x, w, basis, mean, il, halfwidth=3,
+                                    with_compress=True, with_monitor=True,
+                                    mask=m, precision=precision)
+        basis, il = basis[..., :max_q].contiguous(), il[:, :max_q]
+        out = ops.fused_stream_update(x, w, basis, mean, il, halfwidth=3,
+                                      epsilon=0.5, with_compress=True,
+                                      with_monitor=True, mask=m,
+                                      precision=precision)
+        xt = ops.fused_tiles(x, precision).float()
+        bt = ops.fused_tiles(basis, precision).float()
+        plain = ref.fused_stream(xt, w, bt, mean, il, 3, 0.5, m)
+        for i in (0, 1, 2, 4, 5):
+            torch.testing.assert_close(out[i], plain[i], rtol=1e-4,
+                                       atol=1e-4)
 
 
 def _split_operands(S, R, p, q, masked, n):
