@@ -14,9 +14,10 @@ from its tree's root; its output goes to ``<i>_<side>.log`` in ``--out``
 row of values per side, in run order, for every engine or fleet line of
 the runs (rounds/s, and the wall time over its steps or rounds), for the
 profiled runs' device idle shares and for every kernel of the JSON record
-(ms), and which kernel functions kept their SASS (``cuobjdump -sass`` of
-each tree's build, ``build/repro_torch/``, function by function), and
-writes the same to ``summary.json`` there.  It exits non-zero if any run
+(ms, and device ms where phase 11 gives it), and which kernel functions
+kept their SASS (``cuobjdump -sass`` of each tree's build,
+``build/repro_torch/``, function by function), and writes the same to
+``summary.json`` there.  It exits non-zero if any run
 did.
 """
 
@@ -56,6 +57,8 @@ def parse(log: str) -> dict[str, float]:
         elif line.startswith('{"kernels"'):
             for k in json.loads(line)["kernels"]:
                 out[f"kernel {k['name']}: ms"] = k["ms"]
+                if "device_ms" in k:
+                    out[f"kernel {k['name']}: device ms"] = k["device_ms"]
     return out
 
 

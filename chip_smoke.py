@@ -7,8 +7,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from src/repro_torch/kernels/csrc (one nvcc per
      source, in parallel, into build/repro_torch/), with each kernel
-     function's registers and spills, and the spills of kernel 1's two
-     device functions (its fold and stage blocks, not inlined);
+     function's registers and spills, and the spills of the device
+     functions that are not inlined: kernel 1's fold and stage blocks and
+     kernels 4 and 5's stage tile (stage_rows; kernels 4 and 5 must not
+     spill);
   3. each kernel against its plain PyTorch version on the card, at the
      engine's widths (256 slots, p=1024, h=128, q=32, K*n=8*32 rows, masks
      per round; the per-round folds at n=32 rows, the banded products on
@@ -34,7 +36,14 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      for bit against the kernels whose order of sums they keep: z kernel
      8's on the centred, masked rows, x_hat kernel 9's plus the mean, T2
      and SPE kernel 5's, the flags kernel 4's; and a second launch of
-     kernel 1 equal bit for bit;
+     kernel 1 equal bit for bit; kernels 4 and 5 (kernel 1's stage tile)
+     at the engine's chunk and again at the per-round fleet's round (one
+     round of 32 rows a slot, a (S, 1, p) liveness row; ``*_r32``), each
+     timed over 50 calls on the row-major basis, and at both shapes bit
+     for bit, with the per-round mask, its per-row expansion and none: z
+     == kernel 8's on (x - mean) m, kernel 4's x_hat == kernel 9's plus the
+     mean, a second launch, the per-row expansion == the per-round mask,
+     the flags, T2 and SPE == kernel 1's on the same rows;
      plus a small engine run on the card against the same run on the CPU;
   4. the main path: StreamingPCAEngine with compression and detection on
      256 slots at one wsn-1m region's width, serving 320 requests of 24
@@ -64,11 +73,14 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      the worst sink error within eps + 2^-8 max|x| (the flag is decided on
      the bf16-rounded reading, the books read the fp32 one); its rate,
      step time, flagged readings and refreshes beside phase 4's;
- 11. kernels 1 (fp32 and bf16 tiles), 2, 3, 6, 7 (both masks), 8, 9 and
-     10 (at 256 slots and at one) and the folds' and products' torch.bmm
-     again at phase 3's shapes, on inputs drawn anew (a dense
-     product's time does not depend on the values), under torch.profiler:
-     each one's device time a call over 50 calls, beside its event time,
+ 11. kernels 1 (fp32 and bf16 tiles), 2, 3, 4 and 5 (at the chunk and
+     at the round), 6, 7 (both masks), 8, 9 and 10 (at 256 slots and at
+     one) and the folds' and products' torch.bmm again at phase 3's
+     shapes, on inputs drawn anew (a dense product's time does not depend
+     on the values), under torch.profiler: each one's device time a call
+     over 50 calls, beside its event time, and the device time of a step
+     of the fused body's plain-torch stage recompute (every slot's stages
+     against the post-refresh basis, ``ops.fused_stream_stages_blocked``),
      so the wrapper's host time cannot hide in the figure (last, so that no
      profiler run comes ahead of phase 4's measured run, and no tensor is
      kept for it through phases 4-10).
@@ -109,6 +121,10 @@ KERNELS = {
                          "src/repro/kernels/cov_update.py:228"),
     "supervised_compress": (_SPLIT, "src/repro/kernels/pca_project.py:216"),
     "pca_monitor": (_SPLIT, "src/repro/kernels/pca_project.py:171"),
+    # kernels 4 and 5 at the per-round fleet's round (R = n = 32 rows)
+    "supervised_compress_r32": (_SPLIT,
+                                "src/repro/kernels/pca_project.py:216"),
+    "pca_monitor_r32": (_SPLIT, "src/repro/kernels/pca_project.py:171"),
     "pca_project": (_SPLIT, "src/repro/kernels/pca_project.py:61"),
     "pca_reconstruct": (_SPLIT, "src/repro/kernels/pca_project.py:89"),
     "band_round": ("src/repro_torch/kernels/csrc/band_fold.cu",
@@ -412,40 +428,123 @@ def products_8_9(xc, z8, wr) -> dict:
     }
 
 
-def split_kernels(record, xv, masks, basis, mean, il, eps) -> None:
+def stage_cases(xv, m, n, wr, mean, il, eps) -> dict:
+    """Kernels 4 and 5 on rows ``xv`` (S, R, p) with a per-round mask ``m``
+    (S, R / n, p), read at row r // n, and the row-major basis ``wr``:
+    ``{name: (kernel call, plain call, flops, bytes)}``, the bytes each
+    input read once and each output written once."""
+    from repro_torch.kernels import ops, ref
+    S, R, p = xv.shape
+    q = wr.shape[-1]
+    rows_mask = m.repeat_interleave(n, dim=1)
+    f32 = 4.0
+    x_b, w_b, m_b = S * R * p * f32, S * p * q * f32, m.numel() * f32
+    z_b, stat_b = S * R * q * f32, 2 * S * R * f32
+    prod = 2.0 * S * R * p * q
+    return {
+        "supervised_compress": (
+            lambda: ops.supervised_compress(xv, wr, mean, epsilon=eps,
+                                            mask=m, n=n),
+            lambda: ref.supervised_compress(xv, wr, mean, rows_mask, eps),
+            2 * prod, x_b + m_b + w_b + S * p * f32 + z_b + x_b + S * R * p),
+        "pca_monitor": (
+            lambda: ops.pca_monitor(xv, wr, mean, il, mask=m, n=n),
+            lambda: ref.pca_monitor(xv, wr, mean, il, rows_mask),
+            2 * prod, x_b + m_b + w_b + S * (p + q) * f32 + z_b + stat_b),
+    }
+
+
+def stage_yardsticks(label, xv, m, n, wr, mean, il, eps) -> None:
+    """Kernels 4 and 5 bit for bit against the kernels whose order of sums
+    each output keeps, with the per-round mask ``m`` (S, R / n, p), its
+    per-row expansion and no mask: z == kernel 8's on (x - mean) m formed
+    in torch, kernel 4's x_hat == kernel 9's on that z plus the mean, a
+    second launch equal, the per-row expansion equal to the per-round
+    mask, and (per-round mask or none: kernel 1 takes no per-row mask)
+    the flags, T2 and SPE == kernel 1's on the same rows as a chunk of
+    R / n rounds."""
+    from repro_torch.kernels import ops
+    S, R, p = xv.shape
+    rows_m = m.repeat_interleave(n, dim=1)
+    same, first = {}, None
+    for kind, mk, d in (("per-round mask", m, n),
+                        ("per-row mask", rows_m, None),
+                        ("no mask", None, None)):
+        run = lambda: (ops.supervised_compress(xv, wr, mean, epsilon=eps,
+                                               mask=mk, n=d)
+                       + ops.pca_monitor(xv, wr, mean, il, mask=mk, n=d))
+        out = run()
+        xc = xv - mean[:, None, :]
+        if mk is not None:
+            xc = xc * rows_m
+        z8 = ops.pca_project(xc, wr)
+        del xc
+        xh9 = ops.pca_reconstruct(z8, wr) + mean[:, None, :]
+        same[f"{kind}: z of kernels 4 and 5 == pca_project's (kernel 8) "
+             f"on (x - mean) m"] = (torch.equal(out[0], z8)
+                                    and torch.equal(out[3], z8))
+        same[f"{kind}: x_hat == pca_reconstruct's (kernel 9) + mean"] = \
+            torch.equal(out[1], xh9)
+        del z8, xh9
+        same[f"{kind}: a second launch gives equal bits"] = all(
+            torch.equal(a, b) for a, b in zip(out, run()))
+        if first is None:
+            first = out
+        elif d is None and mk is not None:
+            same["the per-row expansion == the per-round mask"] = all(
+                torch.equal(a, b) for a, b in zip(out, first))
+        if mk is None or d is not None:
+            K = R // n
+            fused = ops.fused_stream_update(
+                xv.reshape(S, K, n, p), torch.ones((S, K), device=xv.device),
+                wr, mean, il, halfwidth=H, epsilon=eps, with_compress=True,
+                with_monitor=True, mask=mk)
+            same[f"{kind}: flags, T2 and SPE == fused_stream's (kernel 1) "
+                 f"on {K} rounds of {n}"] = (
+                torch.equal(fused[3], out[2]) and torch.equal(fused[4], out[4])
+                and torch.equal(fused[5], out[5]))
+            del fused
+        del out
+    del first
+    for what, ok in same.items():
+        print(f"   {label} {what} (bit for bit): {ok}")
+        check(ok, f"{label}: {what} does not hold")
+
+
+def split_kernels(record, xv, masks, basis, mean, il, eps, g) -> None:
     """Kernels 4, 5, 8 and 9 against their plain versions at the slice
-    shape, per-round masks read at row r // N; times beside bounds, and
-    torch.bmm (TF32 off) beside the projection and reconstruction.  Those
-    two and their torch.bmm are timed over 50 calls (some 5 ms: a 0.1 ms
-    kernel's time is not the event timer's or the launch gaps'), on the
-    basis made row-major, as the engine's refresh leaves it."""
+    shape, per-round masks read at row r // N, and kernels 4 and 5 again at
+    the per-round fleet's round (one round of N rows a slot, a (S, 1, p)
+    liveness row; recorded as ``*_r32``), each with its bit identities
+    (:func:`stage_yardsticks`); times beside bounds, and torch.bmm (TF32
+    off) beside the projection and reconstruction.  Every kernel is timed
+    over 50 calls (a 0.1 ms kernel's time is not the event timer's or the
+    launch gaps'; at the round the wrapper's host time may exceed the
+    device's, which phase 11 gives), on the basis made row-major, as the
+    engine's refresh leaves it."""
     from repro_torch.kernels import ops, ref
     S, R, p = xv.shape
     q = basis.shape[-1]
+    wr = basis.contiguous()
+    rx = torch.randn((S, N, p), device=xv.device, generator=g)
+    live = (torch.rand((S, 1, p), device=xv.device, generator=g)
+            > 0.05).float()
+    cases = {}
+    for suffix, (x, m) in (("", (xv, masks)), ("_r32", (rx, live))):
+        stage_yardsticks(f"stages R={x.shape[1]}", x, m, N, wr, mean, il,
+                         eps)
+        for name, case in stage_cases(x, m, N, wr, mean, il, eps).items():
+            cases[name + suffix] = (x,) + case + (None,)
     rows_mask = masks.repeat_interleave(N, dim=1)
     xc = (xv - mean[:, None, :]) * rows_mask
+    del rows_mask
     f32 = 4.0
-    x_b, w_b, m_b = S * R * p * f32, S * p * q * f32, masks.numel() * f32
-    z_b, stat_b = S * R * q * f32, 2 * S * R * f32
     prod = 2.0 * S * R * p * q
-    cases = {
-        "supervised_compress": (
-            lambda: ops.supervised_compress(xv, basis, mean, epsilon=eps,
-                                            mask=masks, n=N),
-            lambda: ref.supervised_compress(xv, basis, mean, rows_mask, eps),
-            2 * prod, x_b + m_b + w_b + S * p * f32 + z_b + x_b + S * R * p,
-            None),
-        "pca_monitor": (
-            lambda: ops.pca_monitor(xv, basis, mean, il, mask=masks, n=N),
-            lambda: ref.pca_monitor(xv, basis, mean, il, rows_mask),
-            2 * prod, x_b + m_b + w_b + S * (p + q) * f32 + z_b + stat_b,
-            None),
-    }
-    wr = basis.contiguous()
     z8 = ref.pca_project(xc, wr)
     for name, (run, plain_fn, lib) in products_8_9(xc, z8, wr).items():
-        cases[name] = (run, plain_fn, prod, x_b + w_b + z_b, lib)
-    for name, (run, plain_fn, flops, nbytes, lib) in cases.items():
+        cases[name] = (xc, run, plain_fn, prod,
+                       f32 * (S * R * p + S * p * q + S * R * q), lib)
+    for name, (x, run, plain_fn, flops, nbytes, lib) in cases.items():
         out = run()
         torch.cuda.synchronize()
         plain = plain_fn()
@@ -453,7 +552,7 @@ def split_kernels(record, xv, masks, basis, mean, il, eps) -> None:
         for i, (a, b) in enumerate(zip(out, plain)):
             if a.dtype == torch.bool:
                 xh = plain[1]
-                clear = ((xv - xh).abs() - eps).abs() > 1e-3
+                clear = ((x - xh).abs() - eps).abs() > 1e-3
                 bad = int(((a != b) & clear).sum())
                 print(f"   {name} flags: {int(a.sum())} set, {bad} disagree "
                       f"away from eps (want 0)")
@@ -461,7 +560,7 @@ def split_kernels(record, xv, masks, basis, mean, il, eps) -> None:
                 continue
             errs.append(compare(f"{name}[{i}]", a, b, 1e-4, 1e-3))
         del out, plain
-        iters = 10 if lib is None else 50
+        iters = 50
         ms = time_ms(run, iters)
         plain_ms = time_ms(plain_fn, 3, 1)
         b_ms, b_by = bound(flops, nbytes)
@@ -472,11 +571,12 @@ def split_kernels(record, xv, masks, basis, mean, il, eps) -> None:
             rec["library_ms"] = time_ms(lib, iters)
             lib_txt = (f", torch.bmm {rec['library_ms']:.4f} ms ({iters} "
                        f"calls each)")
-        print(f"   {name} S={S} R={R} p={p} q={q}: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.3f} ms{lib_txt}, bound {b_ms:.4f} ms "
-              f"({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e9:.3f} GB)")
+        print(f"   {name} S={S} R={x.shape[1]} p={p} q={q}: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.3f} ms{lib_txt}, bound "
+              f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e9:.3f} GB)")
         record[name] = rec
-    del xc, rows_mask, z8, wr
+    del cases, xc, z8, wr, rx, live
 
 
 def band_entries(p, h):
@@ -673,6 +773,9 @@ def main() -> int:
     for name, info in logs.items():
         for line in ptxas_summary(info["log"]):
             print(f"   {name}: {line}")
+            if name == "pca_project" and "stage_" in line:   # kernels 4, 5
+                check("0 bytes spill stores" in line,
+                      f"kernel 4 or 5 spills: {line}")
 
     phase("3 kernels vs plain at slice width")
     record: dict[str, dict] = {}
@@ -772,7 +875,8 @@ def main() -> int:
                            xm.reshape(S, Kb * Nb, p), H)
                 del xm, xw
         del xb, out, plain
-    split_kernels(record, x.reshape(S, R, P), masks, basis, mean, il, eps)
+    split_kernels(record, x.reshape(S, R, P), masks, basis, mean, il, eps,
+                  g)
     del x, masks, basis
     torch.cuda.empty_cache()
     round_and_banded_kernels(record, dev, g)
@@ -928,7 +1032,7 @@ def main() -> int:
           "split engine launched the quantized-score kernels")
     split_books = sink_books(res, "split")
     for name in ("supervised_compress", "pca_monitor"):
-        record[name]["launches"] = launches[name]
+        record[name]["launches_by_path"] = {"split engine": launches[name]}
 
     phase("7 engine: quantized scores")
     quant_cfg = dataclasses.replace(cfg, compression=CompressionConfig(
@@ -945,6 +1049,8 @@ def main() -> int:
           f"split {split_books[1]:.6g})")
     for name in ("pca_project", "pca_reconstruct"):
         record[name]["launches"] = launches[name]
+    record["pca_monitor"]["launches_by_path"]["quantized engine"] = \
+        launches["pca_monitor"]
     del res
 
     phase("8 per-round fleet: compression + detection")
@@ -1030,6 +1136,9 @@ def main() -> int:
     for name in ("band_round_masked", "band_round_masked_drop",
                  "banded_matmul", "banded_matvec"):
         record[name]["launches"] = launches[name]
+    for name in ("supervised_compress", "pca_monitor"):
+        record[f"{name}_r32"]["launches_by_path"] = {
+            "per-round fleet": launches[name]}
     del fin, met
     profile_breakdown(lambda: fleet_run(cfg, ROUNDS, live,
                                         "profiled per-round fleet"))
@@ -1072,8 +1181,8 @@ def main() -> int:
                                     "profiled bf16 stages engine"))
     del res
 
-    phase("11 device time of kernels 1 (fp32, bf16), 2, 3, 6, 7, 8, 9 and 10 "
-          "(torch.profiler)")
+    phase("11 device time of kernels 1 (fp32, bf16), 2-10 and the stage "
+          "recompute (torch.profiler)")
     xb = torch.randn((SLOTS, K, N, P), device=dev, generator=g)
     wb = torch.rand((SLOTS, K), device=dev, generator=g)
     mb = (torch.rand((SLOTS, K, P), device=dev, generator=g) > 0.05).float()
@@ -1135,7 +1244,33 @@ def main() -> int:
               f"{rec['device_ms']:.4f} ms [{names}] (events "
               f"{rec['ms']:.4f}); torch.bmm {rec['library_device_ms']:.4f} "
               f"ms [{lib_names}] (events {rec['library_ms']:.4f})")
-    del calls, xc, wr
+    del calls, xc
+    # kernels 4 and 5 at the engine's chunk and the fleet's round, and the
+    # fused body's plain-torch stage recompute (every slot, every step)
+    xs4 = torch.randn((SLOTS, K * N, P), device=dev, generator=g)
+    ms4 = (torch.rand((SLOTS, K, P), device=dev, generator=g) > 0.05).float()
+    mean = 0.1 * torch.randn((SLOTS, P), device=dev, generator=g)
+    il = torch.rand((SLOTS, Q), device=dev, generator=g) + 0.5
+    shapes = (("", xs4, ms4),
+              ("_r32", xs4[:, :N].contiguous(), ms4[:, :1].contiguous()))
+    for suffix, xr, mr in shapes:
+        for name, (run, *_) in stage_cases(xr, mr, N, wr, mean, il,
+                                           2.5).items():
+            rec = record[name + suffix]
+            rec["device_ms"], names = device_ms(run, 50)
+            print(f"   {name}{suffix} (R={xr.shape[1]}): device time a call "
+                  f"over 50 calls: kernel {rec['device_ms']:.4f} ms "
+                  f"[{names}] (events {rec['ms']:.4f}); bound "
+                  f"{rec['bound_ms']:.4f} ms")
+    recompute_ms, names = device_ms(
+        lambda: ops.fused_stream_stages_blocked(
+            xs4.reshape(SLOTS, K, N, P), wr, mean, il, epsilon=2.5,
+            with_compress=True, with_monitor=True, mask=ms4), 20)
+    print(f"   stage recompute of the fused body (ops.fused_stream_stages_"
+          f"blocked, plain torch, S={SLOTS} R={K * N} p={P} q={Q}, both "
+          f"stages): device time a step over 20 calls {recompute_ms:.4f} ms "
+          f"[{names}]")
+    del shapes, xs4, ms4, mean, il, wr
     band = torch.randn((SLOTS, 2 * H + 1, P), device=dev, generator=g) \
         * band_valid(P, H, device=dev)
     V = random_bases(SLOTS, P, Q, seed=6, device=dev).contiguous()
@@ -1156,6 +1291,9 @@ def main() -> int:
     del band, V, dense
 
     print(f"   total {time.perf_counter() - t_start:.1f} s")
+    for rec in record.values():
+        if "launches_by_path" in rec:
+            rec["launches"] = sum(rec["launches_by_path"].values())
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1], launches=rec["launches"],
@@ -1163,7 +1301,8 @@ def main() -> int:
              plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
              bound_by=rec["bound_by"], library_ms=rec.get("library_ms"),
              **{k: rec[k] for k in ("cast_ms", "cast_bound_ms", "device_ms",
-                                    "library_device_ms") if k in rec})
+                                    "library_device_ms", "launches_by_path")
+                if k in rec})
         for name, rec in record.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

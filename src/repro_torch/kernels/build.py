@@ -34,8 +34,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FUSED = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P,
           _P, _P, _P, _P, _P]
 # every C entry point returns cudaGetLastError() after its launch, but
-# pca_reconstruct_max_q(device) and fused_stream_max_q(device, bf16), which
-# return kernel 9's and kernel 1's largest q
+# pca_reconstruct_max_q(device), stage_tile_max_q(device) and
+# fused_stream_max_q(device, bf16), which return the largest q of kernel 9,
+# of kernels 4 and 5, and of kernel 1
 SOURCES: dict[str, dict[str, list]] = {
     "band_fold": {
         "band_fold_f32": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
@@ -53,10 +54,14 @@ SOURCES: dict[str, dict[str, list]] = {
     "fused_stream": {"fused_stream_f32": _FUSED, "fused_stream_bf16": _FUSED,
                      "fused_stream_max_q": [_I, _I]},
     "pca_project": {
-        "supervised_compress_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                    _F, _P, _P, _P, _P],
-        "pca_monitor_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
-                            _P, _P, _P],
+        # (x, m, basis, mean, S, R, p, q, mask_div, eps, z, xh, flags,
+        # stream) and (x, m, basis, mean, inv_lam, S, R, p, q, mask_div, z,
+        # t2, spe, stream): kernels 4 and 5, the basis read as it lies
+        "supervised_compress_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                    _P, _P, _P, _P],
+        "pca_monitor_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                            _P, _P],
+        "stage_tile_max_q": [_I],
         # (x, basis, S, R, p, q, z, stream) and (z, basis, S, R, p, q, xh,
         # stream): both read the (S, p, q) basis itself, not its transpose
         "pca_project_f32": [_P, _P, _I, _I, _I, _I, _P, _P],

@@ -14,17 +14,31 @@
 //    _reconstruct_kernel :74): X^ = Z W^T.
 // Every kernel takes the whole fleet in one launch, the slots on grid y.
 //
-// Kernels 4 and 5 are the stage device function of stages.cuh (kernel 1's
-// stage half before its register tile, stage_tile.cuh):
-// a block stages its kRows centred, masked rows in shared memory, one
-// thread per (row, component) forms the scores reading W through L1/L2
-// (__ldg), and one warp per row reconstructs, lanes striding over sensors
-// so x^ and flags are written coalesced (reading the wrapper's transposed
-// copy W^T).  The per-round (K, p) liveness mask is read at row r / n,
-// never expanded to the chunk's (K*n, p) in device memory (268 MB at 256
-// slots).  Every block re-reads its slot's W (128 KB) from L1/L2 and the
-// scores loop is one dependent chain of p multiply-adds per thread: this
-// keeps them far above their bounds (PERF.md has the times).
+// Kernels 4 and 5 are kernel 1's stage tile (stage_tile.cuh), one block of
+// 128 threads per 64 rows of one slot, grid (row blocks, slots): z by
+// kernel 8's register tile over a cp.async ring of x and W slices (x
+// centred and masked as it lands), x^ by kernel 9's tile over a ring of W
+// tiles, and an epilogue that reads x again to add the mean and write x^
+// and the flags (kernel 4) or sum SPE (kernel 5); T2 from the scores in
+// shared memory.  The basis is read as it lies, (S, p, q) row-major, with
+// no transposed copy, and shared memory does not grow with p: any p, and q
+// up to stage_tile_max_q (276 on the H100).  A per-round (K, p) liveness
+// mask is read at row r / n (mask_div), never expanded to the chunk's
+// (K*n, p) in device memory (268 MB at 256 slots); mask_div = 1 reads a
+// per-row mask.  The tile runs in a kernel of its own (stage_kernel, one
+// instantiation a stage, mask mode and row count, the tile called as a
+// non-inlined function), so kernel 4 does none of kernel 5's work and the
+// other way round.  Each output keeps kernel 1's
+// bits: z equals kernel 8's on (x - mean) m, x^ kernel 9's plus the mean,
+// and the flags, T2 and SPE kernel 1's on the same chunk.
+//
+// At the engine's chunk (S=256, R=K*n=256, p=1024, q=32) a launch is 1,024
+// blocks of 64 rows, about two waves of four blocks an SM.  At the
+// per-round fleet's round (R=n=32) it is 256 blocks, at most two an SM,
+// and each block's serial walk over p's 32 slices and 16 tiles, not the
+// card's bandwidth, sets the time; so a round takes blocks of 32 rows (the
+// tile's BM), each thread walking half as many rows as in a 64-row block,
+// none of them empty.
 //
 // Kernels 8 and 9 are tall, skinny fp32 products, register-tiled and fed
 // through shared memory.  At the slice (S=256 slots, R=K*n=256 rows,
@@ -55,8 +69,8 @@
 // (kernel 9 XOR-swizzles a W tile's float4 chunks in shared memory so a
 // warp's reads hit 32 banks).  Both keep each output's order of sums:
 // one fp32 accumulator per output walks p (kernel 8) or q (kernel 9) in
-// increasing order with fused multiply-adds, as stage_scores and
-// reconstruct_one do — the bits of the kernels they replaced.  No
+// increasing order with fused multiply-adds, as the stage tile's phases
+// A and B do, so kernels 1, 4 and 5 give their z and x^ bits.  No
 // atomics, no split of a sum across threads or blocks, no tensor cores
 // (no TF32): fp32 FMAs on CUDA cores.
 // p or q not a multiple of 4, or an operand not 16-byte aligned, takes
@@ -65,34 +79,55 @@
 // Kernels 4, 5 at the slice: two products, 8.59 GFLOP (0.128 ms), against
 // x 268 + mask 8.4 + W 33.5 + mean 1 + z 8.4 + x^ 268 + flags 67 MB =
 // 655 MB (0.196 ms, kernel 4: bytes) or ~320 MB (0.095 ms, kernel 5:
-// operations).
+// operations).  At the round (R=32, a (S, 1, p) mask): x 33.5 + W 33.5 +
+// x^ 33.5 + flags 8.4 MB and small operands, 112 MB (0.0335 ms, kernel 4)
+// or 70 MB (0.021 ms, kernel 5), both bound by bytes.
 #include <cstdint>
 
 #include "cp_async.cuh"
-#include "stages.cuh"
+#include "stage_tile.cuh"
 
 namespace repro_torch {
 
-template <bool HAS_MASK, bool WITH_C, bool WITH_M>
-__global__ void __launch_bounds__(kStageThreads)
+// The tile as a function of its own (not inlined), as kernel 1 calls it:
+// inlined into stage_kernel, kernel 4's masked 64-row tile spilled 64
+// bytes at the launch bound's 128 registers; called, it gets a register
+// allocation of its own and no instantiation spills.
+template <bool HAS_MASK, bool WITH_C, bool WITH_M, int BM>
+__device__ __noinline__ void stage_rows(
+    const float* x, const float* m, int mask_div, const float* basis,
+    const float* mean, const float* inv_lam, int R, int p, int q, float eps,
+    bool vec, int r0, float* z, float* xh, unsigned char* flags, float* t2,
+    float* spe, float* smem) {
+  stage_tile<HAS_MASK, WITH_C, WITH_M, float, BM>(
+      x, m, mask_div, basis, mean, inv_lam, R, p, q, eps, vec, r0, z, xh,
+      flags, t2, spe, smem);
+}
+
+// Kernels 4 (WITH_C) and 5 (WITH_M): rows [BM blockIdx.x, + BM) of slot
+// blockIdx.y, kTileThreads threads.
+// x (S, R, p), m (S, R / mask_div, p) or unused, basis (S, p, q), mean
+// (S, p), inv_lam (S, q) (WITH_M); outputs z (S, R, q), xh/flags (S, R, p)
+// (WITH_C), t2/spe (S, R) (WITH_M).
+template <bool HAS_MASK, bool WITH_C, bool WITH_M, int BM>
+__global__ void __launch_bounds__(kTileThreads, 4)
 stage_kernel(const float* __restrict__ x, const float* __restrict__ m,
              int mask_div, const float* __restrict__ basis,
-             const float* __restrict__ basis_t,
              const float* __restrict__ mean,
              const float* __restrict__ inv_lam, int R, int p, int q,
-             float eps, float* __restrict__ z, float* __restrict__ xh,
-             unsigned char* __restrict__ flags, float* __restrict__ t2,
-             float* __restrict__ spe) {
+             float eps, bool vec, float* __restrict__ z,
+             float* __restrict__ xh, unsigned char* __restrict__ flags,
+             float* __restrict__ t2, float* __restrict__ spe) {
+  extern __shared__ __align__(16) float stage_smem[];
   const size_t s = blockIdx.y;
   const size_t rows = s * R;
-  extern __shared__ float smem[];
-  stage_block<HAS_MASK, WITH_C, WITH_M>(
+  stage_rows<HAS_MASK, WITH_C, WITH_M, BM>(
       x + rows * p, HAS_MASK ? m + s * (R / mask_div) * (size_t)p : nullptr,
-      mask_div, basis + s * p * q, basis_t + s * p * q, mean + s * p,
-      WITH_M ? inv_lam + s * q : nullptr, R, p, q, eps, blockIdx.x * kRows,
-      z + rows * q, WITH_C ? xh + rows * p : nullptr,
+      mask_div, basis + s * p * q, mean + s * p,
+      WITH_M ? inv_lam + s * q : nullptr, R, p, q, eps, vec,
+      blockIdx.x * BM, z + rows * q, WITH_C ? xh + rows * p : nullptr,
       WITH_C ? flags + rows * p : nullptr, WITH_M ? t2 + rows : nullptr,
-      WITH_M ? spe + rows : nullptr, smem);
+      WITH_M ? spe + rows : nullptr, stage_smem);
 }
 
 // ---- kernel 8: Z = X W --------------------------------------------------
@@ -378,25 +413,62 @@ reconstruct_kernel(const float* __restrict__ z,
   }
 }
 
-template <typename Kernel, typename... Args>
-static int launch(Kernel kernel, int S, int R, size_t smem, void* stream,
-                  Args... args) {
+static bool aligned16(const void* ptr) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
+}
+
+// One launch of kernel 4 (WITH_C) or 5 (WITH_M) over every slot in blocks
+// of BM rows, 16-byte copies (vec) where p and q are multiples of 4 and
+// every operand the tile reads by float4 or writes by float4/uchar4 is
+// 16-byte aligned.
+template <bool WITH_C, bool WITH_M, int BM>
+static int launch_stage(const float* x, const float* m, int mask_div,
+                        const float* basis, const float* mean,
+                        const float* inv_lam, int S, int R, int p, int q,
+                        float eps, float* z, float* xh, unsigned char* flags,
+                        float* t2, float* spe, void* stream) {
+  const bool masked = m != nullptr;
+  auto kernel = masked ? stage_kernel<true, WITH_C, WITH_M, BM>
+                       : stage_kernel<false, WITH_C, WITH_M, BM>;
+  const size_t smem = sizeof(float) * stage_tile_smem_floats<float, BM>(q);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  dim3 grid((R + kRows - 1) / kRows, S);
-  kernel<<<grid, kStageThreads, smem, (cudaStream_t)stream>>>(args...);
+  const bool vec = p % 4 == 0 && q % 4 == 0 && aligned16(x) &&
+                   (!masked || aligned16(m)) && aligned16(basis) &&
+                   aligned16(mean) && aligned16(z) &&
+                   (!WITH_C || (aligned16(xh) && aligned16(flags)));
+  dim3 grid((R + BM - 1) / BM, S);
+  kernel<<<grid, kTileThreads, smem, (cudaStream_t)stream>>>(
+      x, m, mask_div, basis, mean, inv_lam, R, p, q, eps, vec, z, xh, flags,
+      t2, spe);
   return (int)cudaGetLastError();
 }
 
-static size_t stage_smem(int p, int q) {
-  return sizeof(float) * (size_t)kRows * (p + q);
-}
+// The rows a block of kernels 4 and 5 owns: 64, or 32 for a round of at
+// most 32 rows (the per-round fleet's), whose 64-row blocks would be half
+// empty: at 32 rows each thread walks half the rows, and the round's time
+// is the walk's (PERF.md's table).
+static int block_rows(int R) { return R <= 32 ? 32 : kTileRows; }
 
-static bool aligned16(const void* ptr) {
-  return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
+template <bool WITH_C, bool WITH_M>
+static int stage_entry(const float* x, const float* m, int mask_div,
+                       const float* basis, const float* mean,
+                       const float* inv_lam, int S, int R, int p, int q,
+                       float eps, float* z, float* xh,
+                       unsigned char* flags, float* t2, float* spe,
+                       void* stream) {
+  if (S < 1 || R < 1 || p < 1 || q < 1 || mask_div < 1)
+    return (int)cudaErrorInvalidValue;
+  if (block_rows(R) == 32)
+    return launch_stage<WITH_C, WITH_M, 32>(x, m, mask_div, basis, mean,
+                                            inv_lam, S, R, p, q, eps, z, xh,
+                                            flags, t2, spe, stream);
+  return launch_stage<WITH_C, WITH_M, kTileRows>(x, m, mask_div, basis, mean,
+                                                 inv_lam, S, R, p, q, eps, z,
+                                                 xh, flags, t2, spe, stream);
 }
 
 }  // namespace repro_torch
@@ -404,42 +476,44 @@ static bool aligned16(const void* ptr) {
 extern "C" {
 
 // x (S, R, p); m (S, R / mask_div, p) liveness x validity or NULL (row r
-// reads mask row r / mask_div); basis (S, p, q) and basis_t (S, q, p) its
-// transpose; mean (S, p).  Outputs
-// z (S, R, q), xh (S, R, p) fp32 and flags (S, R, p) bytes.  Contiguous.
+// reads mask row r / mask_div); basis (S, p, q) row-major, read as it
+// lies; mean (S, p).  Outputs z (S, R, q), xh (S, R, p) fp32 and flags
+// (S, R, p) bytes.  Contiguous; any p, 1 <= q <= stage_tile_max_q.
 int supervised_compress_f32(const float* x, const float* m,
-                            const float* basis, const float* basis_t,
-                            const float* mean, int S,
+                            const float* basis, const float* mean, int S,
                             int R, int p, int q, int mask_div, float eps,
                             float* z, float* xh, unsigned char* flags,
                             void* stream) {
-  using namespace repro_torch;
-  const size_t smem = stage_smem(p, q);
-  if (m != nullptr)
-    return launch(stage_kernel<true, true, false>, S, R, smem, stream, x, m,
-                  mask_div, basis, basis_t, mean, (const float*)nullptr, R,
-                  p, q, eps, z, xh, flags, (float*)nullptr, (float*)nullptr);
-  return launch(stage_kernel<false, true, false>, S, R, smem, stream, x, m,
-                mask_div, basis, basis_t, mean, (const float*)nullptr, R, p,
-                q, eps, z, xh, flags, (float*)nullptr, (float*)nullptr);
+  return repro_torch::stage_entry<true, false>(
+      x, m, mask_div, basis, mean, nullptr, S, R, p, q, eps, z, xh, flags,
+      nullptr, nullptr, stream);
 }
 
-// x, m, basis, basis_t, mean as above; inv_lam (S, q).  Outputs
-// z (S, R, q) and t2, spe (S, R), fp32.
+// x, m, basis, mean as above; inv_lam (S, q).  Outputs z (S, R, q)
+// and t2, spe (S, R), fp32.
 int pca_monitor_f32(const float* x, const float* m, const float* basis,
-                    const float* basis_t, const float* mean,
-                    const float* inv_lam, int S, int R, int p, int q,
-                    int mask_div, float* z, float* t2, float* spe,
-                    void* stream) {
-  using namespace repro_torch;
-  const size_t smem = stage_smem(p, q);
-  if (m != nullptr)
-    return launch(stage_kernel<true, false, true>, S, R, smem, stream, x, m,
-                  mask_div, basis, basis_t, mean, inv_lam, R, p, q, 0.0f, z,
-                  (float*)nullptr, (unsigned char*)nullptr, t2, spe);
-  return launch(stage_kernel<false, false, true>, S, R, smem, stream, x, m,
-                mask_div, basis, basis_t, mean, inv_lam, R, p, q, 0.0f, z,
-                (float*)nullptr, (unsigned char*)nullptr, t2, spe);
+                    const float* mean, const float* inv_lam, int S, int R,
+                    int p, int q, int mask_div, float* z, float* t2,
+                    float* spe, void* stream) {
+  return repro_torch::stage_entry<false, true>(
+      x, m, mask_div, basis, mean, inv_lam, S, R, p, q, 0.0f, z, nullptr,
+      nullptr, t2, spe, stream);
+}
+
+// The largest q kernels 4 and 5 take on `device` at every row count: the
+// 64-row stage tile's scores and rings within the block's opt-in shared
+// memory (276 on the H100; fewer rows need less); 0 if the device cannot
+// be queried.
+int stage_tile_max_q(int device) {
+  int optin = 0;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess)
+    return 0;
+  int q = 0;
+  while (sizeof(float) * repro_torch::stage_tile_smem_floats<float>(q + 1) <=
+         (size_t)optin)
+    ++q;
+  return q;
 }
 
 // x (S, R, p) rows (already centred and masked), basis (S, p, q) ->

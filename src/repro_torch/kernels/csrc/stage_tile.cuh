@@ -1,6 +1,6 @@
-// The stage tile: the per-row stages of kernel 1 (fused_stream.cu) for 64
-// rows of one slot, at the EXACT sensor count p, written so that kernels 4
-// and 5 can take it up:
+// The stage tile: the per-row stages of kernel 1 (fused_stream.cu) and of
+// kernels 4 and 5 (pca_project.cu, each stage alone) for 64 rows of one
+// slot, at the EXACT sensor count p:
 //   z   = ((x - mean) m) W                      (R, q)
 //   x^  = z W^T + mean                          (R, p)  [WITH_C]
 //   flags = (|x - x^| > eps) & (m > 0), strict  (R, p)  [WITH_C]
@@ -13,20 +13,24 @@
 //
 // Design: kernel 8's and kernel 9's register tiles (pca_project.cu), one
 // block of 128 threads owning 64 rows, so that shared memory no longer
-// grows with p.
+// grows with p.  The row count BM is a template parameter (64, kernel 1's;
+// kernels 4 and 5 also take 32, for a round of at most 32 rows): the block
+// keeps its 128 threads and its row groups, and each thread's rows scale
+// with BM, so each output's order of sums, and its bits, do not depend on
+// BM.  The figures below are at 64 rows.
 //  * Phase A, z = ((x - mean) m) W: 16 row groups x 8 column groups, 4 rows
 //    x 4 columns a thread (64 rows x 32 columns a pass; a wider q takes a
 //    pass more over x).  p streams in slices of 32 sensors through a
 //    two-slot cp.async ring of x and W; each thread centres and masks the
-//    x chunks it copied before the slice's barrier, with stage_block's two
-//    roundings (v = x - mean, then v *= m), from mean and mask values it
-//    loaded a slice ahead.  Each score walks p in
+//    x chunks it copied before the slice's barrier, with two roundings
+//    (v = x - mean, then v *= m, as (x - mean) m in torch), from mean and
+//    mask values it loaded a slice ahead.  Each score walks p in
 //    increasing order with fused multiply-adds from 0: kernel 8's bits on
 //    the centred, masked rows.  The scores go to z and stay in shared
 //    memory.
 //  * T2, from the scores in shared memory: a warp per row, lane c (strided
-//    by 32), then the xor butterfly — stage_block's order and expression,
-//    so kernel 5's bits.
+//    by 32), then the xor butterfly: one fixed order, so kernels 1 and 5
+//    give T2 the same bits and the books keep theirs.
 //  * Phase B, x^ = z W^T + mean: kernel 9's block, 8 row groups x 16
 //    sensor groups, 8 rows x 4 adjacent sensors a thread, over every
 //    64-sensor tile of p in order; the W tiles (64 sensors x q, as they
@@ -41,12 +45,12 @@
 //    the loaded x, and adds ((x - mean) m - z W^T)^2 m^2 into the rows' SPE
 //    sums.  (Reading x in the product's layout put a global load's latency
 //    under every pair of outputs.)
-//  * SPE keeps stage_block's order (kernel 5's bits): sensor i goes to sum
-//    i mod 32, each sum in increasing i from 0, then the xor butterfly over
-//    the 32 sums.  In the epilogue's layout both sensors of a tile with
-//    residue 4 cg + j fall to the same thread, in order, so the sums need
-//    no exchange until the butterfly, whose steps 16, 8, 4 cross lanes 4,
-//    2, 1 apart and whose steps 2 and 1 join the thread's j.
+//  * SPE in one fixed order too: sensor i goes to sum i mod 32, each sum
+//    in increasing i from 0, then the xor butterfly over the 32 sums.  In
+//    the epilogue's layout both sensors of a tile with residue 4 cg + j
+//    fall to the same thread, in order, so the sums need no exchange until
+//    the butterfly, whose steps 16, 8, 4 cross lanes 4, 2, 1 apart and
+//    whose steps 2 and 1 join the thread's j.
 // No atomics, no split of a sum across blocks: two launches give equal
 // bits.
 //
@@ -64,7 +68,7 @@
 // beside the larger of phase A's ring and phase B's (with its 64 x 68 tile
 // of sums): at q = 32, 42 KB in fp32 and 50 KB in bf16, for any p — four
 // blocks an SM.  q is bounded by the block's shared memory
-// (fused_stream_max_q).
+// (fused_stream_max_q for kernel 1, stage_tile_max_q for kernels 4 and 5).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -79,22 +83,21 @@ namespace repro_torch {
 
 constexpr int kTileThreads = 128;
 constexpr int kTileRows = 64;                    // rows a block owns
+// The row groups of every phase tile the block's 128 threads; a thread
+// owns BM / (row groups) rows of a block of BM (4, 8 and 4 at 64 rows).
 // phase A: z = xc W
 constexpr int kZRG = 16, kZCG = 8;               // row x column groups
-constexpr int kZTM = kTileRows / kZRG;           // 4 rows a thread
 constexpr int kZCols = 4 * kZCG;                 // 32 columns a pass
 constexpr int kZK = 32;                          // sensors a slice
 constexpr int kZStages = 2;
 constexpr int kZXLD = kZK + 4;                   // rows 1 apart: 4 banks
 // phase B: x^ = z W^T
 constexpr int kXRG = 8, kXSG = 16;               // row x sensor groups
-constexpr int kXTM = kTileRows / kXRG;           // 8 rows a thread
 constexpr int kXTile = 4 * kXSG;                 // 64 sensors a tile
 constexpr int kXStages = 2;
 constexpr int kXOLD = kXTile + 4;                // the tile of sums' rows
 // phase B's epilogue: 16 row groups x 8 column groups
 constexpr int kERG = 16, kECG = 8;
-constexpr int kETM = kTileRows / kERG;           // 4 rows a thread
 static_assert(kZRG * kZCG == kTileThreads && kXRG * kXSG == kTileThreads &&
                   kERG * kECG == kTileThreads,
               "every phase tiles the block's threads");
@@ -105,14 +108,14 @@ __host__ __device__ constexpr int round_up(int v, int to) {
   return (v + to - 1) / to * to;
 }
 
-// Floats of the stage tile's shared memory at q components.
-template <typename T>
+// Floats of the stage tile's shared memory at q components, BM rows.
+template <typename T, int BM = kTileRows>
 __host__ __device__ constexpr int stage_tile_smem_floats(int q) {
   const bool wide = sizeof(T) == 2;
-  const int scores = kTileRows * (round_up(q, 4) + 4);
-  const int a = kZStages * (kTileRows * kZXLD + kZK * kZCols) +
-                (wide ? kZStages * (kTileRows * kZK + kZK * kZCols) / 2 : 0);
-  const int b = kXStages * kXTile * round_up(q, 4) + kTileRows * kXOLD +
+  const int scores = BM * (round_up(q, 4) + 4);
+  const int a = kZStages * (BM * kZXLD + kZK * kZCols) +
+                (wide ? kZStages * (BM * kZK + kZK * kZCols) / 2 : 0);
+  const int b = kXStages * kXTile * round_up(q, 4) + BM * kXOLD +
                 (wide ? kXStages * kXTile * round_up(q, 8) / 2 : 0);
   return scores + (a > b ? a : b);
 }
@@ -138,13 +141,14 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
-// The stages of rows [r0, r0 + 64) of one slot.  Pointers are the slot's:
+// The stages of rows [r0, r0 + BM) of one slot.  Pointers are the slot's:
 // x (R, p), m (R / mask_div, p) or unused, basis (p, q), mean (p), inv_lam
 // (q) (WITH_M); outputs z (R, q), xh/flags (R, p) (WITH_C), t2/spe (R)
 // (WITH_M).  vec: p and q are multiples of 16 bytes' worth of T and every
-// operand is 16-byte aligned.  smem: stage_tile_smem_floats<T>(q) floats,
-// 16-byte aligned.  kTileThreads threads.
-template <bool HAS_MASK, bool WITH_C, bool WITH_M, typename T>
+// operand is 16-byte aligned.  smem: stage_tile_smem_floats<T, BM>(q)
+// floats, 16-byte aligned.  kTileThreads threads.
+template <bool HAS_MASK, bool WITH_C, bool WITH_M, typename T,
+          int BM = kTileRows>
 __device__ __forceinline__ void stage_tile(
     const T* __restrict__ x, const float* __restrict__ m, int mask_div,
     const T* __restrict__ basis, const float* __restrict__ mean,
@@ -153,7 +157,12 @@ __device__ __forceinline__ void stage_tile(
     unsigned char* __restrict__ flags, float* __restrict__ t2,
     float* __restrict__ spe, float* __restrict__ smem) {
   constexpr bool WIDE = !std::is_same<T, float>::value;
-  constexpr int NT = kTileThreads, BM = kTileRows;
+  constexpr int NT = kTileThreads;
+  // a thread's rows in phase A, phase B's product and its epilogue
+  constexpr int ZTM = BM / kZRG, XTM = BM / kXRG, ETM = BM / kERG;
+  static_assert(ZTM * kZRG == BM && XTM * kXRG == BM && ETM * kERG == BM &&
+                    ETM >= 1,
+                "every phase tiles the block's rows");
   constexpr int EV = 16 / sizeof(T);             // values a 16-byte copy
   const int tid = threadIdx.x;
   const int q4 = round_up(q, 4), zld = q4 + 4;
@@ -300,9 +309,9 @@ __device__ __forceinline__ void stage_tile(
     };
 
     for (int c0 = 0; c0 < q; c0 += kZCols) {
-      float acc[kZTM][4];
+      float acc[ZTM][4];
 #pragma unroll
-      for (int i = 0; i < kZTM; ++i)
+      for (int i = 0; i < ZTM; ++i)
 #pragma unroll
         for (int n = 0; n < 4; ++n) acc[i][n] = 0.0f;
       load(c0, 0, 0);
@@ -318,9 +327,9 @@ __device__ __forceinline__ void stage_tile(
         const float* wt = ws + slot * WS + 4 * cg;
 #pragma unroll
         for (int k = 0; k < kZK; k += 4) {
-          float4 a[kZTM], b[4];
+          float4 a[ZTM], b[4];
 #pragma unroll
-          for (int i = 0; i < kZTM; ++i)
+          for (int i = 0; i < ZTM; ++i)
             a[i] = *reinterpret_cast<const float4*>(xt + i * kZRG * kZXLD + k);
 #pragma unroll
           for (int j = 0; j < 4; ++j)   // b[j]: sensor k + j, columns 4 cg ..
@@ -328,7 +337,7 @@ __device__ __forceinline__ void stage_tile(
 #pragma unroll
           for (int j = 0; j < 4; ++j)     // sensors k + j in increasing order
 #pragma unroll
-            for (int i = 0; i < kZTM; ++i) {
+            for (int i = 0; i < ZTM; ++i) {
               const float av = lane_of(a[i], j);
 #pragma unroll
               for (int n = 0; n < 4; ++n)
@@ -339,7 +348,7 @@ __device__ __forceinline__ void stage_tile(
       // this pass's scores: to shared memory (zero past q: W was) and to z
       const int c = c0 + 4 * cg;
 #pragma unroll
-      for (int i = 0; i < kZTM; ++i) {
+      for (int i = 0; i < ZTM; ++i) {
         const int rr = rg + i * kZRG, r = r0 + rr;
         if (c < q4)
           *reinterpret_cast<float4*>(zs + rr * zld + c) =
@@ -415,7 +424,7 @@ __device__ __forceinline__ void stage_tile(
     cp_async_commit();
   }
 
-  if constexpr (WITH_M) {   // T2: a warp per row, stage_block's order
+  if constexpr (WITH_M) {   // T2: a warp per row, lanes strided over q
     const int warp = tid >> 5, lane = tid & 31;
     constexpr int WROWS = BM / (NT / 32);
     for (int j = 0; j < WROWS; ++j) {
@@ -433,15 +442,15 @@ __device__ __forceinline__ void stage_tile(
   const float* zr = zs + rg * zld;
   // the epilogue's layout: rows erg + 16 k, sensors 4 ecg .. and 32 + 4 ecg ..
   const int ecg = tid % kECG, erg = tid / kECG;
-  int emrow[kETM];   // mask rows of the epilogue's rows
+  int emrow[ETM];   // mask rows of the epilogue's rows
 #pragma unroll
-  for (int k = 0; k < kETM; ++k) {
+  for (int k = 0; k < ETM; ++k) {
     const int r = r0 + erg + k * kERG;
     emrow[k] = r < R ? r / mask_div : 0;
   }
-  float spe_acc[kETM][4];   // the sums of residues 4 ecg .. 4 ecg + 3
+  float spe_acc[ETM][4];   // the sums of residues 4 ecg .. 4 ecg + 3
 #pragma unroll
-  for (int k = 0; k < kETM; ++k)
+  for (int k = 0; k < ETM; ++k)
 #pragma unroll
     for (int j = 0; j < 4; ++j) spe_acc[k][j] = 0.0f;
 
@@ -457,15 +466,15 @@ __device__ __forceinline__ void stage_tile(
     cp_async_commit();
     {
       const float* wt = wring + slot * wtile;
-      float acc[kXTM][4];
+      float acc[XTM][4];
 #pragma unroll
-      for (int t = 0; t < kXTM; ++t)
+      for (int t = 0; t < XTM; ++t)
 #pragma unroll
         for (int n = 0; n < 4; ++n) acc[t][n] = 0.0f;
       for (int c = 0; c < q4; c += 4) {
-        float4 a[kXTM], b[4];
+        float4 a[XTM], b[4];
 #pragma unroll
-        for (int t = 0; t < kXTM; ++t)
+        for (int t = 0; t < XTM; ++t)
           a[t] = *reinterpret_cast<const float4*>(zr + t * kXRG * zld + c);
 #pragma unroll
         for (int j = 0; j < 4; ++j)   // b[j]: sensor 4 sg + j, components c ..
@@ -474,7 +483,7 @@ __device__ __forceinline__ void stage_tile(
 #pragma unroll
         for (int j = 0; j < 4; ++j)     // components c + j in increasing order
 #pragma unroll
-          for (int t = 0; t < kXTM; ++t) {
+          for (int t = 0; t < XTM; ++t) {
             const float zv = lane_of(a[t], j);
 #pragma unroll
             for (int n = 0; n < 4; ++n)
@@ -482,7 +491,7 @@ __device__ __forceinline__ void stage_tile(
           }
       }
 #pragma unroll
-      for (int t = 0; t < kXTM; ++t)
+      for (int t = 0; t < XTM; ++t)
         *reinterpret_cast<float4*>(xo + (rg + t * kXRG) * kXOLD + 4 * sg) =
             make_float4(acc[t][0], acc[t][1], acc[t][2], acc[t][3]);
     }
@@ -495,7 +504,7 @@ __device__ __forceinline__ void stage_tile(
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       const int i = ib + hf * (kXTile / 2) + 4 * ecg;
-      float4 xv[kETM], mv[kETM], mu;
+      float4 xv[ETM], mv[ETM], mu;
       {
         float v[4];
 #pragma unroll
@@ -513,7 +522,7 @@ __device__ __forceinline__ void stage_tile(
         mu = make_float4(v[0], v[1], v[2], v[3]);
       }
 #pragma unroll
-      for (int k = 0; k < kETM; ++k) {
+      for (int k = 0; k < ETM; ++k) {
         const int r = r0 + erg + k * kERG;
         float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         float4 b = make_float4(1.0f, 1.0f, 1.0f, 1.0f);
@@ -543,7 +552,7 @@ __device__ __forceinline__ void stage_tile(
         mv[k] = b;
       }
 #pragma unroll
-      for (int k = 0; k < kETM; ++k) {
+      for (int k = 0; k < ETM; ++k) {
         const int rr = erg + k * kERG, r = r0 + rr;
         if (r >= R) continue;
         const size_t row = (size_t)r * p;
@@ -562,9 +571,9 @@ __device__ __forceinline__ void stage_tile(
             fl[j] = (err > eps && m_j > 0.0f) ? 1 : 0;
           }
           if constexpr (WITH_M) {
-            // stage_block's roundings, v = x - mean, v *= m, each its own
-            // (stage_block stores v to shared memory, so no contraction
-            // joins v *= m to the subtraction below)
+            // two roundings, v = x - mean, v *= m, as (x - mean) m in
+            // torch: no contraction may join v *= m to the subtraction
+            // below
             float v = __fsub_rn(xj, mu_j);
             if (HAS_MASK) v = __fmul_rn(v, m_j);
             const float res = (v - xh_r) * m_j;
@@ -592,7 +601,7 @@ __device__ __forceinline__ void stage_tile(
 
   if constexpr (WITH_M) {   // the butterfly: residue bits 16, 8, 4 are lane
 #pragma unroll               // bits 4, 2, 1; bits 2 and 1 the thread's j
-    for (int k = 0; k < kETM; ++k) {
+    for (int k = 0; k < ETM; ++k) {
       float v[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {

@@ -14,6 +14,7 @@ allocate nothing: the wrapper allocates every output with ``torch.empty``.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -37,8 +38,6 @@ LAUNCHES = dict.fromkeys(_KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(_KERNELS, 0)
 
 _MAX_SLOTS = 65535              # grid y
-_STAGE_ROWS = 8                 # kRows in stages.cuh
-_MAX_SMEM = 232448              # bytes of shared memory a Hopper block can use
 
 
 def reset_counts() -> None:
@@ -66,28 +65,37 @@ def _cuda_operand(t: torch.Tensor, device: torch.device,
     return t.to(dtype).contiguous()
 
 
-def _transposed(basis: torch.Tensor) -> torch.Tensor:
-    """(S, q, p) contiguous copy of a (S, p, q) basis: the reconstruction
-    loop of the stage kernels 4 and 5 reads it so that a warp's loads are
-    consecutive (kernels 1, 8 and 9 read the basis as it lies)."""
-    return basis.transpose(1, 2).contiguous()
-
-
 def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
-def _cuda_checks(S, R, p, q, stage=True):
-    """What a stage-kernel launch cannot take: more slots than grid y, no
-    rows, or (``stage``: kernels 4 and 5, which stage 8 whole rows) rows
-    too wide for the block's shared memory."""
+def _cuda_checks(S, R):
+    """What a launch over every slot cannot take: more slots than grid y,
+    or no rows."""
     if S > _MAX_SLOTS:
         raise ValueError(f"{S} slots exceed the grid's {_MAX_SLOTS}")
     if R < 1:
         raise ValueError("no rows to launch over")
-    if stage and 4 * _STAGE_ROWS * (p + q) > _MAX_SMEM:
-        raise ValueError(f"p={p}, q={q} exceed the stage block's shared "
-                         f"memory")
+
+
+@functools.lru_cache(maxsize=None)
+def _max_q(library: str, entry: str, *args: int) -> int:
+    """The largest q a C entry (``*_max_q``) reports for a device (and
+    mode), queried once: a device attribute does not change."""
+    return getattr(load_library(library), entry)(*args)
+
+
+def _stage_tile_library(S, R, q, device):
+    """The library of kernels 4 and 5 once their launch checks pass: q up
+    to the stage tile's shared memory (``stage_tile_max_q``, 276 on the
+    H100; any p)."""
+    _cuda_checks(S, R)
+    lib = load_library("pca_project")
+    max_q = _max_q("pca_project", "stage_tile_max_q", device.index)
+    if q > max_q:
+        raise ValueError(f"q={q} exceeds the stage tile's shared memory "
+                         f"(q <= {max_q})")
+    return lib
 
 
 def _mask_rows(mask: torch.Tensor, B: int, K: int, n: int, p: int,
@@ -302,10 +310,11 @@ def fused_stream_update(x: torch.Tensor, weights: torch.Tensor,
         band, z, xh, fl, t2, spe = ref.fused_stream(
             x, weights, basis, mean, inv_lam, h, float(epsilon), mask)
     else:
-        _cuda_checks(S, K * n, p, q, stage=False)
+        _cuda_checks(S, K * n)
         dev = x.device
         lib = load_library("fused_stream")
-        max_q = lib.fused_stream_max_q(dev.index, int(precision == "bf16"))
+        max_q = _max_q("fused_stream", "fused_stream_max_q", dev.index,
+                       int(precision == "bf16"))
         if q > max_q:
             raise ValueError(f"q={q} exceeds kernel 1's shared memory "
                              f"(q <= {max_q} with {precision} tiles)")
@@ -359,23 +368,25 @@ def fused_stream_stages_blocked(x: torch.Tensor, basis: torch.Tensor,
             t2 if with_monitor else None, spe if with_monitor else None)
 
 
-def _stage_operands(x, basis, mean, inv_lam=None):
+def _stage_operands(x, basis, mean, inv_lam=None, *, monitor=False):
     """Shape checks and fp32 defaults shared by the split-path wrappers:
     ``x`` (S, R, p), ``basis`` (S, p, q), ``mean`` (S, p) or None (zero),
-    ``inv_lam`` (S, q) or None (ones)."""
+    and with ``monitor`` ``inv_lam`` (S, q) or None (ones; else None)."""
     if x.dim() != 3:
         raise ValueError(f"expected (slots, rows, p), got {tuple(x.shape)}")
     S, R, p = x.shape
     q = basis.shape[-1]
     mean = (x.new_zeros((S, p), dtype=torch.float32) if mean is None
             else mean.to(torch.float32))
-    inv_lam = (x.new_ones((S, q), dtype=torch.float32) if inv_lam is None
-               else inv_lam.to(torch.float32))
+    if monitor:
+        inv_lam = (x.new_ones((S, q), dtype=torch.float32) if inv_lam is None
+                   else inv_lam.to(torch.float32))
     if basis.shape != (S, p, q) or mean.shape != (S, p) \
-            or inv_lam.shape != (S, q):
+            or (monitor and inv_lam.shape != (S, q)):
         raise ValueError(
             f"operand shapes basis {tuple(basis.shape)}, mean "
-            f"{tuple(mean.shape)}, inv_lam {tuple(inv_lam.shape)} do not "
+            f"{tuple(mean.shape)}, inv_lam "
+            f"{None if inv_lam is None else tuple(inv_lam.shape)} do not "
             f"match x {(S, R, p)}")
     return S, R, p, q, mean, inv_lam
 
@@ -403,27 +414,28 @@ def supervised_compress(x: torch.Tensor, basis: torch.Tensor,
                         n: int | None = None):
     """ONE launch over every slot: ``z = ((x - mean) m) W``,
     ``x_hat = z W^T + mean``, ``flags = (|x - x_hat| > eps) & m``
-    (kernel 4, ``csrc/pca_project.cu``).  ``x`` (S, R, p), ``basis``
-    (S, p, q), ``mean`` (S, p); ``mask`` (S, R, p) per row, (S, R / n, p)
-    per round with ``n`` given, or None.  Returns ``(z, x_hat, flagged)``:
-    (S, R, q), (S, R, p) fp32 and (S, R, p) bool."""
+    (kernel 4, ``csrc/pca_project.cu``: kernel 1's stage tile,
+    ``csrc/stage_tile.cuh``, which reads the basis as it lies; any p, and q
+    up to the tile's shared memory, ``stage_tile_max_q``: a ``ValueError``
+    beyond).  ``x`` (S, R, p), ``basis`` (S, p, q), ``mean`` (S, p);
+    ``mask`` (S, R, p) per row, (S, R / n, p) per round with ``n`` given,
+    or None.  Returns ``(z, x_hat, flagged)``: (S, R, q), (S, R, p) fp32
+    and (S, R, p) bool."""
     S, R, p, q, mean, _ = _stage_operands(x, basis, mean)
     m, div = _stage_mask(mask, S, R, p, n)
     if not x.is_cuda:
         PLAIN_CALLS["supervised_compress"] += 1
         return ref.supervised_compress(x, basis, mean, _plain_mask(m, div),
                                        float(epsilon))
-    _cuda_checks(S, R, p, q)
     dev = x.device
+    lib = _stage_tile_library(S, R, q, dev)
     xx, bs, mu = (_cuda_operand(t, dev) for t in (x, basis, mean))
     mm = None if m is None else _cuda_operand(m, dev)
-    bt = _transposed(bs)
     z = torch.empty((S, R, q), device=dev, dtype=torch.float32)
     xh = torch.empty((S, R, p), device=dev, dtype=torch.float32)
     fl = torch.empty((S, R, p), device=dev, dtype=torch.bool)
-    ret = load_library("pca_project").supervised_compress_f32(
-        xx.data_ptr(), _ptr(mm), bs.data_ptr(), bt.data_ptr(),
-        mu.data_ptr(), S, R, p, q,
+    ret = lib.supervised_compress_f32(
+        xx.data_ptr(), _ptr(mm), bs.data_ptr(), mu.data_ptr(), S, R, p, q,
         div, float(epsilon), z.data_ptr(), xh.data_ptr(), fl.data_ptr(),
         _stream())
     _check(ret, "supervised_compress")
@@ -437,25 +449,25 @@ def pca_monitor(x: torch.Tensor, basis: torch.Tensor,
                 mask: torch.Tensor | None = None, n: int | None = None):
     """ONE launch over every slot: ``z``, ``T2 = sum_c z_c^2 inv_lam_c``
     and ``SPE = ||((x - mean) m - z W^T) m||^2``; x̂ never reaches device
-    memory (kernel 5, ``csrc/pca_project.cu``).  Operands as
-    :func:`supervised_compress`, ``inv_lam`` (S, q) (default ones).
+    memory (kernel 5, ``csrc/pca_project.cu``: the stage tile, as kernel
+    4).  Operands and limits as :func:`supervised_compress`, ``inv_lam``
+    (S, q) (default ones).
     Returns ``(z, t2, spe)``: (S, R, q), (S, R), (S, R) fp32."""
-    S, R, p, q, mean, inv_lam = _stage_operands(x, basis, mean, inv_lam)
+    S, R, p, q, mean, inv_lam = _stage_operands(x, basis, mean, inv_lam,
+                                                monitor=True)
     m, div = _stage_mask(mask, S, R, p, n)
     if not x.is_cuda:
         PLAIN_CALLS["pca_monitor"] += 1
         return ref.pca_monitor(x, basis, mean, inv_lam, _plain_mask(m, div))
-    _cuda_checks(S, R, p, q)
     dev = x.device
+    lib = _stage_tile_library(S, R, q, dev)
     xx, bs, mu, il = (_cuda_operand(t, dev) for t in (x, basis, mean, inv_lam))
     mm = None if m is None else _cuda_operand(m, dev)
-    bt = _transposed(bs)
     f32 = dict(device=dev, dtype=torch.float32)
     z = torch.empty((S, R, q), **f32)
     t2, spe = torch.empty((S, R), **f32), torch.empty((S, R), **f32)
-    ret = load_library("pca_project").pca_monitor_f32(
-        xx.data_ptr(), _ptr(mm), bs.data_ptr(), bt.data_ptr(),
-        mu.data_ptr(), il.data_ptr(),
+    ret = lib.pca_monitor_f32(
+        xx.data_ptr(), _ptr(mm), bs.data_ptr(), mu.data_ptr(), il.data_ptr(),
         S, R, p, q, div, z.data_ptr(), t2.data_ptr(), spe.data_ptr(),
         _stream())
     _check(ret, "pca_monitor")
@@ -479,7 +491,7 @@ def pca_project(x: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
     if not x.is_cuda:
         PLAIN_CALLS["pca_project"] += 1
         return ref.pca_project(x, basis)
-    _cuda_checks(S, R, p, q, stage=False)
+    _cuda_checks(S, R)
     dev = x.device
     xx, bs = _cuda_operand(x, dev), _cuda_operand(basis, dev)
     z = torch.empty((S, R, q), device=dev, dtype=torch.float32)
@@ -505,10 +517,10 @@ def pca_reconstruct(z: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
     if not z.is_cuda:
         PLAIN_CALLS["pca_reconstruct"] += 1
         return ref.pca_reconstruct(z, basis)
-    _cuda_checks(S, R, p, q, stage=False)
+    _cuda_checks(S, R)
     dev = z.device
     lib = load_library("pca_project")
-    max_q = lib.pca_reconstruct_max_q(dev.index)
+    max_q = _max_q("pca_project", "pca_reconstruct_max_q", dev.index)
     if q > max_q:
         raise ValueError(f"q={q} exceeds kernel 9's shared memory "
                          f"(q <= {max_q})")

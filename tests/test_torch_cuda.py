@@ -404,17 +404,140 @@ def _split_operands(S, R, p, q, masked, n):
     return x, basis, mean, il, m
 
 
+def _stage_operands(S, R, n, p, q, mask_kind, seed):
+    """Kernels 4 and 5's card operands: x (S, R, p); a row-major (S, p, q)
+    basis (orthonormal where q <= p); mean (S, p); inv_lam (S, q); and a
+    mask per row (S, R, p), per round (S, R / n, p), or None."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((S, R, p), generator=g)
+    basis = torch.randn((S, p, q), generator=g)
+    if q <= p:
+        basis = torch.linalg.qr(basis).Q
+    mean = 0.1 * torch.randn((S, p), generator=g)
+    il = torch.rand((S, q), generator=g) + 0.5
+    rows = {"row": R, "round": R // n, None: 0}[mask_kind]
+    m = ((torch.rand((S, rows, p), generator=g) > 0.2).float()
+         if mask_kind else None)
+    c = lambda t: None if t is None else t.contiguous().cuda()
+    return c(x), c(basis), c(mean), c(il), c(m)
+
+
 @pytest.mark.cuda
 class TestCudaSplitKernels:
-    """Kernels 4, 5, 8 and 9 against their plain versions, on the card."""
+    """Kernels 4, 5, 8 and 9 against their plain versions, on the card.
+    Kernels 4 and 5 are kernel 1's stage tile (``csrc/stage_tile.cuh``,
+    64 rows a block, or 32 for a round of at most 32 rows; p in 32- and
+    64-sensor slices, q in 32-column passes), held at its edges to ``TOL``
+    (1e-4 past p = 64) and bit for bit to the kernels whose order of sums
+    each output keeps."""
 
     @pytest.fixture(autouse=True)
     def _card(self):
         if not torch.cuda.is_available():
             pytest.skip("needs a CUDA card: the kernels have no CPU mode")
 
+    @pytest.mark.parametrize("mask_kind", [None, "row", "round"])
+    @pytest.mark.parametrize("q", [1, 4, 32])
+    @pytest.mark.parametrize("S,R,n", [(3, 29, 29), (2, 100, 25),
+                                       (3, 32, 32)])
+    @pytest.mark.parametrize("p", [37, 64, 1024, 8192])
+    def test_stage_kernels_at_tile_edges(self, p, S, R, n, q, mask_kind):
+        """Ragged row blocks (29, 100 rows), the per-round fleet's round (32
+        rows with a (S, 1, p) liveness row, n = 32), p odd, at one tile and
+        past the first design's p + q <= 7264 (8192), q below and at the
+        16-byte copies and at one column pass; 64-row blocks, or 32 at the
+        round.  Against the plain version: ``TOL``, flags exact away from
+        eps.  Bit for bit: z == kernel 8's on (x - mean) m formed in torch
+        (kernels 4 and 5), kernel 4's x_hat == kernel 9's on that z plus
+        the mean, a repeat launch, a per-round mask == its per-row
+        expansion, and, with a per-round mask or none, the flags, T2 and
+        SPE == kernel 1's on the same rows as a chunk of R / n rounds.
+        Through the wrappers: one launch each, no plain call."""
+        eps = 0.5
+        x, basis, mean, il, m = _stage_operands(
+            S, R, n, p, q, mask_kind, p * 7 + R + q * 3 + S)
+        div = n if mask_kind == "round" else None
+
+        def comp(mk=m, d=div):
+            return ops.supervised_compress(x, basis, mean, epsilon=eps,
+                                           mask=mk, n=d)
+
+        def mon(mk=m, d=div):
+            return ops.pca_monitor(x, basis, mean, il, mask=mk, n=d)
+
+        ops.reset_counts()
+        z4, xh, fl = comp()
+        z5, t2, spe = mon()
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["supervised_compress"] == 1
+        assert ops.LAUNCHES["pca_monitor"] == 1
+        assert sum(ops.LAUNCHES.values()) == 2
+        assert sum(ops.PLAIN_CALLS.values()) == 0
+        rows_m = None if m is None else (
+            m.repeat_interleave(n, dim=1) if div else m)
+        tol = TOL if p <= 64 else dict(rtol=1e-4, atol=1e-4)
+        pz, pxh, pfl = ref.supervised_compress(x, basis, mean, rows_m, eps)
+        mz, pt2, pspe = ref.pca_monitor(x, basis, mean, il, rows_m)
+        for got, want in ((z4, pz), (xh, pxh), (z5, mz), (t2, pt2),
+                          (spe, pspe)):
+            torch.testing.assert_close(got, want, **tol)
+        assert fl.dtype == torch.bool
+        clear = ((x - pxh).abs() - eps).abs() > 1e-4
+        assert torch.equal(fl[clear], pfl[clear])
+        xc = x - mean[:, None, :]
+        if rows_m is not None:
+            xc = xc * rows_m
+        z8 = ops.pca_project(xc.contiguous(), basis)
+        assert torch.equal(z4, z8) and torch.equal(z5, z8)
+        assert torch.equal(xh, ops.pca_reconstruct(z8, basis)
+                           + mean[:, None, :])
+        for a, b in zip((z4, xh, fl, z5, t2, spe), comp() + mon()):
+            assert torch.equal(a, b)
+        if div:
+            for a, b in zip((z4, xh, fl, z5, t2, spe),
+                            comp(rows_m, None) + mon(rows_m, None)):
+                assert torch.equal(a, b)
+        if mask_kind != "row":
+            K = R // n
+            out = ops.fused_stream_update(
+                x.reshape(S, K, n, p), torch.ones((S, K), device="cuda"),
+                basis, mean, il, halfwidth=3, epsilon=eps,
+                with_compress=True, with_monitor=True, mask=m)
+            assert torch.equal(out[3], fl)
+            assert torch.equal(out[4], t2) and torch.equal(out[5], spe)
+
+    @pytest.mark.parametrize("kernel", ["supervised_compress",
+                                        "pca_monitor"])
+    def test_stage_q_limit(self, kernel):
+        """Kernels 4 and 5 take q up to the stage tile's shared memory
+        (``stage_tile_max_q``, at least the slice's 32, at any p); one more
+        raises a ``ValueError``, never a wrong result."""
+        lib = build.load_library("pca_project")
+        max_q = lib.stage_tile_max_q(torch.cuda.current_device())
+        assert max_q >= 32
+        x, basis, mean, il, m = _stage_operands(2, 40, 8, 16, max_q + 1,
+                                                "round", max_q)
+        call = {
+            "supervised_compress": lambda b: ops.supervised_compress(
+                x, b, mean, epsilon=0.5, mask=m, n=8),
+            "pca_monitor": lambda b: ops.pca_monitor(
+                x, b, mean, il[:, :b.shape[-1]].contiguous(), mask=m, n=8),
+        }[kernel]
+        with pytest.raises(ValueError, match=rf"q={max_q + 1} exceeds the "
+                           rf"stage tile's shared memory \(q <= {max_q}\)"):
+            call(basis)
+        basis = basis[..., :max_q].contiguous()
+        out = call(basis)
+        rows_m = m.repeat_interleave(8, dim=1)
+        plain = (ref.supervised_compress(x, basis, mean, rows_m, 0.5)
+                 if kernel == "supervised_compress" else
+                 ref.pca_monitor(x, basis, mean, il[:, :max_q], rows_m))
+        for got, want in zip(out, plain):
+            if got.dtype != torch.bool:
+                torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
     @pytest.mark.parametrize("p,masked", [(64, False), (37, True),
-                                          (1024, True)])
+                                          (1024, True), (8192, True)])
     def test_split_kernels_match_plain(self, p, masked):
         S, K, n, q, eps = 3, 4, 8, 4, 0.5
         R = K * n - 3                        # a ragged last row block

@@ -18,6 +18,7 @@ error is that of the bf16-rounded x, which the flag tests.
 """
 
 import ast
+import ctypes
 import re
 from pathlib import Path
 
@@ -253,6 +254,31 @@ class TestSplitStagesPlainVsReference:
         _close(z[0], z_r)
         _close(ops.pca_reconstruct(torch.from_numpy(np.array(z_r))[None],
                                    B)[0], xh_r)
+
+    @pytest.mark.parametrize("kernel", ["supervised_compress",
+                                        "pca_monitor"])
+    def test_plain_matches_reference_at_wide_p(self, kernel):
+        """The plain versions against the reference at p = 7296, wider
+        than the first CUDA design took (p + q <= 7264), a few masked
+        rows.  The kernels there are held against these plain versions on
+        the card (``tests/test_torch_cuda.py``, p = 8192)."""
+        rows, p, q, eps = 6, 7296, 4, 0.5
+        x, _, basis, mean, il, mask = _operands(rows, p, q, seed=3,
+                                                masked=True)
+        X, B, M, IL, MK = _port_split_operands(x, basis, mean, il, mask)
+        if kernel == "supervised_compress":
+            r = ref_ops.supervised_compress(x, basis, mean, epsilon=eps,
+                                            mask=mask, interpret=True)
+            o = ops.supervised_compress(X, B, M, epsilon=eps, mask=MK)
+            _close(o[0][0], r[0])
+            _close(o[1][0], r[1])
+            _flags_agree(o[2][0], r[2], np.abs(x - np.asarray(r[1])), eps)
+        else:
+            r = ref_ops.pca_monitor(x, basis, mean, il, mask=mask,
+                                    interpret=True)
+            o = ops.pca_monitor(X, B, M, IL, mask=MK)
+            for a, b in zip(o, r):
+                _close(a[0], b)
 
     @pytest.mark.parametrize("p", [64, 37])
     def test_per_round_mask_matches_per_row_reference(self, p):
@@ -530,6 +556,15 @@ class TestBuild:
                 m = re.search(rf"int {fn}\(([^)]*)\)", text)
                 assert m, fn
                 assert len(m.group(1).split(",")) == len(argtypes), fn
+        # the q limits the wrappers query (stage_tile_max_q and the others)
+        # name declared entries: on the CPU their branch never runs
+        queried = re.findall(r'_max_q\("(\w+)", "(\w+)"',
+                             (ROOT / "src/repro_torch/kernels/ops.py")
+                             .read_text())
+        assert ("pca_project", "stage_tile_max_q") in queried
+        for lib, fn in queried:
+            assert build.SOURCES[lib][fn] == [ctypes.c_int] * (
+                2 if fn == "fused_stream_max_q" else 1), fn
 
     def test_targets_sm90a_into_ignored_build_dir(self):
         assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
