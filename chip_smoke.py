@@ -83,7 +83,34 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      against the post-refresh basis, ``ops.fused_stream_stages_blocked``),
      so the wrapper's host time cannot hide in the figure (last, so that no
      profiler run comes ahead of phase 4's measured run, and no tensor is
-     kept for it through phases 4-10).
+     kept for it through phases 4-10);
+ 12. the engine of phase 4 with pipelined staging (pipeline=True: the chunk
+     of step t+1 filled and uploaded from pinned memory on the copy stream
+     right after step t is dispatched), timed back to back with the
+     synchronous engine: every StreamResult field and the retirement order
+     equal to phase 4's bit for bit, the same launches, no pull in the hot
+     loop, at least one prestage hit; the band-only engine of phase 5
+     pipelined, equal to phase 5 bit for bit; the pipelined run profiled
+     (its host-to-device copies and idle share); the host syncs a step, by
+     call site, from a separate run under
+     torch.cuda.set_sync_debug_mode("warn") (only the refresh's eigh, the
+     retirement pull and the transfer fence may sync); fleet_summary at
+     q_fleet 32 and 256 after phases 4 and 12 (request i is region i):
+     equal between the two engines, the selection equal to a numpy stable
+     argsort of the pulled energies, the dense basis's columns equal to
+     the selected regions' columns and orthonormal to 1e-5, the bill equal
+     to lossy_merge_cost;
+ 13. the distributed drivers on one card, in an NCCL group of one rank
+     (file store, timeout; destroyed at the end, on failure too):
+     sharded_stream_run over phase 8's 256 networks (without masks: the
+     reference's sharded driver takes none) equal bit for bit to
+     batched_stream_run on the same inputs, with no collective (and, for the
+     192 networks phase 8 streamed under all-ones masks, which fields equal
+     phase 8's books); hierarchical_stream_run over those networks as 256
+     regions of p=1024, chunk 8, with phase 8's liveness: one all_gather
+     and one all_reduce, one banded product more than the chunk steps'
+     (the region records), the merge equal to a numpy stable argsort of the
+     gathered energy table.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card, or without the rest
 of the repository beside it, the script exits non-zero and prints no
@@ -92,12 +119,16 @@ result.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
+import linecache
 import re
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -257,10 +288,101 @@ def profile_breakdown(run, top: int = 8) -> None:
     busy = sum(_dev_time(e) for e in rows) / 1e6
     print(f"   profile: device busy {busy:.3f} s of {wall:.3f} s wall "
           f"({100 * busy / wall:.1f}%, idle {100 - 100 * busy / wall:.1f}%)")
+    print(f"   host-to-device copies: {h2d_copies(rows)}")
     ours = [e for e in rows[top:] if "repro_torch::" in e.key]
     for e in rows[:top] + ours:
         print(f"     {_dev_time(e) / 1e3:10.1f} ms  {e.count:6d}x  "
               f"{e.key[:90]}")
+
+
+def h2d_copies(rows) -> str:
+    """The host-to-device copies among a profile's device rows: each kind
+    (pinned, pageable) with its device time and count."""
+    kinds = [e for e in rows if "HtoD" in e.key]
+    if not kinds:
+        return "none"
+    return "; ".join(f"{e.key}: {_dev_time(e) / 1e3:.1f} ms ({e.count}x)"
+                     for e in kinds)
+
+
+def sync_sites(run) -> collections.Counter:
+    """The host syncs ``run()`` makes, by call site ("file:line: code"),
+    from torch.cuda.set_sync_debug_mode("warn")."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = collections.Counter()
+    for w in caught:
+        if "called a synchronizing" in str(w.message):
+            where = Path(w.filename)
+            if where.is_relative_to(ROOT):
+                where = where.relative_to(ROOT)
+            code = linecache.getline(w.filename, w.lineno).strip()
+            sites[f"{where}:{w.lineno}: {code}"] += 1
+    return sites
+
+
+# the sites where the engine's loop may wait for the card: the refresh's
+# eigh (it checks its result on the host) and the retirement pull (the
+# transfer fence, an Event.synchronize on a copy, is never flagged)
+ALLOWED_SYNCS = ("torch.linalg.eigh", "x.cpu()")
+
+
+def different_fields(a: list, b: list) -> list[str]:
+    """The fields that differ between two lists of dataclasses (two runs'
+    StreamResults, two FleetSummaries), compared bit for bit."""
+    bad = set()
+    for ra, rb in zip(a, b, strict=True):
+        for f in dataclasses.fields(ra):
+            va, vb = getattr(ra, f.name), getattr(rb, f.name)
+            if not np.array_equal(np.asarray(va), np.asarray(vb)):
+                bad.add(f.name)
+    return sorted(bad)
+
+
+def fleet_yardstick(eng, summ, q_fleet: int, dev) -> None:
+    """``summ`` (``eng.fleet_summary(q_fleet)``) against a numpy stable
+    argsort of the retired regions' pulled energies: the selection and its
+    energies equal, each dense column the selected region's column at its
+    offset, the basis orthonormal to 1e-5 (its Gram matrix in fp64 on the
+    card), the bill the cost model's."""
+    from repro_torch.core import costs
+    regions = sorted(eng.region_results)
+    check(summ.regions == tuple(regions), "fleet_summary regions")
+    table = np.stack([eng.region_results[r].energies for r in regions])
+    order = np.argsort(-table.reshape(-1), kind="stable")[:q_fleet]
+    q, p = table.shape[1], eng.cfg.p
+    check(np.array_equal(summ.region, order // q)
+          and np.array_equal(summ.col, order % q)
+          and np.array_equal(summ.lam, table.reshape(-1)[order]),
+          f"fleet_summary({q_fleet}): selection differs from numpy's")
+    for j, (r, c) in enumerate(zip(summ.region, summ.col)):
+        col = summ.basis[:, j]
+        check(np.array_equal(col[r * p:(r + 1) * p],
+                             eng.region_results[regions[r]].components[:, c])
+              and not col[:r * p].any() and not col[(r + 1) * p:].any(),
+              f"fleet_summary({q_fleet}): column {j} is not region {r}'s "
+              f"column {c}")
+    b = torch.from_numpy(summ.basis).to(dev, torch.float64)
+    gram_err = float((b.T @ b - torch.eye(q_fleet, device=dev,
+                                          dtype=torch.float64)).abs().max())
+    del b
+    bill = costs.lossy_merge_cost(eng.cfg.q, eng.cfg.c_max,
+                                  eng.cfg.link_loss,
+                                  eng.cfg.max_retries).communication
+    print(f"   fleet_summary(q_fleet={q_fleet}) over {len(regions)} regions: "
+          f"basis {summ.basis.shape}, rho {summ.rho:.6f}, lam "
+          f"{summ.lam[0]:.4f}..{summ.lam[-1]:.4f}, {len(set(summ.region))} "
+          f"regions chosen; == numpy stable argsort of the pulled energies; "
+          f"|B^T B - I| {gram_err:.2e}; merge packets {summ.merge_packets} "
+          f"(lossy_merge_cost {bill})")
+    check(gram_err <= 1e-5, f"fleet_summary({q_fleet}) basis not orthonormal")
+    check(summ.merge_packets == bill, "fleet_summary merge bill")
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -748,7 +870,7 @@ def main() -> int:
     from repro_torch.streaming import (CompressionConfig, DetectionConfig,
                                        StreamConfig, batched_stream_init,
                                        batched_stream_run)
-    from repro_torch.streaming.driver import random_bases
+    from repro_torch.streaming.driver import random_bases, tree_map
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -931,12 +1053,18 @@ def main() -> int:
 
     rates = {}                      # label -> (rounds/s, step ms)
 
-    def serve(config, rounds, label):
+    def by_path(name, path, n):
+        record[name].setdefault("launches_by_path", {})[path] = n
+
+    def serve(config, rounds, label, pipeline=False):
+        """Serve every request (request i is region i); returns the steps,
+        the launches, the results, the engine and the retirement order."""
         eng = StreamingPCAEngine(config, slots=SLOTS, chunk=K, seed=0,
-                                 device="cuda", telemetry=True)
+                                 device="cuda", telemetry=True,
+                                 pipeline=pipeline)
         reqs = [StreamRequest(rounds=d[:rounds],
                               liveness=(sched[:rounds] if i >= SLOTS
-                                        else None))
+                                        else None), region=i)
                 for i, d in enumerate(data)]
         for r in reqs:
             eng.submit(r)
@@ -968,9 +1096,11 @@ def main() -> int:
                   and np.isfinite([r.retained, r.comm_packets]).all()
                   and r.refreshes >= 1 and r.retained > 0.0,
                   f"{label}: bad result {r.retained} {r.refreshes}")
-        return steps, launches, res
+        index = {id(r): i for i, r in enumerate(reqs)}
+        order = [(index[id(q)], why) for q, why in eng.retired_log]
+        return steps, launches, res, eng, order
 
-    steps, launches, res = serve(cfg, ROUNDS, "stages engine")
+    steps, launches, res, eng, order4 = serve(cfg, ROUNDS, "stages engine")
     check(launches["fused_stream"] == steps,
           f"fused launches {launches['fused_stream']} != steps {steps}")
     # 1 + refresh_iters + 2 banded products a decision (one a step, all
@@ -983,7 +1113,8 @@ def main() -> int:
     check(retired == len(res) == REQUESTS,
           f"{launches['banded_matmul']} banded products, want "
           f"{per_decision} x {steps} + {REQUESTS}")
-    record["banded_matmul_s1"]["launches"] = retired
+    by_path("banded_matmul_s1", "engine", retired)
+    by_path("banded_matmul", "engine (256 slots)", per_decision * steps)
     worst = max(r.compression_max_err for r in res)
     flagged = sum(r.compression_extra_packets for r in res)
     alarms = sum(r.detection_events for r in res)
@@ -991,20 +1122,27 @@ def main() -> int:
           f"{flagged:.0f} flagged readings; {alarms:.0f} alarmed epochs")
     check(worst <= EPS, "the eps guarantee was broken")
     check(flagged > 0, "no reading flagged")
-    record["fused_stream"]["launches"] = launches["fused_stream"]
+    by_path("fused_stream", "engine", launches["fused_stream"])
+    launches4, res4 = launches, res
     fp32_books = (flagged, sum(r.refreshes for r in res), alarms)
+    fleet4 = {qf: eng.fleet_summary(qf) for qf in (Q, 8 * Q)}
+    for qf, summ in fleet4.items():
+        fleet_yardstick(eng, summ, qf, dev)
+    del eng
     profile_breakdown(lambda: serve(cfg, ROUNDS, "profiled stages engine"))
 
     phase("5 engine: band only")
     band_cfg = StreamConfig(p=P, q=Q, halfwidth=H, forgetting=0.99,
                             warmup_rounds=K - 1, drift_threshold=0.05)
-    steps, launches, _ = serve(band_cfg, 16, "band-only engine")
+    steps, launches, res5, _, order5 = serve(band_cfg, 16,
+                                             "band-only engine")
     check(launches["band_fold"] >= 1 and launches["band_fold_masked"] >= 1
           and launches["band_fold"] + launches["band_fold_masked"] == steps
           and launches["fused_stream"] == 0,
           f"band-only launches {launches} vs {steps} steps")
+    launches5 = launches
     for name in ("band_fold", "band_fold_masked"):
-        record[name]["launches"] = launches[name]
+        by_path(name, "band-only engine", launches[name])
 
     def sink_books(res, label):
         worst = max(r.compression_max_err for r in res)
@@ -1025,7 +1163,8 @@ def main() -> int:
 
     phase("6 engine: split stages")
     split_cfg = dataclasses.replace(cfg, fused=False)
-    steps, launches, res = serve(split_cfg, ROUNDS, "split stages engine")
+    steps, launches, res, _, _ = serve(split_cfg, ROUNDS,
+                                       "split stages engine")
     stage_launches(launches, steps, ("supervised_compress", "pca_monitor"),
                    "split")
     check(launches["pca_project"] == launches["pca_reconstruct"] == 0,
@@ -1037,8 +1176,8 @@ def main() -> int:
     phase("7 engine: quantized scores")
     quant_cfg = dataclasses.replace(cfg, compression=CompressionConfig(
         epsilon=EPS, score_bits=8, emit_reconstruction=True))
-    steps, launches, res = serve(quant_cfg, ROUNDS,
-                                 "quantized-score engine")
+    steps, launches, res, _, _ = serve(quant_cfg, ROUNDS,
+                                       "quantized-score engine")
     stage_launches(launches, steps,
                    ("pca_project", "pca_reconstruct", "pca_monitor"), "quant")
     check(launches["supervised_compress"] == 0,
@@ -1133,12 +1272,15 @@ def main() -> int:
           f"epochs; rho of the last round "
           f"{float(met.rho[:, -1].min()):.4f}..{float(met.rho[:, -1].max()):.4f}")
     check(worst <= EPS, "per-round fleet: the eps guarantee was broken")
-    for name in ("band_round_masked", "band_round_masked_drop",
-                 "banded_matmul", "banded_matvec"):
+    for name in ("band_round_masked_drop", "banded_matvec"):
         record[name]["launches"] = launches[name]
+    for name in ("band_round_masked", "banded_matmul"):
+        by_path(name, "per-round fleet", launches[name])
     for name in ("supervised_compress", "pca_monitor"):
-        record[f"{name}_r32"]["launches_by_path"] = {
-            "per-round fleet": launches[name]}
+        by_path(f"{name}_r32", "per-round fleet", launches[name])
+    # phase 8's books of the 192 networks under all-ones masks (phase 13)
+    ones8 = (tree_map(lambda t: t[:SLOTS - 64].cpu(), met),
+             fin.sched.W[:SLOTS - 64].cpu())
     del fin, met
     profile_breakdown(lambda: fleet_run(cfg, ROUNDS, live,
                                         "profiled per-round fleet"))
@@ -1149,14 +1291,15 @@ def main() -> int:
           and launches["band_round_masked_drop"] == 0
           and launches["band_fold"] == launches["band_fold_masked"] == 0,
           f"band-only per-round launches {launches}")
-    record["band_round"]["launches"] = launches["band_round"]
+    by_path("band_round", "band-only per-round fleet", launches["band_round"])
     profile_breakdown(lambda: fleet_run(band_cfg, 16, None,
                                         "profiled band-only per-round fleet"))
-    del xs, live
+    del xs
 
     phase("10 engine: fused stages, bf16 tiles")
     bf16_cfg = dataclasses.replace(cfg, precision="bf16")
-    steps, launches, res = serve(bf16_cfg, ROUNDS, "bf16 stages engine")
+    steps, launches, res, _, _ = serve(bf16_cfg, ROUNDS,
+                                       "bf16 stages engine")
     check(launches["fused_stream_bf16"] == steps
           and launches["fused_stream"] == 0,
           f"bf16 launches {launches} vs {steps} steps")
@@ -1289,6 +1432,210 @@ def main() -> int:
               f"{rec['library_device_ms']:.4f} ms [{lib_names}] (events "
               f"{rec['library_ms']:.4f})")
     del band, V, dense
+
+    phase("12 engine: pipelined staging (pinned buffers, copy stream)")
+    # the synchronous and the pipelined engine back to back, in turns
+    # (sync, pipelined, pipelined, sync); each equal to phase 4 bit for bit
+    eng = pipelined = None
+    for label, pipe in (("sync stages engine", False),
+                        ("pipelined stages engine", True),
+                        ("pipelined stages engine, again", True),
+                        ("sync stages engine, again", False)):
+        steps, launches, res, e, order = serve(cfg, ROUNDS, label,
+                                               pipeline=pipe)
+        bad = different_fields(res4, res)
+        folded = [r for r in e.telemetry.steps if r.live > 0]
+        print(f"   {label} vs phase 4: StreamResult fields that differ "
+              f"{bad or 'none'}; retirement order equal {order == order4}; "
+              f"launches equal {launches == launches4}; prestage hits "
+              f"{e._prestage_hits}, misses {e._prestage_misses}, transfer "
+              f"fences {e._transfer_fences}; pulls {e.pulls}; staging "
+              f"{sum(r.stage_s for r in folded):.3f} s of host time, "
+              f"{sum(r.overlap_s for r in folded):.3f} s of it after the "
+              f"dispatch")
+        check(not bad and order == order4, f"{label} differs from phase 4")
+        check(launches == launches4, f"{label}: launches {launches} != "
+              f"phase 4's {launches4}")
+        if pipe:
+            check(e.pulls["hot"] == 0 and e._prestage_hits >= 1,
+                  f"{label}: a hot pull or no prestage hit")
+        if pipe and eng is None:
+            eng, pipelined = e, (launches, len(res))
+        del e
+    # the counts of the first pipelined run, its own counts reset before it
+    launches, n_res = pipelined
+    by_path("fused_stream", "pipelined engine", launches["fused_stream"])
+    by_path("banded_matmul", "pipelined engine (256 slots)",
+            launches["banded_matmul"] - n_res)
+    by_path("banded_matmul_s1", "pipelined engine", n_res)
+    for qf, summ in fleet4.items():
+        again = eng.fleet_summary(qf)
+        bad = different_fields([summ], [again])
+        print(f"   fleet_summary(q_fleet={qf}) of the pipelined engine == "
+              f"phase 4's: fields that differ {bad or 'none'}; merge pulls "
+              f"{eng.pulls['merge']}")
+        check(not bad, f"fleet_summary({qf}) differs between the engines")
+        fleet_yardstick(eng, again, qf, dev)
+    del eng, fleet4
+    mean = lambda label, i: (rates[label][i] + rates[f"{label}, again"][i]) / 2
+    print(f"   pipelined vs sync (back to back, in turns, means of two): "
+          f"{mean('pipelined stages engine', 0):.1f} vs "
+          f"{mean('sync stages engine', 0):.1f} rounds/s, step "
+          f"{mean('pipelined stages engine', 1):.1f} vs "
+          f"{mean('sync stages engine', 1):.1f} ms")
+    profile_breakdown(lambda: serve(cfg, ROUNDS,
+                                    "profiled pipelined stages engine",
+                                    pipeline=True))
+    steps, launches, res, _, order = serve(band_cfg, 16,
+                                           "pipelined band-only engine",
+                                           pipeline=True)
+    bad = different_fields(res5, res)
+    print(f"   pipelined band-only engine vs phase 5: StreamResult fields "
+          f"that differ {bad or 'none'}; retirement order equal "
+          f"{order == order5}; launches equal {launches == launches5}")
+    check(not bad and order == order5 and launches == launches5,
+          "pipelined band-only engine differs from phase 5")
+    for name in ("band_fold", "band_fold_masked"):
+        by_path(name, "pipelined band-only engine", launches[name])
+    del res, res5
+    # the host syncs of the pipelined loop, by call site (a run of its
+    # own: the warnings cost host time), from the first step to the last
+    eng = StreamingPCAEngine(cfg, slots=SLOTS, chunk=K, seed=0,
+                             device="cuda", telemetry=True, pipeline=True)
+    for i, d in enumerate(data):
+        eng.submit(StreamRequest(rounds=d, region=i, liveness=(
+            sched if i >= SLOTS else None)))
+    sites = sync_sites(eng.run_until_done)
+    steps = sum(1 for r in eng.telemetry.steps if r.live > 0)
+    print(f"   host syncs of the pipelined engine over {steps} steps and "
+          f"{len(eng.retired_log)} retirements "
+          f"(torch.cuda.set_sync_debug_mode), by call site:")
+    for site, n in sorted(sites.items()):
+        print(f"     {n:5d} ({n / steps:.1f} a step)  {site}")
+    del eng
+    stray = [site for site in sites
+             if not any(a in site for a in ALLOWED_SYNCS)]
+    check(not stray, f"unexpected host syncs in the engine loop: {stray}")
+    check(any("x.cpu()" in site for site in sites),
+          "the retirement pull did not show as a sync: is the debug mode on?")
+
+    phase("13 distributed drivers on one card (NCCL, one rank)")
+    from repro_torch.launch.mesh import (init_fleet_process_group,
+                                         make_fleet_mesh)
+    from repro_torch.streaming import (hierarchical_stream_run,
+                                       sharded_stream_run)
+    from repro_torch.streaming.hierarchy import COLLECTIVES, reset_collectives
+    import torch.distributed as dist
+    xs = torch.from_numpy(np.stack(data[:SLOTS])).to(dev)
+    with tempfile.TemporaryDirectory() as store:
+        init_fleet_process_group(0, 1, store, device="cuda", timeout_s=180)
+        try:
+            mesh = make_fleet_mesh()
+            st = batched_stream_init(cfg, SLOTS, seed=0, device="cuda")
+            torch.cuda.synchronize()
+            ops.reset_counts()
+            reset_collectives()
+            t = time.perf_counter()
+            fin, met = sharded_stream_run(cfg, mesh.data, st, xs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches = dict(ops.LAUNCHES)
+            print(f"   sharded per-round fleet: {SLOTS} networks x {ROUNDS} "
+                  f"rounds in {wall:.2f} s = {SLOTS * ROUNDS / wall:.1f} "
+                  f"rounds/s, {1e3 * wall / ROUNDS:.1f} ms a round; "
+                  f"collectives {COLLECTIVES}; launches "
+                  f"{ {k: v for k, v in launches.items() if v} }")
+            check(sum(COLLECTIVES.values()) == 0
+                  and sum(ops.PLAIN_CALLS.values()) == 0
+                  and launches["band_round"] == ROUNDS
+                  and launches["supervised_compress"] == ROUNDS
+                  and launches["pca_monitor"] == ROUNDS
+                  and launches["banded_matmul"] == ROUNDS * per_decision,
+                  f"sharded run: collectives {COLLECTIVES}, launches "
+                  f"{launches}")
+            by_path("band_round", "sharded per-round fleet",
+                    launches["band_round"])
+            by_path("banded_matmul", "sharded per-round fleet",
+                    launches["banded_matmul"])
+            for name in ("supervised_compress", "pca_monitor"):
+                by_path(f"{name}_r32", "sharded per-round fleet",
+                        launches[name])
+            fin_b, met_b = batched_stream_run(cfg, st, xs)
+            bad = []
+            for label, a, b in (("states", fin, fin_b),
+                                ("metrics", met, met_b)):
+                pairs = []
+                tree_map(lambda u, v: pairs.append(torch.equal(u, v)), a, b)
+                if not all(pairs):
+                    bad.append(label)
+            print(f"   sharded run == batched_stream_run on the same inputs "
+                  f"bit for bit: {not bad} (differ: {bad or 'none'})")
+            check(not bad, f"sharded run differs from batched: {bad}")
+            m8, W8 = ones8
+            same8 = {}
+            for f in ("rho", "did_refresh", "refreshes", "comm_packets"):
+                same8[f] = torch.equal(getattr(met, f)[:SLOTS - 64].cpu(),
+                                       getattr(m8, f))
+            same8["compression.extra_packets"] = torch.equal(
+                met.compression.extra_packets[:SLOTS - 64].cpu(),
+                m8.compression.extra_packets)
+            same8["detection.alarms"] = torch.equal(
+                met.detection.alarms[:SLOTS - 64].cpu(), m8.detection.alarms)
+            same8["W"] = torch.equal(fin.sched.W[:SLOTS - 64].cpu(), W8)
+            print(f"   the {SLOTS - 64} networks phase 8 streamed under "
+                  f"all-ones masks, unmasked here: equal to phase 8 bit for "
+                  f"bit {same8}")
+            del fin, met, fin_b, met_b, ones8
+            q_fleet = 8 * Q
+            torch.cuda.synchronize()
+            ops.reset_counts()
+            reset_collectives()
+            t = time.perf_counter()
+            fin, met, fleet = hierarchical_stream_run(
+                cfg, mesh.region, st, xs, live, q_fleet=q_fleet, chunk=K)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches = dict(ops.LAUNCHES)
+            decisions = met.rho.shape[1]
+            print(f"   hierarchical run: {SLOTS} regions x {ROUNDS} rounds "
+                  f"(p={P} each, chunk {K}) in {wall:.2f} s = "
+                  f"{SLOTS * ROUNDS / wall:.1f} rounds/s; collectives "
+                  f"{COLLECTIVES}; launches "
+                  f"{ {k: v for k, v in launches.items() if v} }")
+            check(COLLECTIVES == {"all_gather": 1, "all_reduce": 1},
+                  f"hierarchical run collectives {COLLECTIVES}")
+            check(sum(ops.PLAIN_CALLS.values()) == 0
+                  and launches["fused_stream"] == decisions
+                  and launches["banded_matmul"]
+                  == decisions * per_decision + 1,
+                  f"hierarchical run launches {launches} vs {decisions} "
+                  f"chunk steps")
+            by_path("fused_stream", "hierarchical run",
+                    launches["fused_stream"])
+            by_path("banded_matmul", "hierarchical run",
+                    launches["banded_matmul"])
+            table = fleet.basis.lam_table.cpu().numpy()
+            order = np.argsort(-table.reshape(-1), kind="stable")[:q_fleet]
+            region = fleet.basis.region.cpu().numpy()
+            col = fleet.basis.col.cpu().numpy()
+            lam = fleet.basis.lam.cpu().numpy()
+            check(np.array_equal(region, order // Q)
+                  and np.array_equal(col, order % Q)
+                  and np.array_equal(lam, table.reshape(-1)[order]),
+                  "hierarchical merge differs from numpy's selection")
+            epochs = int(fleet.merge_epochs)
+            fired = int(met.did_refresh.any(0).sum())
+            print(f"   merge: == numpy stable argsort of the gathered "
+                  f"({table.shape[0]}, {table.shape[1]}) table; rho "
+                  f"{float(fleet.basis.rho):.6f}, {len(set(region.tolist()))} "
+                  f"regions chosen; merge epochs {epochs} (boundaries with a "
+                  f"refresh {fired}), merge packets "
+                  f"{float(fleet.merge_packets)}")
+            check(epochs == max(fired, 1), "merge epochs")
+            del fin, met, fleet, st
+        finally:
+            dist.destroy_process_group()
+    del xs, live
 
     print(f"   total {time.perf_counter() - t_start:.1f} s")
     for rec in record.values():

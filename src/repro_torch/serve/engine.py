@@ -1,5 +1,5 @@
 """Streaming-PCA fleet engine (counterpart of
-``repro.serve.engine.StreamingPCAEngine``), synchronous form.
+``repro.serve.engine.StreamingPCAEngine``).
 
 Each slot holds one live sensor network.  Every engine step stages each
 active slot's next K rounds in ONE upload, folds them through
@@ -15,14 +15,30 @@ final basis and Table-1 bill.  Admission runs through the priority queue
 fleet mesh is re-planned by :func:`plan_mesh` when the live count
 changes — all as in the reference.
 
+Staging is double-buffered in both modes, as in the reference: two
+engine-owned host buffers of each kind (the batch, the liveness masks and
+the round validity), filled alternately and uploaded as owned device
+copies.  On the card the buffers are pinned, the uploads run on an
+engine-owned copy stream, and the compute stream (torch's current stream,
+where every kernel launches) waits on the upload's event before the fold
+reads it; a buffer is refilled only once its previous upload's event has
+completed (the transfer fence — a wait on the copy-out, never on the
+fold).  With ``pipeline=True`` chunk t+1 is filled and uploaded right
+after chunk t's step is dispatched; a prestaged chunk is used only if the
+slot plan did not move under it.  Overlap reorders host work only, so
+the pipelined engine gives the synchronous engine's bits.
+
 The fleet state stays on the device and is replaced every step; the books
-accumulate on the device, and the only device-to-host copies are the
-retirement summaries.  With ``precision="bf16"`` the fused path launches
-kernel 1 in its bf16 tile mode; the chunks are uploaded in fp32 all the
-same, since the statistics and the books read fp32 readings.  Not ported
-yet: ``pipeline=True`` (double-buffered staging) and ``fleet_summary``
-(the two-level merge) raise ``NotImplementedError``; the LM ``Engine`` of
-the reference module has no counterpart here.
+accumulate on the device, and every device-to-host copy goes through
+:meth:`StreamingPCAEngine._pull` under a ledger key: the retirement
+summaries (``"retire"``) and the fleet merge (``"merge"``); ``"hot"``
+stays 0.  With ``precision="bf16"`` the fused path launches kernel 1 in
+its bf16 tile mode; the chunks are uploaded in fp32 all the same, since
+the statistics and the books read fp32 readings.
+:meth:`StreamingPCAEngine.fleet_summary` merges the retired regions'
+bases into the two-level fleet basis
+(:func:`repro_torch.streaming.hierarchy.merge_fleet`).  The LM ``Engine``
+of the reference module has no counterpart here.
 """
 
 from __future__ import annotations
@@ -33,6 +49,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core import costs
 from repro_torch.core.faults import expected_transmissions
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -44,12 +61,14 @@ from repro_torch.streaming.detector import detection_packet_split
 from repro_torch.streaming.driver import (StreamConfig, StreamState,
                                           fleet_chunk_step, random_bases,
                                           stream_init, tree_map)
-from repro_torch.streaming.hierarchy import region_energies
+from repro_torch.streaming.hierarchy import (fleet_basis_dense,
+                                             merge_fleet, region_energies)
 from repro_torch.streaming.online_cov import (online_estimate,
                                               online_total_variance)
 from repro_torch.streaming.scheduler import retained_fraction
 
-__all__ = ["StreamRequest", "StreamResult", "StreamingPCAEngine"]
+__all__ = ["StreamRequest", "StreamResult", "FleetSummary",
+           "StreamingPCAEngine"]
 
 
 @dataclasses.dataclass(eq=False)   # identity equality: requests hold arrays
@@ -89,22 +108,64 @@ class StreamResult:
     detection_spe_threshold: float | None = None
 
 
+@dataclasses.dataclass(frozen=True)
+class FleetSummary:
+    """The two-level fleet basis merged from retired region results (fields
+    as in the reference): the dense block-embedded basis, the compact
+    (region, column) selection with its energies, the fleet retained
+    fraction and the Table-1 bill of the merge epoch."""
+
+    basis: np.ndarray                # (p_fleet, q_fleet)
+    region: np.ndarray               # (q_fleet,) owning region per component
+    col: np.ndarray                  # (q_fleet,) column within that region
+    lam: np.ndarray                  # (q_fleet,) energies, descending
+    rho: float                       # fleet retained fraction
+    regions: tuple                   # region ids merged, ascending
+    merge_packets: float             # region-head bill of this merge epoch
+
+
 @dataclasses.dataclass
 class _StagedChunk:
-    batch: torch.Tensor              # (slots, K, n, p) device copy
+    """One staged upload and the host plan it was built from; ``signature``
+    pins the slot plan (request identity and cursor per slot), and
+    ``ready`` is the upload's event on the copy stream (None off the
+    card)."""
+
+    batch: torch.Tensor              # (slots, K, n, p) owned device copy
     masks: torch.Tensor | None       # (slots, K, p) or None (no schedules)
     rv: torch.Tensor                 # (slots, K) round validity
     start: np.ndarray                # cursor snapshot at staging time
     consumed: np.ndarray             # rounds each slot will fold
+    signature: tuple                 # plan token (see _plan_signature)
+    ready: torch.cuda.Event | None
+
+
+@dataclasses.dataclass
+class _StagingBuffers:
+    """One parity's staging buffers: the (batch, masks, rv) sources —
+    pinned tensors on the card, numpy arrays elsewhere — their numpy views,
+    and the last upload's event (card only)."""
+
+    sources: tuple
+    batch: np.ndarray                # (slots, K, n, p)
+    masks: np.ndarray                # (slots, K, p)
+    rv: np.ndarray                   # (slots, K)
+    upload: torch.cuda.Event | None = None
+
+    def views(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        return self.batch, self.masks, self.rv
 
 
 class StreamingPCAEngine:
     """Continuous batching over sensor-network streams, fault-aware.
 
-    Parameters as in the reference, plus ``init_bases`` — the (slots, p, q)
-    orthonormal bases every slot starts (and restarts) from, drawn from
+    Parameters as in the reference (``pipeline``: stage chunk t+1 while
+    chunk t folds), plus ``init_bases`` — the (slots, p, q) orthonormal
+    bases every slot starts (and restarts) from, drawn from
     ``torch.Generator(seed)`` when None — and ``device`` (``cuda`` unless
-    the caller asks for another; raises without a card).
+    the caller asks for another; raises without a card).  On the card the
+    staging buffers are pinned and uploaded on a side stream; a failed pin
+    or stream raises.
     """
 
     def __init__(self, cfg: StreamConfig, slots: int = 8, seed: int = 0,
@@ -117,13 +178,11 @@ class StreamingPCAEngine:
                  device: str | torch.device = "cuda"):
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
-        if pipeline:
-            raise NotImplementedError(
-                "pipeline=True (double-buffered staging) is not ported yet")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.slots = slots
         self.chunk = chunk
+        self.pipeline = pipeline
         self.min_alive_fraction = min_alive_fraction
         self.health_policy = health_policy or StragglerPolicy(
             stall_timeout=2.5)          # logical steps, not seconds
@@ -144,9 +203,18 @@ class StreamingPCAEngine:
         self.slot_region = np.full(slots, -1, np.int64)
         self.region_results: dict[int, StreamResult] = {}
         self._n: int | None = None
-        self._host_buf: np.ndarray | None = None
-        self._mask_buf: np.ndarray | None = None
-        self.pulls = {"hot": 0, "retire": 0}
+        # double-buffered staging, one record per parity
+        self._staging: list[_StagingBuffers | None] = [None, None]
+        self._parity = 0
+        self._staged: _StagedChunk | None = None
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
+        # every device-to-host copy goes through _pull under one of these
+        # keys; "hot" stays 0
+        self.pulls = {"hot": 0, "retire": 0, "merge": 0}
+        self._transfer_fences = 0
+        self._prestage_hits = 0
+        self._prestage_misses = 0
         zeros = lambda: torch.zeros(slots, device=self.device)
         self._comp_max_err, self._comp_extras, self._comp_bits = (
             zeros(), zeros(), zeros())
@@ -226,9 +294,15 @@ class StreamingPCAEngine:
                     resume_at=int(req.resume_at))
         if not newly:
             return 0
-        mask = np.zeros(self.slots, bool)
-        mask[newly] = True
-        mj = torch.tensor(mask, device=self.device)
+        # the (slots,) admission mask, filled run by run on the device:
+        # no host copy, so no wait on the stream
+        mj = torch.zeros(self.slots, dtype=torch.bool, device=self.device)
+        first = prev = newly[0]
+        for s in newly[1:] + [None]:
+            if s != prev + 1:
+                mj[first:prev + 1].fill_(True)
+                first = s
+            prev = s
 
         def splice(full, fresh):
             sel = mj.reshape((self.slots,) + (1,) * (fresh.dim() - 1))
@@ -247,6 +321,12 @@ class StreamingPCAEngine:
         return len(newly)
 
     # -- retirement -----------------------------------------------------------
+    def _pull(self, x: torch.Tensor, where: str) -> np.ndarray:
+        """The engine's only device-to-host copy, counted under ``where``
+        in ``pulls`` ("retire", "merge"; "hot" must stay 0)."""
+        self.pulls[where] = self.pulls.get(where, 0) + 1
+        return x.cpu().numpy()
+
     def _result_slices(self, slot: int) -> dict:
         """The retiring slot's summary as device tensors, computed before
         any admission can overwrite the slot."""
@@ -276,9 +356,8 @@ class StreamingPCAEngine:
         """Copy a retiring slot's summary to the host in ONE transfer — the
         loop's only device-to-host copy — and build its StreamResult (the
         integer fields, round and refresh counts, are exact in fp32)."""
-        self.pulls["retire"] += 1
-        flat = torch.cat([v.reshape(-1).to(torch.float32)
-                          for v in slices.values()]).cpu().numpy()
+        flat = self._pull(torch.cat([v.reshape(-1).to(torch.float32)
+                                     for v in slices.values()]), "retire")
         out, at = {}, 0
         for k, v in slices.items():
             out[k] = flat[at:at + v.numel()].reshape(tuple(v.shape))
@@ -349,18 +428,69 @@ class StreamingPCAEngine:
             self.plan_history.append(self.plan)
         self._last_live = n_live
 
-    # -- staging --------------------------------------------------------------
-    def _stage(self) -> _StagedChunk:
-        """Copy every active slot's next K rounds into the host buffer and
-        upload it (an owned device copy).  Idle slots carry a zero chunk
-        with zero round validity; the mask batch is built only when some
-        active request carries a liveness schedule."""
+    # -- staging (double-buffered) -------------------------------------------
+    def _plan_signature(self) -> tuple:
+        """The slot plan a staged chunk depends on: per-slot request
+        identity and cursor.  Any admission, retirement or resumed
+        continuation moves it, invalidating a prestaged chunk."""
+        return tuple(
+            (id(self.active[s]), int(self.cursor[s]))
+            if self.active[s] is not None else None
+            for s in range(self.slots))
+
+    def _allocate_buffers(self) -> _StagingBuffers:
+        """One parity's batch, mask and round-validity buffers: pinned
+        tensors on the card (filled through their numpy views), numpy
+        arrays elsewhere."""
         K, p = self.chunk, self.cfg.p
-        if self._host_buf is None:
-            self._host_buf = np.zeros((self.slots, K, self._n, p), np.float32)
-            self._mask_buf = np.ones((self.slots, K, p), np.float32)
-        buf = self._host_buf
-        rv = np.zeros((self.slots, K), np.float32)
+        shapes = ((self.slots, K, self._n, p), (self.slots, K, p),
+                  (self.slots, K))
+        if self._copy_stream is None:
+            srcs = tuple(np.zeros(shape, np.float32) for shape in shapes)
+            views = srcs
+        else:
+            srcs = tuple(torch.zeros(shape, dtype=torch.float32,
+                                     pin_memory=True) for shape in shapes)
+            if not all(t.is_pinned() for t in srcs):
+                raise RuntimeError("staging buffers were not pinned")
+            views = tuple(t.numpy() for t in srcs)
+        return _StagingBuffers(srcs, *views)
+
+    def _upload(self, src) -> torch.Tensor:
+        """An owned device copy of a staging buffer ``src``.  On the card
+        (``src`` pinned) the copy runs on the copy stream without blocking
+        the host, and the result is marked as used by the compute stream,
+        so the allocator keeps its memory until the fold has read it;
+        elsewhere (``src`` a numpy array) a plain copy."""
+        if self._copy_stream is None:
+            return torch.from_numpy(src).to(self.device, copy=True)
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self._copy_stream):
+            dst = src.to(self.device, non_blocking=True)
+        dst.record_stream(compute)
+        return dst
+
+    def _stage(self) -> _StagedChunk:
+        """Fill the next parity's host buffers with every active slot's
+        next K rounds and upload them.  Idle slots carry a zero chunk with
+        zero round validity; a slot whose stream ends mid-chunk stages
+        only its real tail rounds; the mask batch is uploaded only when
+        some active request carries a liveness schedule."""
+        K = self.chunk
+        i = self._parity
+        self._parity ^= 1
+        bufs = self._staging[i]
+        if bufs is None:
+            bufs = self._staging[i] = self._allocate_buffers()
+        else:
+            # transfer fence: this buffer's previous upload must have left
+            # the host memory about to be overwritten (never a wait on the
+            # fold)
+            self._transfer_fences += 1
+            if bufs.upload is not None:
+                bufs.upload.synchronize()
+        buf, mbuf, rv = bufs.views()
+        rv[:] = 0.0
         consumed = np.zeros(self.slots, np.int64)
         start = self.cursor.copy()
         any_schedule = False
@@ -372,37 +502,40 @@ class StreamingPCAEngine:
             c = int(start[s])
             take = min(K, req.rounds.shape[0] - c)
             buf[s, :take] = req.rounds[c:c + take]
-            buf[s, take:] = 0.0
+            if take < K:
+                buf[s, take:] = 0.0
             rv[s, :take] = 1.0
             consumed[s] = take
             any_schedule |= req.liveness is not None
-        masks = None
         if any_schedule:
-            mbuf = self._mask_buf
             for s in range(self.slots):
                 req = self.active[s]
-                mbuf[s] = 1.0
-                if req is not None and req.liveness is not None:
-                    c, take = int(start[s]), int(consumed[s])
-                    mbuf[s, :take] = req.liveness[c:c + take]
-            masks = self._upload(mbuf)
-        return _StagedChunk(batch=self._upload(buf), masks=masks,
-                            rv=self._upload(rv), start=start,
-                            consumed=consumed)
+                if req is None or req.liveness is None:
+                    mbuf[s] = 1.0
+                    continue
+                c, take = int(start[s]), int(consumed[s])
+                mbuf[s, :take] = req.liveness[c:c + take]
+                if take < K:
+                    mbuf[s, take:] = 1.0
+        b_src, m_src, rv_src = bufs.sources
+        batch = self._upload(b_src)
+        masks = self._upload(m_src) if any_schedule else None
+        rv_dev = self._upload(rv_src)
+        ready = None
+        if self._copy_stream is not None:
+            ready = torch.cuda.Event()
+            ready.record(self._copy_stream)
+        bufs.upload = ready
+        return _StagedChunk(batch=batch, masks=masks, rv=rv_dev, start=start,
+                            consumed=consumed,
+                            signature=self._plan_signature(), ready=ready)
 
-    def _upload(self, host: np.ndarray) -> torch.Tensor:
-        """An owned device copy of a staging buffer (one copy; on the CPU
-        a clone, so the tensor never aliases the buffer refilled next
-        step)."""
-        t = torch.from_numpy(host)
-        return t.to(self.device) if self.device.type != "cpu" else t.clone()
-
-    def _accumulate_books(self, metrics, live: list[int]) -> None:
+    def _accumulate_books(self, metrics, rv: torch.Tensor) -> None:
         """Fold the step's stage outputs into the per-slot device accounts;
-        idle slots are selected out (where, not multiply)."""
-        lm = np.zeros(self.slots, bool)
-        lm[live] = True
-        lmj = torch.tensor(lm, device=self.device)
+        idle slots are selected out (where, not multiply).  A live slot
+        stages at least one round, so the staged round validity ``rv``
+        (slots, K) gives the live mask on the device."""
+        lmj = rv[:, 0] > 0
         zero = torch.zeros((), device=self.device)
         if self.cfg.compression is not None:
             comp = metrics.compression
@@ -424,13 +557,21 @@ class StreamingPCAEngine:
     # -- main loop ------------------------------------------------------------
     def step(self) -> int:
         """Fold the next K-round chunk for every active slot; returns the
-        number of active slots."""
+        number of active slots.
+
+        The chunk comes from the previous step's prestage when the slot
+        plan has not moved (``pipeline=True``), else it is staged here.
+        After the fold is dispatched and the host bookkeeping is done, the
+        pipelined engine admits again and prestages chunk t+1; only then
+        are the retirement results pulled — the loop's only device-to-host
+        copies."""
         t0 = time.perf_counter()
         admitted = self._admit()
         self._clock += 1
         live = [s for s in range(self.slots) if self.active[s]]
         self._replan(len(live))
         if not live:
+            self._staged = None
             if self.telemetry is not None:
                 self.telemetry.record_step(StepRecord(
                     step=self._clock, wall_s=time.perf_counter() - t0,
@@ -438,12 +579,25 @@ class StreamingPCAEngine:
                     rounds=0, queue_depth=len(self.queue),
                     admitted=admitted, retired=0))
             return 0
-        t_s = time.perf_counter()
-        staged = self._stage()
-        stage_s = time.perf_counter() - t_s
+        # -- chunk t: the prestaged upload, or staged here -----------------
+        staged, self._staged = self._staged, None
+        prestaged = (staged is not None
+                     and staged.signature == self._plan_signature())
+        stage_s = 0.0
+        if prestaged:
+            self._prestage_hits += 1
+        else:
+            self._prestage_misses += 1
+            t_s = time.perf_counter()
+            staged = self._stage()
+            stage_s = time.perf_counter() - t_s
+        # -- dispatch: the compute stream waits for the upload -------------
+        if staged.ready is not None:
+            torch.cuda.current_stream(self.device).wait_event(staged.ready)
         self.states, metrics = fleet_chunk_step(
             self.cfg, self.states, staged.batch, staged.masks, staged.rv)
-        self._accumulate_books(metrics, live)
+        self._accumulate_books(metrics, staged.rv)
+        # -- host bookkeeping: heartbeats, cursors, retirement verdicts ----
         pendings: list[dict] = []
         for s in live:
             req = self.active[s]
@@ -457,12 +611,22 @@ class StreamingPCAEngine:
                 pendings.append(self._begin_retire(s, "completed"))
             elif self.health[s].stalled():
                 pendings.append(self._begin_retire(s, "dead"))
+        # -- pipelined prestage: chunk t+1 while chunk t folds -------------
+        overlap_s = 0.0
+        if self.pipeline:
+            admitted += self._admit()
+            if any(r is not None for r in self.active):
+                t_s = time.perf_counter()
+                self._staged = self._stage()
+                overlap_s = time.perf_counter() - t_s
+                stage_s += overlap_s
+        # -- retirement results: the loop's only device-to-host pulls ------
         for pending in pendings:
             self._finish_retire(pending)
         if self.telemetry is not None:
             self.telemetry.record_step(StepRecord(
                 step=self._clock, wall_s=time.perf_counter() - t0,
-                stage_s=stage_s, overlap_s=0.0, prestaged=False,
+                stage_s=stage_s, overlap_s=overlap_s, prestaged=prestaged,
                 live=len(live), rounds=int(staged.consumed.sum()),
                 queue_depth=len(self.queue), admitted=admitted,
                 retired=len(pendings)))
@@ -473,7 +637,41 @@ class StreamingPCAEngine:
             if self.step() == 0 and not self.queue:
                 return
 
+    # -- two-level fleet merge -------------------------------------------------
     def fleet_summary(self, q_fleet: int | None = None,
-                      c_regions: int | None = None):
-        raise NotImplementedError(
-            "fleet_summary (the two-level merge_fleet) is not ported yet")
+                      c_regions: int | None = None) -> FleetSummary:
+        """Merge the retired regions' bases into the fleet-level basis: one
+        merge epoch over the latest final result per region id — global
+        top-``q_fleet`` selection by subspace energy
+        (:func:`~repro_torch.streaming.hierarchy.merge_fleet`), the dense
+        block embedding, and the merge's Table-1 bill at region-tree
+        fan-out ``c_regions`` (default ``cfg.c_max``), ARQ-scaled.  The
+        merge runs on the engine's device; its result comes back in one
+        pull (``pulls["merge"]``)."""
+        if not self.region_results:
+            raise ValueError("no retired region results to merge")
+        regions = sorted(self.region_results)
+        results = [self.region_results[r] for r in regions]
+        lam_table = torch.from_numpy(
+            np.stack([r.energies for r in results])).to(self.device)
+        total = torch.tensor(sum(r.total_variance for r in results),
+                             dtype=torch.float32, device=self.device)
+        qf = self.cfg.q if q_fleet is None else q_fleet
+        basis = merge_fleet(lam_table, total, qf)
+        W_regions = torch.from_numpy(
+            np.stack([r.components for r in results])).to(self.device)
+        parts = (fleet_basis_dense(basis, W_regions), basis.region,
+                 basis.col, basis.lam, basis.rho)
+        flat = self._pull(torch.cat([t.reshape(-1).to(torch.float32)
+                                     for t in parts]), "merge")
+        out, at = [], 0
+        for t in parts:
+            out.append(flat[at:at + t.numel()].reshape(tuple(t.shape)))
+            at += t.numel()
+        cr = self.cfg.c_max if c_regions is None else c_regions
+        bill = costs.lossy_merge_cost(self.cfg.q, cr, self.cfg.link_loss,
+                                      self.cfg.max_retries).communication
+        return FleetSummary(
+            basis=out[0], region=out[1].astype(np.int32),
+            col=out[2].astype(np.int32), lam=out[3], rho=float(out[4]),
+            regions=tuple(regions), merge_packets=float(bill))

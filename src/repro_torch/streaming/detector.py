@@ -208,7 +208,7 @@ def detect_apply(t2: torch.Tensor, spe: torch.Tensor, row_live: torch.Tensor,
     closing = calibrating & (calib_left == 0)
 
     z = cfg.z_alpha
-    floor = wilson_hilferty(torch.tensor(float(q), device=t2.device), z)
+    floor = wilson_hilferty(torch.full((), float(q), device=t2.device), z)
     t2_thr_new = torch.maximum(_moment_threshold(t2_sum, t2_sumsq, count, z),
                                floor)
     spe_thr_new = _moment_threshold(spe_sum, spe_sumsq, count, z).clamp(

@@ -9,6 +9,9 @@
   :func:`batched_stream_run` (``chunk=None``) over a (networks, rounds,
   n, p) fleet — the reference's ``vmap`` of the scan, with the networks
   axis written out and taken by the kernels as a grid axis.
+* :func:`sharded_stream_run` — :func:`batched_stream_run` with the
+  networks axis split over the ranks of a ``torch.distributed`` group:
+  each rank streams its contiguous slice, with no collective.
 * :func:`fleet_chunk_step` — K rounds for every slot in one pass: the
   chunk fold, one decision per slot, the stages and the books.  It
   replaces the reference's vmapped, jitted ``engine_chunk_step_fn``.
@@ -44,7 +47,7 @@ ignores it and gives the bits it gives at fp32.
 The drivers take per-round (…, rounds, p) liveness masks, as the
 reference's do; per-reading dropout masks are taken by
 :func:`repro_torch.streaming.online_cov.online_update` and
-``online_update_chunk``.  Not ported yet: ``sharded_stream_run``.
+``online_update_chunk``.
 """
 
 from __future__ import annotations
@@ -80,7 +83,7 @@ __all__ = ["StreamConfig", "StreamState", "RoundMetrics", "random_bases",
            "stream_init", "batched_stream_init", "fleet_round_step",
            "stream_step", "stream_run", "batched_stream_run",
            "fleet_chunk_step", "chunk_stream_step", "chunked_stream_run",
-           "tree_map"]
+           "sharded_stream_run", "tree_map"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -477,7 +480,8 @@ def _fleet_chunked_run(cfg, states, xs, masks, chunk, probe_every):
         xs = torch.cat([xs, zeros(xs)], 1)
         if masks is not None:
             masks = torch.cat([masks, zeros(masks)], 1)
-        rv = torch.cat([torch.ones(R), torch.zeros(pad)]).to(xs.device)
+        rv = torch.cat([torch.ones(R, device=xs.device),
+                        torch.zeros(pad, device=xs.device)])
         rv = rv.expand(N, n_steps * S)
     rows = []
     for i in range(n_steps):
@@ -544,3 +548,26 @@ def batched_stream_run(cfg: StreamConfig, states: StreamState,
                              "path has no dispatch granularity to probe)")
         return _fleet_round_run(cfg, states, xs, masks)
     return _fleet_chunked_run(cfg, states, xs, masks, chunk, probe_every)
+
+
+def sharded_stream_run(cfg: StreamConfig, group, states: StreamState,
+                       xs: torch.Tensor, *, chunk: int | None = None,
+                       probe_every: int | None = None,
+                       ) -> tuple[StreamState, RoundMetrics]:
+    """:func:`batched_stream_run` with the networks axis split over the
+    ranks of the process group ``group`` (``repro.streaming.driver
+    .sharded_stream_run`` over a mesh axis): ``states`` and ``xs``
+    (networks, rounds, n, p) are the whole fleet, the same on every rank;
+    rank r streams its contiguous slice
+    (:func:`repro_torch.distributed.sharding.shard_networks`, which raises
+    when the ranks do not divide the networks) and returns that slice's
+    final states and metrics.  No collective: the networks are
+    independent."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import shard_networks
+
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    return batched_stream_run(cfg, shard_networks(states, rank, world),
+                              shard_networks(xs, rank, world), chunk=chunk,
+                              probe_every=probe_every)

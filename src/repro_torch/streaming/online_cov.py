@@ -19,6 +19,7 @@ gives the bits of :func:`online_update_chunk` on a one-round chunk.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -70,6 +71,16 @@ def _per_round(masks: torch.Tensor, xs: torch.Tensor) -> bool:
     return masks.dim() == xs.dim() - 1
 
 
+@functools.lru_cache(maxsize=None)
+def _pow_table(beta: float, K: int, dtype: torch.dtype,
+               device: torch.device) -> torch.Tensor:
+    """``[beta**0, ..., beta**K]`` as Python floats cast to ``dtype`` on
+    ``device``, built once per key: its host-to-device copy waits on the
+    stream, so the fold must not make it every chunk."""
+    return torch.tensor([beta ** j for j in range(K + 1)], dtype=dtype,
+                        device=device)
+
+
 def online_chunk_stats(state: OnlineCovariance, xs: torch.Tensor,
                        forgetting: float = 1.0,
                        masks: torch.Tensor | None = None,
@@ -79,20 +90,18 @@ def online_chunk_stats(state: OnlineCovariance, xs: torch.Tensor,
     and the mean-sum / pairwise-count deltas.  ``delta_tb`` is None for a
     (..., K, n, p) dropout mask (its counts need a kernel pass).
 
-    The decay powers come from a host-side table of Python floats
-    ``beta**j`` cast to fp32, gathered on device — no traced ``pow``."""
+    The decay powers come from a table of Python floats ``beta**j`` cast
+    to fp32 (:func:`_pow_table`), gathered on device — no traced ``pow``."""
     dt = state.s.dtype
     xs = xs.to(dt)
     K, n, p = xs.shape[-3:]
     lead = xs.shape[:-3]
     h = state.halfwidth
-    beta = float(forgetting)
-    pow_table = torch.tensor([beta ** j for j in range(K + 1)], dtype=dt,
-                             device=xs.device)
+    pow_table = _pow_table(float(forgetting), K, dt, xs.device)
     if round_valid is None:
         w = pow_table[torch.arange(K - 1, -1, -1, device=xs.device)]
         w = w.expand(lead + (K,))
-        beta_eff = pow_table[K].expand(lead)
+        beta_eff = pow_table[K].clone().expand(lead)   # not the cache
     else:
         rv = round_valid.to(dt)
         # each valid round decays once per valid round AFTER it

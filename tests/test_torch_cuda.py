@@ -22,6 +22,8 @@ they keep (``TestCudaFusedTiles``).
 """
 
 import dataclasses
+import linecache
+import warnings
 
 import numpy as np
 import pytest
@@ -908,3 +910,144 @@ def test_per_round_stage_run_on_card_matches_cpu():
                                rtol=1e-5, atol=0)
     torch.testing.assert_close(mg.rho.cpu(), mc.rho, rtol=1e-3, atol=1e-6)
     assert float(mg.compression.max_err.max()) <= 1.0
+
+
+# -- the pipelined engine on the card ----------------------------------------
+def _pipeline_run(pipeline, *, poison=False, debug_sites=None):
+    """The small engine with a liveness request and two submission waves,
+    synchronous or pipelined.  With ``poison`` every staging buffer is
+    overwritten after each step, once its last upload's event has
+    completed; with ``debug_sites`` (a list) the host syncs of every step
+    after the first are recorded under set_sync_debug_mode("warn")."""
+    cfg, data, bases = _small_engine()
+    eng = StreamingPCAEngine(cfg, slots=4, chunk=4, device="cuda",
+                             init_bases=bases, pipeline=pipeline)
+    live = np.ones((16, 64), np.float32)
+    live[6:, 20:28] = 0.0
+    reqs = [StreamRequest(rounds=d, region=i,
+                          liveness=live[:len(d)] if i == 2 else None)
+            for i, d in enumerate(data)]
+    for r in reqs[:3]:
+        eng.submit(r)
+    ops.reset_counts()
+    step = 0
+    while True:
+        if step == 2:
+            for r in reqs[3:]:
+                eng.submit(r)
+        if debug_sites is not None and step > 0:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    live_slots = eng.step()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            debug_sites.extend(
+                linecache.getline(w.filename, w.lineno).strip()
+                for w in caught
+                if "called a synchronizing" in str(w.message))
+        else:
+            live_slots = eng.step()
+        if poison:
+            for bufs in eng._staging:
+                if bufs is not None:
+                    if bufs.upload is not None:
+                        bufs.upload.synchronize()
+                    for buf in bufs.views():
+                        buf.fill(np.float32(1e9))
+        step += 1
+        if not live_slots and not eng.queue:
+            break
+    assert sum(ops.PLAIN_CALLS.values()) == 0
+    return eng, reqs, dict(ops.LAUNCHES)
+
+
+def _same_results(ra, rb):
+    for a, b in zip(ra, rb, strict=True):
+        assert a.done and b.done
+        for x, y in zip(a.retirements + [a.result],
+                        b.retirements + [b.result], strict=True):
+            for f in dataclasses.fields(x):
+                np.testing.assert_array_equal(np.asarray(getattr(x, f.name)),
+                                              np.asarray(getattr(y, f.name)),
+                                              err_msg=f.name)
+
+
+@pytest.mark.cuda
+class TestCudaPipelinedEngine:
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+
+    def test_pipelined_is_sync_bit_for_bit(self):
+        e_sync, r_sync, l_sync = _pipeline_run(False)
+        e_pipe, r_pipe, l_pipe = _pipeline_run(True)
+        _same_results(r_sync, r_pipe)
+        ledger = lambda eng, reqs: [(reqs.index(q), why)
+                                    for q, why in eng.retired_log]
+        assert ledger(e_sync, r_sync) == ledger(e_pipe, r_pipe)
+        assert l_sync == l_pipe and l_pipe["fused_stream"] > 0
+        assert e_pipe.pulls["hot"] == 0 and e_pipe._prestage_hits >= 1
+        assert e_pipe.pulls["retire"] == len(e_pipe.retired_log)
+
+    def test_buffers_pinned_and_copy_stream_a_side_stream(self):
+        eng, _, _ = _pipeline_run(True)
+        sources = [t for bufs in eng._staging for t in bufs.sources]
+        assert len(sources) == 6
+        assert all(t.is_pinned() and t.device.type == "cpu"
+                   for t in sources)
+        for bufs in eng._staging:
+            for view, t in zip(bufs.views(), bufs.sources, strict=True):
+                assert view.ctypes.data == t.data_ptr()   # views, not copies
+        assert eng._copy_stream is not None
+        assert eng._copy_stream != torch.cuda.current_stream()
+        assert eng._copy_stream != torch.cuda.default_stream()
+        assert all(isinstance(bufs.upload, torch.cuda.Event)
+                   for bufs in eng._staging)
+
+    def test_loop_syncs_only_at_the_named_sites(self):
+        """Between the dispatch of a step and the end of the prestage the
+        host waits for the card only where PERF.md says: the refresh's
+        ``eigh`` and the retirement pull (the transfer fence, an
+        ``Event.synchronize`` on a copy, is never flagged)."""
+        sites = []
+        _pipeline_run(True, debug_sites=sites)
+        allowed = ("torch.linalg.eigh", "x.cpu()")
+        assert sites, "no sync recorded: is the debug mode on?"
+        stray = [s for s in sites if not any(a in s for a in allowed)]
+        assert not stray, stray
+
+    @pytest.mark.parametrize("pipeline", [False, True])
+    def test_poisoned_buffers_after_their_copies_change_nothing(self,
+                                                                pipeline):
+        _, clean, _ = _pipeline_run(pipeline)
+        _, poisoned, _ = _pipeline_run(pipeline, poison=True)
+        _same_results(clean, poisoned)
+
+    def test_fleet_summary_on_card_matches_cpu(self):
+        """The merge on the card against the same engine's merge on the
+        CPU: selection exactly, energies and rho rtol 1e-5, the basis
+        (sign-aligned) atol 1e-4, one merge pull each.  Each region's
+        readings carry a gain of its own, so the ranking across regions
+        has a margin."""
+        cfg, data, bases = _small_engine()
+        summaries = {}
+        for dev in ("cuda", "cpu"):
+            eng = StreamingPCAEngine(cfg, slots=4, chunk=4, device=dev,
+                                     init_bases=bases, pipeline=True)
+            for i, d in enumerate(data):
+                eng.submit(StreamRequest(rounds=d * np.float32(1 + 0.3 * i),
+                                         region=i))
+            eng.run_until_done()
+            summaries[dev] = eng.fleet_summary(8)
+            assert eng.pulls["merge"] == 1
+        a, b = summaries["cuda"], summaries["cpu"]
+        np.testing.assert_array_equal(a.region, b.region)
+        np.testing.assert_array_equal(a.col, b.col)
+        np.testing.assert_allclose(a.lam, b.lam, rtol=1e-5)
+        np.testing.assert_allclose(a.rho, b.rho, rtol=1e-5)
+        sgn = np.sign(np.sum(a.basis * b.basis, axis=0))
+        np.testing.assert_allclose(a.basis * sgn, b.basis, atol=1e-4)
+        assert a.merge_packets == b.merge_packets

@@ -20,8 +20,9 @@ ROOT = Path(__file__).resolve().parents[1]
 CHILD = ROOT / "tests" / "torch_ref_child.py"
 
 
-def run_reference(mode: str, out: Path) -> dict:
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
+def run_reference(mode: str, out: Path, env: dict | None = None) -> dict:
+    """Run the child in ``mode``, with ``env`` added to its environment."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu", **(env or {}))
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT / "src")] + [p for p in [env.get("PYTHONPATH")] if p])
     proc = subprocess.run([sys.executable, str(CHILD), mode, str(out)],

@@ -1,8 +1,9 @@
 """Reference runs for the PyTorch port's parity tests, in a child process.
 
-Run as ``python tests/torch_ref_child.py {streaming|rounds|engine} OUT.npz``
-with
-``JAX_PLATFORMS=cpu`` and ``src`` on ``PYTHONPATH``.  The installed jax
+Run as ``python tests/torch_ref_child.py {streaming|rounds|engine|hierarchy}
+OUT.npz`` with ``JAX_PLATFORMS=cpu`` and ``src`` on ``PYTHONPATH`` (and, for
+``hierarchy``, ``XLA_FLAGS=--xla_force_host_platform_device_count=2``: its
+runs shard over a two-device mesh).  The installed jax
 moved ``ClosedJaxpr``, ``Jaxpr`` and ``Literal`` from ``jax.core`` to
 ``jax.extend.core``; ``repro.analysis`` (imported at the bottom of
 ``repro.streaming.driver`` and ``repro.serve.engine``) still reads them from
@@ -22,8 +23,13 @@ round i, plus ``{scenario}/run/final.*`` and ``/run/m.*`` (the reference's
 (the online covariance per round under each mask kind) and ``batched/*``
 (``batched_stream_run`` of a three-network fleet, per round and chunked).
 The engine run writes the default configuration's results at the top
-level, the quantized configuration's under ``quant/`` and the bf16 tile
-mode's under ``bf16/``.
+level (each request its own region, with ``fleet/q{q_fleet}/...`` from
+``fleet_summary``), the pipelined engine's under ``pipe/`` (with its
+prestage counts), the quantized configuration's under ``quant/`` and the
+bf16 tile mode's under ``bf16/``.  The hierarchy run writes ``merge/*``
+(``merge_fleet`` and ``fleet_basis_dense`` on energy tables with ties),
+and for each two-level or sharded scenario its inputs, initial states
+(``{name}/init.*``), final states, metrics and merge.
 """
 
 from __future__ import annotations
@@ -286,13 +292,20 @@ def engine_cfg(score_bits=0, precision="fp32"):
         detection=DetectionConfig(alpha=1e-3, calib_rounds=2))
 
 
+# (q_fleet, c_regions) of the fleet summaries: a region's q, the whole
+# fleet's components, and a region-tree fan-out of its own
+FLEET_SUMMARIES = ((Q, None), (3 * Q, 2), (6 * Q, None))
+
+
 def run_engine(out):
-    serve_engine(out, engine_cfg(), "")
+    serve_engine(out, engine_cfg(), "", summaries=FLEET_SUMMARIES)
+    serve_engine(out, engine_cfg(), "pipe/", pipeline=True,
+                 summaries=FLEET_SUMMARIES)
     serve_engine(out, engine_cfg(score_bits=4), "quant/")
     serve_engine(out, engine_cfg(precision="bf16"), "bf16/")
 
 
-def serve_engine(out, cfg, prefix):
+def serve_engine(out, cfg, prefix, pipeline=False, summaries=()):
     from repro.serve.engine import StreamingPCAEngine, StreamRequest
     rng = np.random.default_rng(7)
     lengths = [10, 13, 16, 9, 12, 14]
@@ -306,24 +319,123 @@ def serve_engine(out, cfg, prefix):
         out[f"{prefix}req{i}/rounds"] = x
         if live is not None:
             out[f"{prefix}req{i}/liveness"] = live
-        reqs.append(StreamRequest(rounds=x, liveness=live))
-    eng = StreamingPCAEngine(cfg, slots=ENGINE_SLOTS, seed=0, chunk=K)
+        reqs.append(StreamRequest(rounds=x, liveness=live, region=i))
+    eng = StreamingPCAEngine(cfg, slots=ENGINE_SLOTS, seed=0, chunk=K,
+                             pipeline=pipeline)
     out[f"{prefix}init_bases"] = np.asarray(eng.states.sched.W)
     out[f"{prefix}cfg"] = np.array(cfg_json(cfg))
     for r in reqs:
         eng.submit(r)
     eng.run_until_done()
     out[f"{prefix}steps"] = np.array(eng._clock)
+    out[f"{prefix}prestage"] = np.array([eng._prestage_hits,
+                                         eng._prestage_misses,
+                                         eng._transfer_fences])
+    out[f"{prefix}retired"] = np.array([reqs.index(q)
+                                        for q, _ in eng.retired_log])
     for i, r in enumerate(reqs):
         for f in dataclasses.fields(r.result):
             v = getattr(r.result, f.name)
             if v is not None:
                 out[f"{prefix}req{i}/result.{f.name}"] = np.asarray(v)
+    for qf, cr in summaries:
+        summ = eng.fleet_summary(qf, cr)
+        for f in dataclasses.fields(summ):
+            out[f"{prefix}fleet/q{qf}/{f.name}"] = np.asarray(
+                getattr(summ, f.name))
+
+
+MERGE_TABLES = {
+    # ties within and across regions, a zero and equal rows
+    "ties": np.array([[3.0, 1.0, 1.0, 0.5], [3.0, 2.0, 1.0, 0.5],
+                      [1.0, 1.0, 0.0, 0.0]], np.float32),
+    "random": np.abs(np.random.default_rng(500).normal(
+        size=(5, 3))).astype(np.float32),
+}
+P_REGION, H_REGIONS, H_ROUNDS, H_N = 24, 4, 12, 6
+HIER_SCENARIOS = {
+    # name: (stages, masked, chunk, q_fleet, config overrides)
+    "h_chunk": ("cm", True, 4, 2 * Q, {}),
+    "h_round": ("", False, None, None, dict(forgetting=0.9)),
+    "h_quiet": ("", False, 4, 3, dict(warmup_rounds=100)),
+}
+SHARD_SCENARIOS = {"s_round": None, "s_chunk": 4}
+
+
+def region_data(rng, regions, rounds, n, p):
+    """Independent regions whose energies differ by a gain per region, so
+    the merge's ranking has a margin from ties."""
+    return np.stack([(1.0 + 0.35 * r) * signal(rng, rounds, n, p,
+                                                rotate_at=rounds // 2,
+                                                spike_rate=0.0)
+                     for r in range(regions)]).astype(np.float32)
+
+
+def run_hierarchy(out):
+    from repro.launch.mesh import make_fleet_mesh
+    from repro.streaming.driver import sharded_stream_run
+    from repro.streaming.hierarchy import (fleet_basis_dense,
+                                           hierarchical_stream_init,
+                                           hierarchical_stream_run,
+                                           merge_fleet)
+    assert jax.device_count() == 2, jax.devices()
+    rng = np.random.default_rng(501)
+    for name, table in MERGE_TABLES.items():
+        n_regions, q_local = table.shape
+        W = rng.normal(size=(n_regions, 6, q_local)).astype(np.float32)
+        total = np.float32(table.sum() * 1.5)
+        out[f"merge/{name}/table"], out[f"merge/{name}/W"] = table, W
+        out[f"merge/{name}/total"] = np.asarray(total)
+        for qf in range(1, n_regions * q_local + 1):
+            basis = merge_fleet(jnp.asarray(table), jnp.asarray(total), qf)
+            out.update(flatten(basis, f"merge/{name}/q{qf}"))
+            out[f"merge/{name}/q{qf}/dense"] = np.asarray(
+                fleet_basis_dense(basis, jnp.asarray(W)))
+    mesh = make_fleet_mesh(region=2)
+    for si, (name, (stages, masked, chunk, qf, over)) in enumerate(
+            HIER_SCENARIOS.items()):
+        cfg = dataclasses.replace(stream_cfg(P_REGION, stages), **over)
+        xs = region_data(rng, H_REGIONS, H_ROUNDS, H_N, P_REGION)
+        masks = None
+        if masked:
+            masks = np.ones((H_REGIONS, H_ROUNDS, P_REGION), np.float32)
+            masks[1, 5:, 3] = 0.0
+            masks[2, 4:8, 10:14] = 0.0
+        states = hierarchical_stream_init(cfg, jax.random.PRNGKey(60 + si),
+                                          H_REGIONS)
+        out[f"{name}/cfg"] = np.array(cfg_json(cfg))
+        out[f"{name}/x"] = xs
+        out[f"{name}/chunk"] = np.array(-1 if chunk is None else chunk)
+        out[f"{name}/q_fleet"] = np.array(-1 if qf is None else qf)
+        if masks is not None:
+            out[f"{name}/masks"] = masks
+        out.update(flatten(states, f"{name}/init"))
+        fin, met, fleet = hierarchical_stream_run(
+            cfg, mesh, states, jnp.asarray(xs),
+            None if masks is None else jnp.asarray(masks), q_fleet=qf,
+            chunk=chunk)
+        out.update(flatten(fin, f"{name}/final"))
+        out.update(flatten(met, f"{name}/m"))
+        out.update(flatten(fleet, f"{name}/fleet"))
+    data_mesh = jax.make_mesh((2, 1), ("data", "model"))
+    for si, (name, chunk) in enumerate(SHARD_SCENARIOS.items()):
+        cfg = stream_cfg(P_REGION, "cm")
+        xs = region_data(rng, H_REGIONS, H_ROUNDS, H_N, P_REGION)
+        states = hierarchical_stream_init(cfg, jax.random.PRNGKey(70 + si),
+                                          H_REGIONS)
+        out[f"{name}/cfg"] = np.array(cfg_json(cfg))
+        out[f"{name}/x"] = xs
+        out[f"{name}/chunk"] = np.array(-1 if chunk is None else chunk)
+        out.update(flatten(states, f"{name}/init"))
+        fin, met = sharded_stream_run(cfg, data_mesh, states,
+                                      jnp.asarray(xs), chunk=chunk)
+        out.update(flatten(fin, f"{name}/final"))
+        out.update(flatten(met, f"{name}/m"))
 
 
 if __name__ == "__main__":
     mode, path = sys.argv[1], sys.argv[2]
     results: dict = {}
     {"streaming": run_streaming, "rounds": run_rounds,
-     "engine": run_engine}[mode](results)
+     "engine": run_engine, "hierarchy": run_hierarchy}[mode](results)
     np.savez(path, **results)
