@@ -110,7 +110,24 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      regions of p=1024, chunk 8, with phase 8's liveness: one all_gather
      and one all_reduce, one banded product more than the chunk steps'
      (the region records), the merge equal to a numpy stable argsort of the
-     gathered energy table.
+     gathered energy table;
+ 14. the paper's pipeline (repro_torch.core, repro_torch.sensors): the
+     quickstart's steps at the paper's deployment (the Berkeley surrogate,
+     p=52, 14,400 epochs, fold 0, 10 m radio range; DistributedPCA q=5 by
+     masked power, banded power and banded ortho after the RCM
+     relabelling, each equal to the same fit on the CPU in its iteration
+     counts, its held-out retained variance beside numpy float64 eigh;
+     supervised compression's eps exactly, the PCAg packets, the
+     low-variance detector), then wsn-1m's production steps at full width
+     (p=1,048,576, h=128, q=32, 256-epoch batches: cov_update_step x 4,
+     pim_block_step to convergence, pim_deflated_step for 3 components,
+     transform_step; the planted subspace recovered) and the sharded
+     block and deflated steps on one NCCL rank; kernels 6, 10 and 11 at
+     both widths against their plain versions (by column window at 1M),
+     with their times, bounds and one library call's: torch.bmm where the
+     dense matrix fits, else cuSPARSE on the band's own pattern (SDDMM,
+     SpMM, SpMV) (``*_berkeley``, ``*_wsn1m``; launches under
+     ``paper_pipeline`` and ``wsn1m_production``).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card, or without the rest
 of the repository beside it, the script exits non-zero and prints no
@@ -173,6 +190,20 @@ KERNELS = {
                          "src/repro/kernels/banded_matvec.py:85"),
     "banded_matvec": ("src/repro_torch/kernels/csrc/banded.cu",
                       "src/repro/kernels/banded_matvec.py:52"),
+    # kernels 6, 10 and 11 at one slot on the paper pipeline's widths
+    # (phase 14): the Berkeley deployment and wsn-1m
+    "band_round_berkeley": ("src/repro_torch/kernels/csrc/band_fold.cu",
+                            "src/repro/kernels/cov_update.py:53"),
+    "banded_matmul_berkeley": ("src/repro_torch/kernels/csrc/banded.cu",
+                               "src/repro/kernels/banded_matvec.py:85"),
+    "banded_matvec_berkeley": ("src/repro_torch/kernels/csrc/banded.cu",
+                               "src/repro/kernels/banded_matvec.py:52"),
+    "band_round_wsn1m": ("src/repro_torch/kernels/csrc/band_fold.cu",
+                         "src/repro/kernels/cov_update.py:53"),
+    "banded_matmul_wsn1m": ("src/repro_torch/kernels/csrc/banded.cu",
+                            "src/repro/kernels/banded_matvec.py:85"),
+    "banded_matvec_wsn1m": ("src/repro_torch/kernels/csrc/banded.cu",
+                            "src/repro/kernels/banded_matvec.py:52"),
 }
 
 
@@ -852,6 +883,535 @@ def banded_one_slot(band, V, dense) -> dict:
           f"{nbytes / 1e6:.3f} MB); equal bits to the plain version")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms)
+
+
+# the paper's deployment (paper Sec. 4: the Berkeley surrogate, 52
+# sensors, 14,400 epochs, 10 m radio range, q = 5, eps = 0.5 C) and
+# wsn-1m's production width (configs/wsn_1m.py: p, halfwidth, q,
+# batch_epochs)
+BERKELEY_P, BERKELEY_EPOCHS, BERKELEY_Q = 52, 14_400, 5
+RADIO, EPS_C = 10.0, 0.5
+WSN_P, WSN_H, WSN_Q, WSN_N = 1_048_576, 128, 32, 256
+WINDOW = 4096                         # columns a window of the 1M checks
+DENSE_MAX_BYTES = 2 ** 30             # a dense (p, p) yardstick up to 1 GiB
+
+
+def path_counts() -> tuple[dict, int]:
+    """The kernel launches since the last ``ops.reset_counts()``, and the
+    plain calls (a path on the card makes none)."""
+    from repro_torch.kernels import ops
+    return ({k: v for k, v in ops.LAUNCHES.items() if v},
+            sum(ops.PLAIN_CALLS.values()))
+
+
+def windows(name, out, plain, axis) -> None:
+    """The largest error in column windows at both edges and the middle of
+    the width (``axis``): where 32-bit index products would first go
+    wrong.  Widths below three windows are compared whole only."""
+    p = out.shape[axis]
+    if p < 3 * WINDOW:
+        return
+    errs = []
+    for lo in (0, p // 2 - WINDOW // 2, p - WINDOW):
+        err = out.narrow(axis, lo, WINDOW) - plain.narrow(axis, lo, WINDOW)
+        errs.append(f"[{lo}, {lo + WINDOW}) {err.abs().max().item():.3e}")
+    print(f"   {name}: max_abs_err in windows {'; '.join(errs)}")
+
+
+def small_device_times(rec, name, run, lib) -> None:
+    """At a width this small a call's event time is the wrapper's host
+    time: the device time a call of the kernel and of its torch.bmm
+    (``device_ms``, 50 calls each)."""
+    rec["device_ms"], _ = device_ms(run, 50)
+    rec["library_device_ms"], _ = device_ms(lib, 50)
+    print(f"   {name}: device time a call {rec['device_ms']:.4f} ms, "
+          f"torch.bmm's {rec['library_device_ms']:.4f} ms")
+
+
+def band_csr(band):
+    """A (2h+1, p) band's (p, p) CSR form, int32 indices, row i holding
+    columns i-h..i+h in order (``band[k, i]`` at column i + k - h), and
+    the (p, 2h+1) mask of the band's entries inside the matrix: the
+    sparse yardstick where the dense matrix does not fit, built once
+    outside any timing."""
+    nb, p = band.shape
+    h = (nb - 1) // 2
+    i32 = dict(dtype=torch.int32, device=band.device)
+    cols = (torch.arange(p, **i32)[:, None]
+            + torch.arange(-h, h + 1, **i32)[None])
+    valid = (cols >= 0) & (cols < p)
+    crow = torch.zeros(p + 1, **i32)
+    crow[1:] = valid.sum(1).cumsum(0)
+    with warnings.catch_warnings():         # "sparse CSR support is beta"
+        warnings.simplefilter("ignore")
+        csr = torch.sparse_csr_tensor(crow, cols[valid], band.T[valid],
+                                      size=(p, p), check_invariants=False)
+    return csr, valid
+
+
+def one_slot_fold(name, x, h, iters, plain_iters) -> dict:
+    """Kernel 6 on one (n, p) batch, as ``banded_update`` launches it:
+    against its plain version on the card (1e-4 / 1e-3, the fold
+    tolerance; by window at 1M), its band exactly symmetric and kernel 2's
+    bits at K = 1, w = 1; its time beside the plain version's, its bound
+    and, where the (p, p) product fits in ``DENSE_MAX_BYTES``, torch.bmm's
+    dense product, else torch.sparse.sampled_addmm on the band's pattern
+    (3 calls: cuSPARSE's SDDMM is slow)."""
+    from repro_torch.kernels import ops, ref
+    n, p = x.shape
+    run = lambda: ops.cov_band_update(x, h)
+    plain_fn = lambda: ref.cov_band_update(x, h)
+    out = run()
+    torch.cuda.synchronize()
+    plain = plain_fn()
+    err = compare(f"{name} n={n} p={p} h={h}", out, plain, 1e-4, 1e-3)
+    windows(name, out, plain, 1)
+    del plain
+    chunk = ops.cov_band_update_chunk_batched(
+        x[None, None], torch.ones((1, 1), device=x.device), h)[0]
+    sym, same = mirrored(out[None], h), torch.equal(out, chunk)
+    print(f"   {name}: band exactly symmetric {sym}; == kernel 2's at "
+          f"K = 1, w = 1 (bit for bit) {same}")
+    check(sym and same, f"{name}: band not mirrored or not kernel 2's")
+    del chunk
+    ms, plain_ms = time_ms(run, iters), time_ms(plain_fn, plain_iters, 1)
+    nbytes = 4.0 * (x.numel() + out.numel())
+    b_ms, b_by = bound(fold_flops(1, n, p, h), nbytes)
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=None)
+    if 4.0 * p * p <= DENSE_MAX_BYTES:
+        dense_fold(rec, name, out[None], x[None], x[None], h, iters)
+        small_device_times(rec, name, run, lambda: torch.bmm(
+            x[None].transpose(1, 2), x[None]))
+    else:
+        # the dense (p, p) product does not fit: cuSPARSE's SDDMM on the
+        # band's own pattern computes the same sums
+        pattern, valid = band_csr(out)
+        lib = lambda: torch.sparse.sampled_addmm(pattern, x.T, x, beta=0.0)
+        got = out.new_zeros(valid.shape)
+        got[valid] = lib().values()
+        compare(f"{name} vs torch.sparse.sampled_addmm on the band's "
+                f"pattern", out, got.T, 1e-4, 1e-3)
+        del got
+        rec["library_ms"] = time_ms(lib, 3, 1)
+        print(f"   {name}: torch.sparse.sampled_addmm (SDDMM) "
+              f"{rec['library_ms']:.3f} ms (the dense ({p}, {p}) product "
+              f"would take {4.0 * p * p / 1e9:,.0f} GB)")
+        del pattern, valid
+    print(f"   {name} n={n} p={p} h={h}: kernel {ms:.4f} ms ({iters} "
+          f"calls), plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
+          f"{nbytes / 1e9:.4f} GB)")
+    return rec
+
+
+def one_slot_product(name, band, V, iters, plain_iters) -> dict:
+    """Kernel 10 (V (p, q)) or 11 (v (p,)) at one slot, as
+    ``repro_torch.core`` launches it: equal bits to its plain version on
+    the card (by window at 1M), its time beside the plain version's, its
+    bound and, where the (p, p) matrix fits, torch.bmm on it, else the
+    band's CSR form times the vector or matrix (cuSPARSE)."""
+    from repro_torch.core.covariance import band_to_dense
+    from repro_torch.kernels import ops, ref
+    vec = V.dim() == 1
+    kernel = ops.banded_matvec if vec else ops.banded_matmul
+    plain_op = ref.banded_matvec if vec else ref.banded_matmul
+    run, plain_fn = lambda: kernel(band, V), lambda: plain_op(band, V)
+    out = run()
+    torch.cuda.synchronize()
+    plain = plain_fn()
+    nb, p = band.shape
+    h, width = (nb - 1) // 2, 1 if vec else V.shape[1]
+    err = compare(f"{name} p={p} h={h} q={width}", out, plain, 1e-5, 1e-5)
+    windows(name, out, plain, 0)
+    same = torch.equal(out, plain)
+    print(f"   {name}: equal bits to the plain version {same}")
+    check(same, f"{name}: bits differ from the plain version")
+    del plain
+    ms, plain_ms = time_ms(run, iters), time_ms(plain_fn, plain_iters, 1)
+    entries = band_entries(p, h)
+    flops = 2.0 * width * entries
+    nbytes = 4.0 * (entries + 2 * p * width)
+    b_ms, b_by = bound(flops, nbytes)
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=None)
+    if 4.0 * p * p <= DENSE_MAX_BYTES:
+        dense = band_to_dense(band)[None]
+        V3 = V.reshape(1, p, width)
+        lib = lambda: torch.bmm(dense, V3)
+        compare(f"{name} vs torch.bmm on the dense matrix", out,
+                lib().reshape(out.shape), 1e-4, 1e-4)
+        rec["library_ms"] = time_ms(lib, iters)
+        lib_txt = f"torch.bmm on dense {rec['library_ms']:.4f} ms"
+        small_device_times(rec, name, run, lib)
+    else:
+        # the dense (p, p) matrix does not fit: cuSPARSE's SpMV / SpMM on
+        # the band's CSR form
+        csr, _ = band_csr(band)
+        lib = lambda: csr @ V
+        compare(f"{name} vs the band's CSR form", out, lib(), 1e-4, 1e-4)
+        rec["library_ms"] = time_ms(lib, iters)
+        lib_txt = (f"CSR @ {'v' if vec else 'V'} (cuSPARSE) "
+                   f"{rec['library_ms']:.4f} ms (the dense ({p}, {p}) "
+                   f"matrix would take {4.0 * p * p / 1e9:,.0f} GB)")
+        del csr
+    print(f"   {name} S=1 p={p} h={h} q={width}: kernel {ms:.4f} ms "
+          f"({iters} calls), plain {plain_ms:.3f} ms, {lib_txt}, bound "
+          f"{b_ms:.5f} ms ({b_by}; {flops / 1e6:.2f} MFLOP, "
+          f"{nbytes / 1e6:.3f} MB)")
+    return rec
+
+
+def eigh64_retained(train, test, mask, q, method) -> float:
+    """The yardstick of a fit's held-out retained variance: numpy float64
+    eigh of the same masked covariance (a banded or masked covariance need
+    not be positive semi-definite), its q eigenvalues of largest
+    magnitude — those both iterations converge to — kept as the fit keeps
+    them: 'power' up to the first negative one (Algorithm 2's stop),
+    'ortho' the positive ones."""
+    from repro_torch.core.pca import retained_variance
+    x = np.asarray(train, np.float64)
+    mu = x.mean(0)
+    xc = x - mu
+    lam, U = np.linalg.eigh(np.where(mask, xc.T @ xc / len(x), 0.0))
+    lam, U = lam[np.argsort(-np.abs(lam))[:q]], U[:, np.argsort(
+        -np.abs(lam))[:q]]
+    keep = (np.cumprod(lam > 0).astype(bool) if method == "power"
+            else lam > 0)
+    return retained_variance(test, U[:, keep], mu)
+
+
+def paper_pipeline(record, dev) -> None:
+    """Phase 14, the paper's deployment: the quickstart's steps on the card —
+    the Berkeley surrogate (p = 52, 14,400 epochs), fold 0 of the block
+    K-fold, the 10 m topology; DistributedPCA q = 5 by masked power
+    iteration, and after the RCM relabelling by banded power (kernel 6
+    once, kernel 11 once an iteration) and banded ortho (kernel 6 once,
+    kernel 10 once an iteration and once more); each fit against the same
+    fit on the CPU from the same start (iteration counts and valid equal,
+    eigenvalues rtol 1e-3: the fp32 covariance cancels ~24 C means), its
+    held-out retained variance within 2e-3 of numpy float64 eigh on the
+    same mask (:func:`eigh64_retained`); supervised compression's eps
+    guarantee exactly, the PCAg packets of scores_in_network, the
+    low-variance detector on an injected event at
+    examples/event_detection.py's gate; then kernels 6, 10 and 11 at these
+    shapes against their plain versions and torch.bmm."""
+    from repro_torch.core import covariance as cov
+    from repro_torch.core import power_iteration as pim
+    from repro_torch.core.compression import (SupervisedCompressor,
+                                              scores_in_network)
+    from repro_torch.core.events import LowVarianceDetector
+    from repro_torch.core.pca import DistributedPCA, retained_variance
+    from repro_torch.core.topology import (bandwidth_reduce, build_topology,
+                                           graph_bandwidth)
+    from repro_torch.kernels import ops
+    from repro_torch.sensors.dataset import berkeley_surrogate, kfold_blocks
+    t0 = time.perf_counter()
+    ds = berkeley_surrogate(p=BERKELEY_P, n_epochs=BERKELEY_EPOCHS, seed=0)
+    tr, te = kfold_blocks(ds.n_epochs, 10)[0]
+    train, test = ds.measurements[tr], ds.measurements[te]
+    net = build_topology(ds.positions, radio_range=RADIO)
+    perm = bandwidth_reduce(net.adjacency)
+    hb = graph_bandwidth(net.adjacency, perm)
+    p, q = BERKELEY_P, BERKELEY_Q
+    rng = np.random.default_rng(0)
+    init = {"power": rng.standard_normal((q, p)).astype(np.float32),
+            "ortho": rng.standard_normal((p, q)).astype(np.float32)}
+    print(f"   Berkeley surrogate p={p}, {ds.n_epochs} epochs (made in "
+          f"{time.perf_counter() - t0:.1f} s); fold 0: train {len(tr)}, "
+          f"held out {len(te)}; radio {RADIO} m: tree depth "
+          f"{net.tree.depth.max()}, max children "
+          f"{net.tree.children_counts().max()}; RCM bandwidth h={hb}")
+    banded_mask = np.abs(np.subtract.outer(np.arange(p), np.arange(p))) <= hb
+    runs = {"masked power": ("power", "masked", train, test,
+                             net.covariance_mask()),
+            "banded power": ("power", "banded", train[:, perm],
+                             test[:, perm], banded_mask),
+            "banded ortho": ("ortho", "banded", train[:, perm],
+                             test[:, perm], banded_mask)}
+    paths = collections.Counter()
+    fits = {}
+    for label, (method, mode, xtr, xte, mask) in runs.items():
+        kw = dict(q=q, method=method, cov_mode=mode, init=init[method],
+                  mask=mask if mode == "masked" else None,
+                  halfwidth=hb if mode == "banded" else None)
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        pim.reset_host_reads()
+        t = time.perf_counter()
+        res = DistributedPCA(device="cuda", **kw).fit(xtr)
+        wall = time.perf_counter() - t
+        launches, plain = path_counts()
+        reads = sum(pim.HOST_READS.values())
+        cpu = DistributedPCA(device="cpu", **kw).fit(xtr)
+        it = np.asarray(res.iterations)
+        n_it = int(it.sum())
+        want = ({} if mode == "masked" else
+                {"band_round": 1, "banded_matvec": n_it} if method == "power"
+                else {"band_round": 1, "banded_matmul": n_it + 1})
+        kept = res.components[:, res.valid]
+        rv = retained_variance(xte, kept, res.mean)
+        rv64 = eigh64_retained(xtr, xte, mask, q, method)
+        print(f"   {label}: iterations {it.tolist()} (CPU "
+              f"{np.asarray(cpu.iterations).tolist()}), valid "
+              f"{res.valid.tolist()}, eigenvalues "
+              f"{np.round(res.eigenvalues, 4).tolist()}; held-out retained "
+              f"variance {rv:.6f} (float64 eigh {rv64:.6f}); {wall:.3f} s, "
+              f"{reads} host reads of the loop test; launches {launches}, "
+              f"plain calls {plain}")
+        check(plain == 0 and launches == want,
+              f"{label}: launches {launches} (want {want}), plain {plain}")
+        check(np.array_equal(it, np.asarray(cpu.iterations))
+              and np.array_equal(res.valid, cpu.valid),
+              f"{label}: card and CPU differ in iterations or valid")
+        check(np.allclose(res.eigenvalues, cpu.eigenvalues, rtol=1e-3),
+              f"{label}: eigenvalues card {res.eigenvalues} CPU "
+              f"{cpu.eigenvalues}")
+        check(abs(rv - rv64) <= 2e-3, f"{label}: retained variance {rv} vs "
+              f"float64 eigh {rv64}")
+        paths.update(launches)
+        fits[label] = res
+
+    # the quickstart's numpy oracles on the masked power fit
+    res = fits["masked power"]
+    kept = res.components[:, res.valid]
+    out = SupervisedCompressor(kept, res.mean, epsilon=EPS_C).run(test)
+    worst = float(np.abs(out.x_hat - test).max())
+    z, packets = scores_in_network(net.tree, kept, test[0], mean=res.mean)
+    want_packets = kept.shape[1] * (net.tree.children_counts() + 1)
+    print(f"   supervised compression (eps {EPS_C} C) over {len(test)} "
+          f"held-out epochs: notification rate {out.flagged.mean():.4f}, "
+          f"worst sink error {worst:.6f}; PCAg epoch: packets a node "
+          f"max {packets.max()} == q (C_i + 1) "
+          f"{np.array_equal(packets, want_packets)}")
+    check(worst <= EPS_C, "the eps guarantee was broken")
+    check(np.array_equal(packets, want_packets)
+          and np.allclose(z, (test[0] - res.mean) @ kept, rtol=1e-9,
+                          atol=1e-9), "scores_in_network packets or scores")
+    # examples/event_detection.py with the card's fit: its split of the
+    # trace (2.5 days train, 10 h calibration, 20 h deployment), components
+    # 10..29 of the full eigh fit, an event coherent across the network in
+    # their span (1.2 C at most)
+    X = ds.measurements
+    low = DistributedPCA(q=p, method="eigh", device="cuda").fit(X[:3600])
+    w_low, lam_low = low.components[:, 10:30], low.eigenvalues[10:30]
+    det = LowVarianceDetector(w_low, lam_low, low.mean, alpha=1e-3)
+    det.calibrate(X[3600:4800])
+    deploy = X[4800:7200].copy()
+    pattern = w_low[:, 3] + 0.5 * w_low[:, 7]
+    deploy[1000:1040] += pattern / np.abs(pattern).max() * 1.2
+    events = det.detect(deploy).events
+    tpr, fpr = events[1000:1040].mean(), np.r_[events[:1000],
+                                                 events[1040:]].mean()
+    print(f"   low-variance detector (components 10..29 of the card's full "
+          f"eigh fit on 3600 epochs, calibrated on 1200): injected event "
+          f"flagged in {tpr:.3f} of its 40 epochs, false alarms {fpr:.4f}")
+    check(tpr > 0.8 and fpr < 0.05, "the low-variance detector's gate "
+          "(examples/event_detection.py: > 0.8 detected, < 0.05 false)")
+
+    # kernels 6, 10, 11 at the Berkeley shapes
+    xb = torch.tensor(train[:, perm], dtype=torch.float32, device=dev)
+    band = cov.banded_estimate(cov.banded_update(
+        cov.banded_init(p, hb, device=dev), xb))
+    V = torch.randn((p, q), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(52))
+    record["band_round_berkeley"] = one_slot_fold(
+        "band_round_berkeley", xb, hb, 200, 20)
+    record["banded_matmul_berkeley"] = one_slot_product(
+        "banded_matmul_berkeley", band, V, 500, 20)
+    record["banded_matvec_berkeley"] = one_slot_product(
+        "banded_matvec_berkeley", band, V[:, 0].contiguous(), 500, 20)
+    for kernel in ("band_round", "banded_matmul", "banded_matvec"):
+        record[f"{kernel}_berkeley"]["launches_by_path"] = {
+            "paper_pipeline": paths[kernel]}
+
+
+def planted_field(p, q, n, dev, g):
+    """wsn-1m's field: q planted local modes — mode k a Gaussian bump (sd 8
+    sensors, cut at +-32, unit norm) centred at (k + 1/2) p / q, so its
+    outer product lies inside the band and no two modes share a band row —
+    with score variances 4, 2, 1, 0.5 and then 0.45 x 0.97^i (the first
+    components apart by factors of 2 for the deflated iteration, the
+    subspace far above the noise), i.i.d. noise sd 0.01 (the sample
+    eigenvectors then lie within ~0.01 rad of the planted modes) and a
+    per-sensor mean. Returns the (p, q) modes, their variances and a maker
+    of (n, p) batches."""
+    j = torch.arange(-32, 33, device=dev)
+    bump = torch.exp(-0.5 * (j.float() / 8) ** 2)
+    bump /= bump.norm()
+    centres = ((torch.arange(q, device=dev) + 0.5) * (p / q)).long()
+    U = torch.zeros((p, q), device=dev)
+    U[centres[None, :] + j[:, None],
+      torch.arange(q, device=dev)[None, :]] = bump[:, None]
+    lam = torch.tensor([4.0, 2.0, 1.0, 0.5]
+                       + [0.45 * 0.97 ** i for i in range(q - 4)],
+                       device=dev)
+    mu = 0.5 * torch.randn(p, device=dev, generator=g)
+
+    def batch():
+        s = torch.randn((n, q), device=dev, generator=g) * lam.sqrt()
+        x = s @ U.T
+        x += 0.01 * torch.randn((n, p), device=dev, generator=g)
+        return x.add_(mu)
+
+    return U, lam, batch
+
+
+def subspace_cos(U, V) -> float:
+    """The cosine of the largest principal angle between span(U) and
+    span(V) (both orthonormal), from fp64."""
+    return float(torch.linalg.svdvals(U.T.double() @ V.double()).min())
+
+
+def wsn1m_production(record, dev, p=WSN_P) -> None:
+    """Phase 14, wsn-1m's production steps on one card at its full width
+    (configs/wsn_1m.py: p = 1,048,576, h = 128, q = 32, 256-epoch
+    batches): four cov_update_steps (kernel 6) on the planted field and
+    banded_estimate; pim_block_step (kernel 10) to convergence (the
+    subspace moving less than 1e-4, at most 50 steps) and pim_deflated_step
+    (kernel 11) for the first 3 components (Algorithm 2's rule, d <= 1e-3,
+    at most 50 steps each); transform_step.  Checks: no plain call, one
+    launch a step; |V^T V - I|; the planted subspace recovered by both
+    iterations (largest principal angle, and each deflated component,
+    within cos 1 - 1e-3); the scores against fp64; then kernels 6, 10 and
+    11 at these shapes against their plain versions (by window) and the
+    sharded steps on one NCCL rank equal to the unsharded ones."""
+    from repro_torch.core import aggregation as agg
+    from repro_torch.core import covariance as cov
+    from repro_torch.core import production as prod
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import init_fleet_process_group
+    import torch.distributed as dist
+    h, q, n = WSN_H, WSN_Q, WSN_N
+    g = torch.Generator(device=dev).manual_seed(1)
+    U, lam, batch = planted_field(p, q, n, dev, g)
+    V0 = torch.linalg.qr(torch.randn((p, q), device=dev, generator=g)).Q
+    v0 = torch.randn(3, p, device=dev, generator=g)
+    state = cov.banded_init(p, h, device=dev)
+    x0 = batch()
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t = time.perf_counter()
+    for i in range(4):
+        state = prod.cov_update_step(state, x0 if i == 0 else batch())
+    est = cov.banded_estimate(state)
+    torch.cuda.synchronize()
+    t_cov = time.perf_counter() - t
+    launches_cov, plain = path_counts()
+    check(plain == 0 and launches_cov == {"band_round": 4},
+          f"cov_update_step launches {launches_cov}, plain {plain}")
+
+    ops.reset_counts()
+    t = time.perf_counter()
+    V, block_steps, reads = V0, 0, 0
+    for _ in range(50):
+        V_next, ray = prod.pim_block_step(est, V)
+        moved = V_next - V @ (V.T @ V_next)
+        moved = float(moved.norm() / q ** 0.5)         # one host read
+        V, block_steps, reads = V_next, block_steps + 1, reads + 1
+        if moved <= 1e-4:
+            break
+    W = torch.zeros((p, 0), device=dev)
+    defl_steps, lams = [], []
+    for k in range(3):
+        v = v0[k] / v0[k].norm()
+        for s in range(1, 51):
+            v_next, lam_k = prod.pim_deflated_step(est, v, W)
+            d = float(((v_next * torch.sign(lam_k) - v) ** 2).sum().sqrt())
+            v, reads = v_next, reads + 1
+            if d <= 1e-3:
+                break
+        defl_steps.append(s)
+        lams.append(float(lam_k))
+        W = torch.cat([W, v[:, None]], dim=1)
+    torch.cuda.synchronize()
+    t_pim = time.perf_counter() - t
+    launches_pim, plain = path_counts()
+    check(plain == 0 and launches_pim == {"banded_matmul": block_steps,
+                                          "banded_matvec": sum(defl_steps)},
+          f"pim launches {launches_pim}, plain {plain}")
+    mean = state.s / state.t
+    ops.reset_counts()
+    z = prod.transform_step(V, mean, x0)
+    torch.cuda.synchronize()
+    check(path_counts() == ({}, 0), "transform_step launched a kernel")
+    z64 = (x0.double() - mean.double()) @ V.double()
+    z_err = float((z - z64).abs().max())
+    del z64
+    orth = float((V.T @ V - torch.eye(q, device=dev)).abs().max())
+    sub_cos = subspace_cos(U, V)
+    defl_cos = (W * U[:, :3]).sum(0).abs().tolist()
+    print(f"   wsn-1m p={p} h={h} q={q}: 4 cov_update_steps of {n} epochs "
+          f"+ banded_estimate {t_cov:.3f} s; pim_block_step x{block_steps} "
+          f"(the subspace moved {moved:.1e} at the last) and "
+          f"pim_deflated_step x{defl_steps} {t_pim:.3f} s, {reads} host "
+          f"reads; launches {launches_cov} {launches_pim}; plain calls 0")
+    print(f"   block: |V^T V - I| {orth:.2e}; planted subspace: cos of the "
+          f"largest principal angle {sub_cos:.6f}; Rayleigh quotients "
+          f"{ray.sort(descending=True).values[:4].tolist()} (planted "
+          f"{lam[:4].tolist()}); deflated: eigenvalues {lams}, |cos| to the "
+          f"planted modes {defl_cos}; transform_step ({n}, {q}) vs fp64 "
+          f"max err {z_err:.2e}")
+    check(orth <= 1e-4, f"|V^T V - I| = {orth}")
+    check(sub_cos >= 1 - 1e-3, f"block iteration: subspace cos {sub_cos}")
+    check(min(defl_cos) >= 1 - 1e-3, f"deflated: cos {defl_cos}")
+    check(z_err <= 1e-3, f"transform_step error {z_err}")
+    profile_breakdown(lambda: [prod.pim_block_step(est, V)
+                               for _ in range(5)]
+                      + [prod.pim_deflated_step(est, v, W[:, :2])
+                         for _ in range(20)])
+
+    # the kernels at wsn-1m's shapes against their plain versions
+    record["band_round_wsn1m"] = one_slot_fold("band_round_wsn1m", x0, h,
+                                               10, 2)
+    record["banded_matmul_wsn1m"] = one_slot_product(
+        "banded_matmul_wsn1m", est, V.contiguous(), 20, 2)
+    record["banded_matvec_wsn1m"] = one_slot_product(
+        "banded_matvec_wsn1m", est, v, 20, 2)
+    for kernel, n in (("band_round", launches_cov["band_round"]),
+                      ("banded_matmul", block_steps),
+                      ("banded_matvec", sum(defl_steps))):
+        record[f"{kernel}_wsn1m"]["launches_by_path"] = {
+            "wsn1m_production": n}
+    del x0
+
+    # the sharded steps on one NCCL rank: halo zeros, collectives the
+    # identity, kernels 10 and 11 on the padded width p + 2h
+    with tempfile.TemporaryDirectory() as store:
+        init_fleet_process_group(0, 1, store, device=dev, timeout_s=180)
+        try:
+            bp = prod.shard_band(est, 0, 1)
+            torch.cuda.synchronize()
+            ops.reset_counts()
+            agg.reset_collectives()
+            a = prod.sharded_pim_deflated_step(bp, v, W[:, :2])
+            coll_d = dict(agg.COLLECTIVES)
+            agg.reset_collectives()
+            b = prod.sharded_pim_block_step(bp, V)
+            coll_b = dict(agg.COLLECTIVES)
+            torch.cuda.synchronize()
+            launches, plain = path_counts()
+            ua = prod.pim_deflated_step(est, v, W[:, :2])
+            ub = prod.pim_block_step(est, V)
+            bits = all(torch.equal(x, y) for x, y in zip(a + b, ua + ub))
+            close = all(torch.allclose(x, y, rtol=1e-6, atol=1e-7)
+                        for x, y in zip(a + b, ua + ub))
+            print(f"   sharded steps, one NCCL rank, padded width "
+                  f"{bp.shape[1]}: == the unsharded steps (rtol 1e-6) "
+                  f"{close}, bit for bit {bits}; collectives deflated "
+                  f"{coll_d}, block {coll_b}; launches {launches}")
+            check(close, "sharded steps differ from the unsharded ones")
+            check(plain == 0 and launches == {"banded_matmul": 1,
+                                              "banded_matvec": 1},
+                  f"sharded launches {launches}")
+            check(coll_d["halo_exchange"] == coll_b["halo_exchange"] == 1
+                  and coll_d["all_reduce"] == 2
+                  and coll_b["all_reduce"] == 1,
+                  f"sharded collectives {coll_d} {coll_b}")
+            for name in ("banded_matmul_wsn1m", "banded_matvec_wsn1m"):
+                record[name]["launches_by_path"][
+                    "wsn1m_production sharded (one rank)"] = 1
+        finally:
+            dist.destroy_process_group()
 
 
 def main() -> int:
@@ -1636,6 +2196,13 @@ def main() -> int:
         finally:
             dist.destroy_process_group()
     del xs, live
+
+    phase("14 the paper's pipeline (core/, sensors/): the Berkeley "
+          "deployment and wsn-1m's production steps")
+    t14 = time.perf_counter()
+    paper_pipeline(record, dev)
+    wsn1m_production(record, dev)
+    print(f"   phase 14: {time.perf_counter() - t14:.1f} s")
 
     print(f"   total {time.perf_counter() - t_start:.1f} s")
     for rec in record.values():

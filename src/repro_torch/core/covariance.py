@@ -1,17 +1,146 @@
-"""Banded-layout helpers of ``repro.core.covariance``, in PyTorch.
+"""Streaming covariance estimation (counterpart of
+``repro.core.covariance``), in PyTorch on an explicit device.
 
-Layout: ``band[k, i] = C[i, i + k - h]`` for ``k in [0, 2h]``; entries
-whose column ``i + k - h`` falls outside ``[0, p)`` are zero.  Every
-function takes leading batch axes.
+Two layouts, as in the reference:
+
+* **Masked dense** (:class:`CovState`): the full ``p x p`` sufficient
+  statistic under the local covariance hypothesis mask (paper Sec. 3.3).
+  Its ``x^T x`` is a plain ``torch.matmul``, as the reference computes it
+  outside any kernel.
+* **Banded** (:class:`BandedCovState`): after a bandwidth-reducing
+  relabelling the mask is a band of half-width ``h``, stored as ``2h+1``
+  diagonals, ``band[k, i] = C[i, i + k - h]`` for ``k in [0, 2h]``;
+  entries whose column ``i + k - h`` falls outside ``[0, p)`` are zero.
+  :func:`banded_update` folds a batch with the per-round band-fold kernel
+  (kernel 6, :func:`repro_torch.kernels.ops.cov_band_update`), which
+  computes the reference's ``sum_t x[t, i] x[t, i + k - h]``.
+
+Both keep the sufficient statistics of Eq. (9)-(10): ``t``,
+``S_i = sum_tau x_i[tau]`` and ``S_ij``, so ``c_ij = S_ij/t - S_i S_j/t^2``
+can be updated from batches of any size.  A batch given as numpy (or on
+another device) is moved to the state's device and dtype.  The banded
+helpers below take leading batch axes.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["_shifted", "shifted_stack", "band_valid", "band_to_dense",
+from repro_torch.device import as_tensor, resolve_device
+
+__all__ = ["CovState", "cov_init", "cov_update", "cov_estimate",
+           "BandedCovState", "banded_init", "banded_update",
+           "banded_estimate", "dense_to_band", "mask_from_band",
+           "_shifted", "shifted_stack", "band_valid", "band_to_dense",
            "banded_matmul_ref", "banded_matvec_ref"]
+
+
+# --------------------------------------------------------------------------
+# Masked dense layout (paper-faithful)
+# --------------------------------------------------------------------------
+class CovState(NamedTuple):
+    t: torch.Tensor          # () number of epochs seen
+    s: torch.Tensor          # (p,) S_i
+    sxy: torch.Tensor        # (p, p) S_ij, only entries allowed by the mask
+    mask: torch.Tensor       # (p, p) bool; True where c_ij may be nonzero
+
+
+def cov_init(p: int, mask=None, dtype=torch.float32,
+             device="cuda") -> CovState:
+    dev = resolve_device(device)
+    if mask is None:
+        mask = torch.ones((p, p), dtype=torch.bool, device=dev)
+    mask = as_tensor(mask, torch.bool, dev)
+    return CovState(t=torch.zeros((), dtype=dtype, device=dev),
+                    s=torch.zeros((p,), dtype=dtype, device=dev),
+                    sxy=torch.zeros((p, p), dtype=dtype, device=dev),
+                    mask=mask)
+
+
+def cov_update(state: CovState, x) -> CovState:
+    """Fold a batch ``x`` (n, p) into the sufficient statistics: n
+    applications of Eq. (10), the full outer product masked (the oracle
+    semantics of the reference)."""
+    x = as_tensor(x, state.s.dtype, state.s.device)
+    sxy = state.sxy + torch.where(state.mask, x.T @ x, 0.0)
+    return CovState(t=state.t + x.shape[0], s=state.s + x.sum(0), sxy=sxy,
+                    mask=state.mask)
+
+
+def cov_estimate(state: CovState) -> torch.Tensor:
+    """Eq. (9): c_ij = S_ij/t - S_i S_j / t^2, masked."""
+    t = state.t.clamp(min=1.0)
+    c = state.sxy / t - torch.outer(state.s, state.s) / (t * t)
+    return torch.where(state.mask, c, 0.0)
+
+
+# --------------------------------------------------------------------------
+# Banded layout
+# --------------------------------------------------------------------------
+class BandedCovState(NamedTuple):
+    t: torch.Tensor          # ()
+    s: torch.Tensor          # (p,)
+    band: torch.Tensor       # (2h+1, p): band[k, i] = S_{i, i+k-h}
+    halfwidth: int
+
+
+def banded_init(p: int, halfwidth: int, dtype=torch.float32,
+                device="cuda") -> BandedCovState:
+    dev = resolve_device(device)
+    return BandedCovState(
+        t=torch.zeros((), dtype=dtype, device=dev),
+        s=torch.zeros((p,), dtype=dtype, device=dev),
+        band=torch.zeros((2 * halfwidth + 1, p), dtype=dtype, device=dev),
+        halfwidth=halfwidth)
+
+
+def banded_update(state: BandedCovState, x) -> BandedCovState:
+    """Banded Eq. (10): ``band[k, i] += sum_t x[t, i] x[t, i + k - h]``,
+    the delta in one launch of kernel 6 (fp32)."""
+    # imported here: the kernels' plain versions import this module
+    from repro_torch.kernels import ops
+    x = as_tensor(x, state.s.dtype, state.s.device)
+    h = state.halfwidth
+    delta = ops.cov_band_update(x, h)
+    return BandedCovState(t=state.t + x.shape[0], s=state.s + x.sum(0),
+                          band=state.band + delta, halfwidth=h)
+
+
+def banded_estimate(state: BandedCovState) -> torch.Tensor:
+    """Banded covariance diagonals: ``c_band[k, i] = C[i, i + k - h]``,
+    zero out of range.  The mean term ``s[i] s[i + k - h]`` comes from a
+    strided view of ``s`` (no per-diagonal copy), and the arithmetic runs
+    in place on one (2h+1, p) buffer besides it."""
+    t = state.t.clamp(min=1.0)
+    h = state.halfwidth
+    s = state.s
+    mean_term = s * shifted_stack(s, h)
+    band = state.band / t
+    band.sub_(mean_term.div_(t * t))
+    del mean_term
+    valid = band_valid(s.shape[-1], h, device=s.device, dtype=torch.bool)
+    return band.masked_fill_(~valid, 0.0)
+
+
+def dense_to_band(c: torch.Tensor, halfwidth: int) -> torch.Tensor:
+    """Dense (p, p) -> (2h+1, p) diagonals (entries outside the band
+    dropped)."""
+    p = c.shape[-1]
+    h = halfwidth
+    i = torch.arange(p, device=c.device)[None, :]
+    j = i + torch.arange(2 * h + 1, device=c.device)[:, None] - h
+    valid = (j >= 0) & (j < p)
+    return torch.where(valid, c[i.expand_as(j), j.clamp(0, p - 1)], 0.0)
+
+
+def mask_from_band(p: int, halfwidth: int) -> np.ndarray:
+    """Dense bool mask equivalent to a band of half-width h."""
+    i = np.arange(p)
+    return np.abs(i[:, None] - i[None, :]) <= halfwidth
 
 
 def _shifted(x: torch.Tensor, offset: int) -> torch.Tensor:

@@ -1,10 +1,43 @@
-"""Copy of ``repro.core.events._norm_quantile`` (Beasley-Springer-Moro)."""
+"""Copy of ``repro.core.events`` for the PyTorch port
+(held equal to it by tests/test_torch_streaming.py).
+
+Event detection on low-variance components (paper Sec. 2.4.3).
+
+Low-variance principal components normally carry near-zero coordinates (they
+account for sensor noise).  A network-scale event that is invisible at any
+single node shows up as a significant coordinate on those components.  The
+evaluator function is a statistical test on the standardized low-variance
+scores:
+
+    T[t] = sum_{k in low} z_k[t]^2 / lambda_k   ~   chi^2_{|low|}  under H0.
+
+:class:`LowVarianceDetector` flags epochs where T exceeds the chi-square
+quantile (normal-approximation threshold — no scipy dependency).
+"""
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
-__all__ = ["_norm_quantile"]
+__all__ = ["LowVarianceDetector", "DetectionResult"]
+
+
+def _chi2_quantile(df: float, alpha: float) -> float:
+    """Wilson-Hilferty approximation of the chi-square (1-alpha) quantile.
+
+    ``df`` may be fractional (the moment-matched ``g * chi2_h`` thresholds of
+    the streaming detector pass their effective degrees of freedom here).
+    ``alpha`` outside (0, 1) is clamped into the open interval by
+    :func:`_norm_quantile` — the helpers never return ±inf/NaN; the
+    *validation* of a caller's alpha belongs to the caller (see
+    :class:`LowVarianceDetector`).
+    """
+    # normal quantile via Acklam-style rational approximation (sufficient here)
+    z = _norm_quantile(1.0 - alpha)
+    a = 2.0 / (9.0 * df)
+    return df * (1.0 - a + z * np.sqrt(a)) ** 3
 
 
 def _norm_quantile(u: float) -> float:
@@ -31,3 +64,57 @@ def _norm_quantile(u: float) -> float:
     r = q * q
     return (((((a[0]*r+a[1])*r+a[2])*r+a[3])*r+a[4])*r+a[5])*q / \
            (((((b[0]*r+b[1])*r+b[2])*r+b[3])*r+b[4])*r+1)
+
+
+@dataclasses.dataclass(frozen=True)
+class DetectionResult:
+    statistic: np.ndarray   # (N,) chi-square statistic per epoch
+    threshold: float
+    events: np.ndarray      # (N,) bool
+
+
+class LowVarianceDetector:
+    """Detector over the trailing (low-variance) components.
+
+    Parameters
+    ----------
+    W_low: (p, m) low-variance components (e.g. columns q_lo..q_hi of the
+        full basis).
+    lambdas_low: (m,) their eigenvalues (estimated on healthy training data).
+    alpha: false-alarm rate under H0.
+    """
+
+    def __init__(self, W_low: np.ndarray, lambdas_low: np.ndarray,
+                 mean: np.ndarray, alpha: float = 1e-3,
+                 min_lambda: float = 1e-9):
+        if not 0.0 < alpha < 1.0:
+            raise ValueError(
+                f"alpha must be in the open interval (0, 1), got {alpha}")
+        self.W = np.asarray(W_low, dtype=np.float64)
+        self.lam = np.maximum(np.asarray(lambdas_low, np.float64), min_lambda)
+        self.mean = np.asarray(mean, dtype=np.float64)
+        self.alpha = alpha
+        self.threshold = _chi2_quantile(self.W.shape[1], alpha)
+
+    def statistic(self, x: np.ndarray) -> np.ndarray:
+        xc = np.asarray(x, dtype=np.float64) - self.mean
+        z = xc @ self.W                       # (N, m) low-variance scores
+        return np.sum(z * z / self.lam[None, :], axis=1)
+
+    def calibrate(self, x_healthy: np.ndarray) -> float:
+        """Replace the chi-square threshold by the empirical (1-alpha)
+        quantile on a healthy calibration window.
+
+        The chi-square calibration assumes the deployment period is
+        stationary w.r.t. the training block; on real (diurnal,
+        non-stationary) traces the low-variance scores drift, so production
+        deployments should re-calibrate on recent healthy data — this is the
+        WSN analogue of recalibrating a fleet-telemetry alarm."""
+        stat = self.statistic(x_healthy)
+        self.threshold = float(np.quantile(stat, 1.0 - self.alpha))
+        return self.threshold
+
+    def detect(self, x: np.ndarray) -> DetectionResult:
+        stat = self.statistic(x)
+        return DetectionResult(statistic=stat, threshold=self.threshold,
+                               events=stat > self.threshold)

@@ -2,9 +2,10 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "as_tensor"]
 
 
 def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
@@ -17,3 +18,12 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
             "a CUDA device was asked for but torch.cuda.is_available() is "
             "False; pass device='cpu' to run the plain PyTorch versions")
     return dev
+
+
+def as_tensor(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``x`` (a tensor, or anything numpy reads) as a ``dtype`` tensor on
+    ``device``.  A numpy input is copied, so a read-only array (one from
+    JAX, say) is never aliased."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    return torch.tensor(np.asarray(x), dtype=dtype, device=device)

@@ -31,6 +31,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import costs
+from repro_torch.core.power_iteration import orthonormalize
 from repro_torch.kernels import ops
 from repro_torch.streaming.online_cov import (OnlineCovariance,
                                               online_estimate,
@@ -51,25 +52,16 @@ def retained_fraction(band_est: torch.Tensor, W: torch.Tensor,
     return num / total_variance.clamp(min=1e-30)
 
 
-def _orthonormalize(V: torch.Tensor, eps: float) -> torch.Tensor:
-    """Replicated-Cholesky ``V inv(L)^T`` of the reference; the ``_ex`` and
-    triangular-solve forms raise nothing, so no host sync."""
-    q = V.shape[-1]
-    eye = torch.eye(q, dtype=V.dtype, device=V.device)
-    L = torch.linalg.cholesky_ex(V.transpose(-1, -2) @ V + eps * eye).L
-    Linv = torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
-    return V @ Linv.transpose(-1, -2)
-
-
 def ortho_refresh_evals(band_est: torch.Tensor, W0: torch.Tensor,
                         iters: int, eps: float = 1e-8,
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fixed-length blocked orthogonal iteration warm-started from W0;
     returns the ordered basis and its Rayleigh quotients (descending).
     ``iters`` + 1 banded products."""
-    V = _orthonormalize(W0, eps)
+    V = orthonormalize(W0, W0.mT @ W0, eps)
     for _ in range(iters):
-        V = _orthonormalize(ops.banded_matmul(band_est, V), eps)
+        CV = ops.banded_matmul(band_est, V)
+        V = orthonormalize(CV, CV.mT @ CV, eps)
     H = V.transpose(-1, -2) @ ops.banded_matmul(band_est, V)
     # jnp.linalg.eigh symmetrizes its input; torch reads one triangle
     evals, U = torch.linalg.eigh(0.5 * (H + H.transpose(-1, -2)))

@@ -823,6 +823,95 @@ class TestCudaRoundAndBandedKernels:
         assert torch.equal(Y, ref.banded_matmul(band, V))
 
 
+# the paper pipeline's one-slot shapes: the Berkeley deployment (p = 52,
+# p % 4 != 0; h its RCM bandwidth and one near p), WSNConfig.smoke()
+# (4096, 8) and wsn-1m (p = 1,048,576, h = 128: (2h+1) p and 256 p near
+# 2^28, so every index product must be wide)
+_PAPER_SHAPES = [(52, 15), (52, 51), (4096, 8), (1_048_576, 128)]
+
+
+@pytest.mark.cuda
+class TestCudaPaperShapes:
+    """Kernels 6, 10 and 11 at one slot (S = 1) on the paper pipeline's
+    widths, as ``repro_torch.core`` launches them (no leading axis)."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+
+    @pytest.mark.parametrize("p,h", _PAPER_SHAPES)
+    def test_batch_fold(self, p, h):
+        """Kernel 6 on a 256-epoch batch: 1e-4 against the plain version
+        on the card (256 products a pair), exactly symmetric, and kernel
+        2's bits at K = 1, w = 1."""
+        g = torch.Generator(device="cuda").manual_seed(p + h)
+        x = torch.randn((256, p), device="cuda", generator=g)
+        ops.reset_counts()
+        band = ops.cov_band_update(x, h)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["band_round"] == 1
+        assert sum(ops.PLAIN_CALLS.values()) == 0
+        _assert_mirrored(band[None], h)
+        torch.testing.assert_close(band, ref.cov_band_update(x, h),
+                                   rtol=1e-4, atol=1e-4)
+        chunk = ops.cov_band_update_chunk_batched(
+            x[None, None], torch.ones((1, 1), device="cuda"), h)[0]
+        assert torch.equal(band, chunk)
+
+    @pytest.mark.parametrize("q", [1, 5, 8, 32])
+    @pytest.mark.parametrize("p,h", _PAPER_SHAPES)
+    def test_banded_products(self, p, h, q):
+        """Kernels 10 and 11 on an in-range band: equal bits to the plain
+        version on the card, one launch each."""
+        g = torch.Generator(device="cuda").manual_seed(p * q + h)
+        band = torch.randn((2 * h + 1, p), device="cuda", generator=g) \
+            * band_valid(p, h, device="cuda")
+        V = torch.randn((p, q), device="cuda", generator=g)
+        ops.reset_counts()
+        Y = ops.banded_matmul(band, V)
+        y = ops.banded_matvec(band, V[:, 0].contiguous())
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["banded_matmul"] == ops.LAUNCHES[
+            "banded_matvec"] == 1
+        assert sum(ops.PLAIN_CALLS.values()) == 0
+        assert torch.equal(Y, ref.banded_matmul(band, V))
+        assert torch.equal(y, ref.banded_matvec(band, V[:, 0]))
+
+    @pytest.mark.parametrize("method", ["power", "ortho"])
+    def test_banded_fit_on_card_matches_cpu(self, method):
+        """DistributedPCA's banded fit on the card against the same fit on
+        the CPU, from the same start: iteration counts and ``valid``
+        equal, eigenvalues rtol 1e-4, components |cos| >= 1 - 1e-4; kernel
+        6 once, and kernel 11 once an iteration ('power') or kernel 10
+        once an iteration and once more ('ortho'); no plain call."""
+        from repro_torch.core.pca import DistributedPCA
+        rng = np.random.default_rng(3)
+        p, h, q = 300, 6, 4
+        x = rng.standard_normal((400, p)).astype(np.float32)
+        x[:, 1:] += 0.7 * x[:, :-1]
+        init = (rng.standard_normal((q, p)) if method == "power"
+                else rng.standard_normal((p, q))).astype(np.float32)
+        fits = {}
+        for dev in ("cpu", "cuda"):
+            ops.reset_counts()
+            fits[dev] = DistributedPCA(q, method=method, cov_mode="banded",
+                                       halfwidth=h, init=init,
+                                       device=dev).fit(x)
+        a, b = fits["cuda"], fits["cpu"]
+        iters = int(np.sum(a.iterations))
+        want = {"band_round": 1, "banded_matvec": iters} \
+            if method == "power" else {"band_round": 1,
+                                       "banded_matmul": iters + 1}
+        assert {k: v for k, v in ops.LAUNCHES.items() if v} == want
+        assert sum(ops.PLAIN_CALLS.values()) == 0
+        np.testing.assert_array_equal(a.iterations, b.iterations)
+        np.testing.assert_array_equal(a.valid, b.valid)
+        np.testing.assert_allclose(a.eigenvalues, b.eigenvalues, rtol=1e-4)
+        cos = np.abs((a.components * b.components).sum(0))
+        assert cos.min() >= 1 - 1e-4
+
+
 def _fleet_data(N, R, n, p, seed):
     """Three smooth local modes that move half way through the stream
     (drift, so the scheduler refreshes again), small noise, and a few

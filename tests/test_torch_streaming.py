@@ -713,7 +713,10 @@ class TestCopiesEqualReference:
 
     @pytest.mark.parametrize("rel", [
         "core/costs.py", "runtime/health.py", "runtime/elastic.py",
-        "serve/queue.py", "serve/telemetry.py"])
+        "serve/queue.py", "serve/telemetry.py", "core/topology.py",
+        "core/faults.py", "core/events.py", "core/compression.py",
+        "core/spatiotemporal.py", "sensors/dataset.py",
+        "sensors/__init__.py"])
     def test_same_code(self, rel):
         def code(path, pkg):
             tree = ast.parse(path.read_text().replace(pkg, "repro"))
