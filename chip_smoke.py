@@ -117,8 +117,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      masked power, banded power and banded ortho after the RCM
      relabelling, each equal to the same fit on the CPU in its iteration
      counts, its held-out retained variance beside numpy float64 eigh;
-     supervised compression's eps exactly, the PCAg packets, the
-     low-variance detector), then wsn-1m's production steps at full width
+     supervised compression's eps exactly and the PCAg packets through
+     repro_torch.examples.quickstart's steps, the low-variance detector
+     through repro_torch.examples.event_detection on this trace), then
+     wsn-1m's production steps at full width
      (p=1,048,576, h=128, q=32, 256-epoch batches: cov_update_step x 4,
      pim_block_step to convergence, pim_deflated_step for 3 components,
      transform_step; the planted subspace recovered) and the sharded
@@ -127,7 +129,18 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      with their times, bounds and one library call's: torch.bmm where the
      dense matrix fits, else cuSPARSE on the band's own pattern (SDDMM,
      SpMM, SpMV) (``*_berkeley``, ``*_wsn1m``; launches under
-     ``paper_pipeline`` and ``wsn1m_production``).
+     ``paper_pipeline`` and ``wsn1m_production``);
+ 15. the six examples of repro_torch.examples (streaming_pca,
+     faulty_fleet, compression_fleet, event_fleet, quickstart,
+     event_detection) at their own configurations from their seeded
+     draws, each at its reference gate, with no plain call; each kernel's
+     launches recorded under the example's name in ``launches_by_path``;
+ 16. the checker (repro_torch.analysis.check --device cuda, in this
+     process): the ten program contracts at the engine's widths (8 slots,
+     p=1024, h=128, q=32, K=8, n=32; the engine's with the host syncs by
+     call site), every kernel call one pass over HBM, the build's and the
+     launches' registers, spills and shared memory within the H100's
+     limits and equal to analysis/baselines/resources.json, the lints.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card, or without the rest
 of the repository beside it, the script exits non-zero and prints no
@@ -139,8 +152,6 @@ from __future__ import annotations
 import collections
 import dataclasses
 import json
-import linecache
-import re
 import subprocess
 import sys
 import tempfile
@@ -155,8 +166,6 @@ ROOT = Path(__file__).resolve().parent
 P, H, Q, K, N = 1024, 128, 32, 8, 32          # one wsn-1m region per slot
 SLOTS, REQUESTS, ROUNDS = 256, 320, 24        # 256 of wsn-1m's 1024 regions
 EPS = 1.0
-PEAK_FP32 = 67e12                             # H100 SXM, CUDA cores, dense
-PEAK_BYTES = 3.35e12                          # H100 SXM HBM3
 _SPLIT = "src/repro_torch/kernels/csrc/pca_project.cu"
 KERNELS = {
     "fused_stream": ("src/repro_torch/kernels/csrc/fused_stream.cu",
@@ -227,21 +236,6 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
-
-
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_mem = flops / PEAK_FP32, nbytes / PEAK_BYTES
-    return (max(t_ops, t_mem) * 1e3,
-            "operations" if t_ops >= t_mem else "bytes")
-
-
-def fold_flops(S, R, p, h):
-    """2 flops per multiply-add over R rows for each UNIQUE pair
-    (i, j), i <= j <= i + h, j < p: the band is symmetric
-    (band[h-d, i] = band[h+d, i-d]), so its lower diagonals are copies."""
-    h = min(h, p - 1)
-    pairs = (h + 1) * p - h * (h + 1) // 2
-    return 2.0 * S * R * pairs
 
 
 def signal(rng, R, n, p, rank, *, noise=0.05, spike_rate=3e-4):
@@ -336,34 +330,6 @@ def h2d_copies(rows) -> str:
                      for e in kinds)
 
 
-def sync_sites(run) -> collections.Counter:
-    """The host syncs ``run()`` makes, by call site ("file:line: code"),
-    from torch.cuda.set_sync_debug_mode("warn")."""
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            run()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    sites = collections.Counter()
-    for w in caught:
-        if "called a synchronizing" in str(w.message):
-            where = Path(w.filename)
-            if where.is_relative_to(ROOT):
-                where = where.relative_to(ROOT)
-            code = linecache.getline(w.filename, w.lineno).strip()
-            sites[f"{where}:{w.lineno}: {code}"] += 1
-    return sites
-
-
-# the sites where the engine's loop may wait for the card: the refresh's
-# eigh (it checks its result on the host) and the retirement pull (the
-# transfer fence, an Event.synchronize on a copy, is never flagged)
-ALLOWED_SYNCS = ("torch.linalg.eigh", "x.cpu()")
-
-
 def different_fields(a: list, b: list) -> list[str]:
     """The fields that differ between two lists of dataclasses (two runs'
     StreamResults, two FleetSummaries), compared bit for bit."""
@@ -414,31 +380,6 @@ def fleet_yardstick(eng, summ, q_fleet: int, dev) -> None:
           f"(lossy_merge_cost {bill})")
     check(gram_err <= 1e-5, f"fleet_summary({q_fleet}) basis not orthonormal")
     check(summ.merge_packets == bill, "fleet_summary merge bill")
-
-
-def ptxas_summary(log: str) -> list[str]:
-    """One line a kernel function of an ``nvcc -Xptxas -v`` log: its
-    (mangled) name, registers and spills; and one line a device function
-    that is not inlined (kernel 1's two kinds of block): its stack frame
-    and spills."""
-    out, name, spill, callee = [], "?", "", None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        f = re.search(r"Function properties for (\S+)", line)
-        if m:
-            name, spill, callee = m[1], "", None
-        elif f:
-            callee = None if f[1] == name else f[1]
-        elif "spill" in line:
-            if callee is not None:
-                out.append(f"{callee} (device function): {line.strip()}")
-            else:
-                spill = line.strip()
-        elif "Used" in line and "registers" in line:
-            regs = re.search(r"Used (\d+) registers", line)
-            out.append(f"{name}: {regs[1] if regs else '?'} registers; "
-                       f"{spill}")
-    return out
 
 
 def mirrored(band: torch.Tensor, h: int) -> bool:
@@ -730,12 +671,6 @@ def split_kernels(record, xv, masks, basis, mean, il, eps, g) -> None:
               f"{nbytes / 1e9:.3f} GB)")
         record[name] = rec
     del cases, xc, z8, wr, rx, live
-
-
-def band_entries(p, h):
-    """In-range entries of a (2h+1, p) band: (2h+1)p - h(h+1)."""
-    h = min(h, p - 1)
-    return (2 * h + 1) * p - h * (h + 1)
 
 
 def round_operands(dev, g):
@@ -1097,10 +1032,8 @@ def paper_pipeline(record, dev) -> None:
     shapes against their plain versions and torch.bmm."""
     from repro_torch.core import covariance as cov
     from repro_torch.core import power_iteration as pim
-    from repro_torch.core.compression import (SupervisedCompressor,
-                                              scores_in_network)
-    from repro_torch.core.events import LowVarianceDetector
     from repro_torch.core.pca import DistributedPCA, retained_variance
+    from repro_torch.examples import event_detection, quickstart
     from repro_torch.core.topology import (bandwidth_reduce, build_topology,
                                            graph_bandwidth)
     from repro_torch.kernels import ops
@@ -1171,42 +1104,36 @@ def paper_pipeline(record, dev) -> None:
         paths.update(launches)
         fits[label] = res
 
-    # the quickstart's numpy oracles on the masked power fit
+    # the quickstart's steps (repro_torch.examples.quickstart) on the
+    # masked power fit: supervised compression over every held-out epoch
+    # and PCAg's scores of the first, against numpy
     res = fits["masked power"]
-    kept = res.components[:, res.valid]
-    out = SupervisedCompressor(kept, res.mean, epsilon=EPS_C).run(test)
-    worst = float(np.abs(out.x_hat - test).max())
-    z, packets = scores_in_network(net.tree, kept, test[0], mean=res.mean)
+    qs = quickstart.evaluate(res, net, test, compress_epochs=None)
+    kept = qs["kept"]
     want_packets = kept.shape[1] * (net.tree.children_counts() + 1)
     print(f"   supervised compression (eps {EPS_C} C) over {len(test)} "
-          f"held-out epochs: notification rate {out.flagged.mean():.4f}, "
-          f"worst sink error {worst:.6f}; PCAg epoch: packets a node "
-          f"max {packets.max()} == q (C_i + 1) "
-          f"{np.array_equal(packets, want_packets)}")
-    check(worst <= EPS_C, "the eps guarantee was broken")
-    check(np.array_equal(packets, want_packets)
-          and np.allclose(z, (test[0] - res.mean) @ kept, rtol=1e-9,
-                          atol=1e-9), "scores_in_network packets or scores")
-    # examples/event_detection.py with the card's fit: its split of the
-    # trace (2.5 days train, 10 h calibration, 20 h deployment), components
-    # 10..29 of the full eigh fit, an event coherent across the network in
-    # their span (1.2 C at most)
-    X = ds.measurements
-    low = DistributedPCA(q=p, method="eigh", device="cuda").fit(X[:3600])
-    w_low, lam_low = low.components[:, 10:30], low.eigenvalues[10:30]
-    det = LowVarianceDetector(w_low, lam_low, low.mean, alpha=1e-3)
-    det.calibrate(X[3600:4800])
-    deploy = X[4800:7200].copy()
-    pattern = w_low[:, 3] + 0.5 * w_low[:, 7]
-    deploy[1000:1040] += pattern / np.abs(pattern).max() * 1.2
-    events = det.detect(deploy).events
-    tpr, fpr = events[1000:1040].mean(), np.r_[events[:1000],
-                                                 events[1040:]].mean()
+          f"held-out epochs: notification rate "
+          f"{qs['notification_rate']:.4f}, worst sink error "
+          f"{qs['max_sink_error']:.6f}; PCAg epoch: packets a node max "
+          f"{qs['packets'].max()} == q (C_i + 1) "
+          f"{np.array_equal(qs['packets'], want_packets)}")
+    check(qs["max_sink_error"] <= EPS_C, "the eps guarantee was broken")
+    check(np.array_equal(qs["packets"], want_packets)
+          and np.allclose(qs["scores"], (test[0] - res.mean) @ kept,
+                          rtol=1e-9, atol=1e-9),
+          "scores_in_network packets or scores")
+    # repro_torch.examples.event_detection on the card with this trace:
+    # its split (2.5 days train, 10 h calibration, 20 h deployment),
+    # components 10..29 of the full eigh fit, an event coherent across the
+    # network in their span (1.2 C at most)
+    ed = event_detection.run(dev, measurements=ds.measurements)
     print(f"   low-variance detector (components 10..29 of the card's full "
           f"eigh fit on 3600 epochs, calibrated on 1200): injected event "
-          f"flagged in {tpr:.3f} of its 40 epochs, false alarms {fpr:.4f}")
-    check(tpr > 0.8 and fpr < 0.05, "the low-variance detector's gate "
-          "(examples/event_detection.py: > 0.8 detected, < 0.05 false)")
+          f"flagged in {ed['tpr']:.3f} of its 40 epochs, false alarms "
+          f"{ed['fpr']:.4f}")
+    check(ed["tpr"] > 0.8 and ed["fpr"] < 0.05, "the low-variance "
+          "detector's gate (examples/event_detection.py: > 0.8 detected, "
+          "< 0.05 false)")
 
     # kernels 6, 10, 11 at the Berkeley shapes
     xb = torch.tensor(train[:, perm], dtype=torch.float32, device=dev)
@@ -1414,6 +1341,50 @@ def wsn1m_production(record, dev, p=WSN_P) -> None:
             dist.destroy_process_group()
 
 
+def examples_on_card(record) -> None:
+    """Phase 15: the six examples (repro_torch.examples) on the card at
+    their own configurations, from their seeded draws, through their
+    ``main``: each prints the reference example's report (the numbers its
+    gate reads) and asserts the gate at the reference's thresholds (the
+    quickstart has none; phase 14 holds its ε).  No plain call; each
+    kernel's launches recorded under the example's name in
+    ``launches_by_path``."""
+    from repro_torch.examples import (compression_fleet, event_detection,
+                                      event_fleet, faulty_fleet, quickstart,
+                                      streaming_pca)
+    from repro_torch.kernels import ops
+    for mod in (streaming_pca, faulty_fleet, compression_fleet, event_fleet,
+                quickstart, event_detection):
+        name = mod.__name__.rsplit(".", 1)[1]
+        print(f"   -- {name} " + "-" * (60 - len(name)), flush=True)
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        t = time.perf_counter()
+        mod.main(["--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches, plain = path_counts()
+        print(f"   {name}: main() returned in {wall:.2f} s; launches "
+              f"{launches}; plain calls {plain}")
+        check(plain == 0, f"{name}: a plain version ran on the card")
+        for kernel, n in launches.items():
+            record[kernel].setdefault("launches_by_path", {})[name] = n
+
+
+def checker_on_card() -> None:
+    """Phase 16: ``python -m repro_torch.analysis.check --device cuda`` in
+    this process — every contract at the engine's widths (with the host
+    syncs by call site on the engine's), the kernel calls' traffic, the
+    build's and the launches' resource bill against the H100's limits and
+    the committed baseline, and the lints; every row must pass."""
+    from repro_torch.analysis import check as analysis_check
+    rows = analysis_check.run_checks("cuda",
+                                     echo=lambda line: print(f"   {line}"))
+    failed = [f"{r['contract']}/{r['rule']}" for r in rows if not r["ok"]]
+    print(f"   checker: {len(rows) - len(failed)}/{len(rows)} rules pass")
+    check(not failed, f"the checker failed: {failed}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1424,6 +1395,14 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    # the work model and bounds (67 TFLOP/s fp32, 3.35 TB/s), the ptxas
+    # reader and the host-sync helpers live in repro_torch.analysis; the
+    # helpers of this script read them as module globals
+    global bound, fold_flops, band_entries, ptxas_summary, sync_sites
+    global ALLOWED_SYNCS
+    from repro_torch.analysis.op_lint import ALLOWED_SYNCS, sync_sites
+    from repro_torch.analysis.resources import (band_entries, bound,
+                                                fold_flops, ptxas_summary)
     from repro_torch.core.covariance import band_to_dense, band_valid
     from repro_torch.kernels import build, ops, ref
     from repro_torch.serve.engine import StreamingPCAEngine, StreamRequest
@@ -2203,6 +2182,16 @@ def main() -> int:
     paper_pipeline(record, dev)
     wsn1m_production(record, dev)
     print(f"   phase 14: {time.perf_counter() - t14:.1f} s")
+
+    phase("15 the examples (repro_torch.examples) at their configurations")
+    t15 = time.perf_counter()
+    examples_on_card(record)
+    print(f"   phase 15: {time.perf_counter() - t15:.1f} s")
+
+    phase("16 the checker (repro_torch.analysis.check --device cuda)")
+    t16 = time.perf_counter()
+    checker_on_card()
+    print(f"   phase 16: {time.perf_counter() - t16:.1f} s")
 
     print(f"   total {time.perf_counter() - t_start:.1f} s")
     for rec in record.values():

@@ -7,7 +7,8 @@ No PyTorch headers are involved, so a build takes seconds.  Libraries go
 to ``build/repro_torch/`` at the repository root (listed in
 ``.gitignore``), named by a hash of their sources and flags, and are built
 at first use — or all at once, one ``nvcc`` per source in parallel, by
-:func:`build_all`.  Nothing here runs at import time.
+:func:`build_all` — each with its compiler log (``ptxas -v``: registers,
+spills, shared memory) beside it.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -105,8 +106,10 @@ def build_all(names=None) -> dict[str, dict]:
     for name in names:
         out = _target(name)
         if out.exists():
-            build_log.setdefault(name, {"path": str(out), "seconds": 0.0,
-                                        "log": "cached"})
+            log = out.with_suffix(".log")
+            build_log.setdefault(name, {
+                "path": str(out), "seconds": 0.0,
+                "log": log.read_text() if log.exists() else "cached"})
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -121,6 +124,7 @@ def build_all(names=None) -> dict[str, dict]:
                           f"{log}")
             continue
         os.replace(tmp, out)
+        out.with_suffix(".log").write_text(log)     # ptxas -v, for the bill
         build_log[name] = {"path": str(out),
                            "seconds": time.perf_counter() - t0, "log": log}
     if failed:

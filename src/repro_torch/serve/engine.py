@@ -28,7 +28,9 @@ after chunk t's step is dispatched; a prestaged chunk is used only if the
 slot plan did not move under it.  Overlap reorders host work only, so
 the pipelined engine gives the synchronous engine's bits.
 
-The fleet state stays on the device and is replaced every step; the books
+The fleet state stays on the device and is updated in place every step
+(each state tensor keeps its memory, the counterpart of the reference's
+donated buffers; contract ``engine.step``); the books
 accumulate on the device, and every device-to-host copy goes through
 :meth:`StreamingPCAEngine._pull` under a ledger key: the retirement
 summaries (``"retire"``) and the fleet merge (``"merge"``); ``"hot"``
@@ -69,6 +71,15 @@ from repro_torch.streaming.scheduler import retained_fraction
 
 __all__ = ["StreamRequest", "StreamResult", "FleetSummary",
            "StreamingPCAEngine"]
+
+# the step and the callees that touch the device (repolint's host-pull
+# rule; the retirement's host side runs on what _pull copied)
+HOT_PATHS = ("StreamingPCAEngine.step", "StreamingPCAEngine._commit",
+             "StreamingPCAEngine._admit",
+             "StreamingPCAEngine._stage", "StreamingPCAEngine._upload",
+             "StreamingPCAEngine._accumulate_books",
+             "StreamingPCAEngine._result_slices",
+             "StreamingPCAEngine._pull")
 
 
 @dataclasses.dataclass(eq=False)   # identity equality: requests hold arrays
@@ -306,9 +317,9 @@ class StreamingPCAEngine:
 
         def splice(full, fresh):
             sel = mj.reshape((self.slots,) + (1,) * (fresh.dim() - 1))
-            return torch.where(sel, fresh, full)
+            return full.copy_(torch.where(sel, fresh, full))
 
-        self.states = tree_map(splice, self.states, self._fresh_states)
+        tree_map(splice, self.states, self._fresh_states)
         zero = torch.zeros((), device=self.device)
         if self.cfg.compression is not None:
             self._comp_max_err = torch.where(mj, zero, self._comp_max_err)
@@ -325,11 +336,13 @@ class StreamingPCAEngine:
         """The engine's only device-to-host copy, counted under ``where``
         in ``pulls`` ("retire", "merge"; "hot" must stay 0)."""
         self.pulls[where] = self.pulls.get(where, 0) + 1
+        # repolint: allow-host-pull the one counted device-to-host copy
         return x.cpu().numpy()
 
-    def _result_slices(self, slot: int) -> dict:
-        """The retiring slot's summary as device tensors, computed before
-        any admission can overwrite the slot."""
+    def _result_slices(self, slot: int) -> tuple[dict, torch.Tensor]:
+        """The retiring slot's summary, copied on the device into one flat
+        fp32 tensor before any admission can overwrite the slot (the fleet
+        state is updated in place): the fields' shapes and that tensor."""
         st = tree_map(lambda a: a[slot], self.states)
         # one C W serves both the retained fraction and the energies
         band_est = online_estimate(st.cov)
@@ -350,18 +363,22 @@ class StreamingPCAEngine:
                        det_alarms=self._det_alarm_packets[slot],
                        det_t2=st.det.t2_threshold,
                        det_spe=st.det.spe_threshold)
-        return out
+        return ({k: tuple(v.shape) for k, v in out.items()},
+                torch.cat([v.reshape(-1).to(torch.float32)
+                           for v in out.values()]))
 
-    def _finalize_result(self, slices: dict, reason: str) -> StreamResult:
+    def _finalize_result(self, slices: tuple[dict, torch.Tensor],
+                         reason: str) -> StreamResult:
         """Copy a retiring slot's summary to the host in ONE transfer — the
         loop's only device-to-host copy — and build its StreamResult (the
         integer fields, round and refresh counts, are exact in fp32)."""
-        flat = self._pull(torch.cat([v.reshape(-1).to(torch.float32)
-                                     for v in slices.values()]), "retire")
+        shapes, snapshot = slices
+        flat = self._pull(snapshot, "retire")
         out, at = {}, 0
-        for k, v in slices.items():
-            out[k] = flat[at:at + v.numel()].reshape(tuple(v.shape))
-            at += v.numel()
+        for k, shape in shapes.items():
+            size = int(np.prod(shape, dtype=np.int64))
+            out[k] = flat[at:at + size].reshape(shape)
+            at += size
         extra: dict = {}
         if self.cfg.compression is not None:
             extra = dict(
@@ -499,7 +516,7 @@ class StreamingPCAEngine:
             if req is None:
                 buf[s] = 0.0
                 continue
-            c = int(start[s])
+            c = int(start[s])  # repolint: allow-host-pull numpy cursor
             take = min(K, req.rounds.shape[0] - c)
             buf[s, :take] = req.rounds[c:c + take]
             if take < K:
@@ -513,6 +530,7 @@ class StreamingPCAEngine:
                 if req is None or req.liveness is None:
                     mbuf[s] = 1.0
                     continue
+                # repolint: allow-host-pull numpy cursors
                 c, take = int(start[s]), int(consumed[s])
                 mbuf[s, :take] = req.liveness[c:c + take]
                 if take < K:
@@ -555,6 +573,12 @@ class StreamingPCAEngine:
                                        + alarms * self._det_alarm_price)
 
     # -- main loop ------------------------------------------------------------
+    def _commit(self, new_states: StreamState) -> None:
+        """Write the step's states into the fleet state in place: every
+        state tensor keeps its memory across steps (the counterpart of the
+        reference's donated state; contract ``engine.step``)."""
+        tree_map(lambda dst, src: dst.copy_(src), self.states, new_states)
+
     def step(self) -> int:
         """Fold the next K-round chunk for every active slot; returns the
         number of active slots.
@@ -594,14 +618,17 @@ class StreamingPCAEngine:
         # -- dispatch: the compute stream waits for the upload -------------
         if staged.ready is not None:
             torch.cuda.current_stream(self.device).wait_event(staged.ready)
-        self.states, metrics = fleet_chunk_step(
+        new_states, metrics = fleet_chunk_step(
             self.cfg, self.states, staged.batch, staged.masks, staged.rv)
+        self._commit(new_states)
         self._accumulate_books(metrics, staged.rv)
         # -- host bookkeeping: heartbeats, cursors, retirement verdicts ----
         pendings: list[dict] = []
         for s in live:
             req = self.active[s]
+            # repolint: allow-host-pull numpy: the staged plan and schedule
             c, take = int(staged.start[s]), int(staged.consumed[s])
+            # repolint: allow-host-pull numpy: the request's schedule
             frac = 1.0 if req.liveness is None \
                 else float(req.liveness[c:c + take].mean())
             if frac >= self.min_alive_fraction:
@@ -627,6 +654,7 @@ class StreamingPCAEngine:
             self.telemetry.record_step(StepRecord(
                 step=self._clock, wall_s=time.perf_counter() - t0,
                 stage_s=stage_s, overlap_s=overlap_s, prestaged=prestaged,
+                # repolint: allow-host-pull numpy: the staged plan
                 live=len(live), rounds=int(staged.consumed.sum()),
                 queue_depth=len(self.queue), admitted=admitted,
                 retired=len(pendings)))
@@ -675,3 +703,123 @@ class StreamingPCAEngine:
             basis=out[0], region=out[1].astype(np.int32),
             col=out[2].astype(np.int32), lam=out[3], rho=float(out[4]),
             regions=tuple(regions), merge_packets=float(bill))
+
+
+# ===========================================================================
+# Program contracts (checked by ``python -m repro_torch.analysis.check``):
+# an engine serving one request a slot for 3 steps — 2 slots of p = 8 on
+# the CPU, 8 slots at the engine's widths on the card — with both stages
+# (kernel 1) or band-only with one request under a liveness schedule
+# (kernel 3).  On the card the host syncs are read by call site too.
+# ===========================================================================
+from repro_torch.analysis import contracts as _contracts  # noqa: E402
+from repro_torch.analysis import op_lint as _ol  # noqa: E402
+from repro_torch.streaming.compressor import CompressionConfig  # noqa: E402
+from repro_torch.streaming.detector import DetectionConfig  # noqa: E402
+
+_STEPS, _REFRESH_ITERS = 3, 8
+_CHUNK_KERNELS = ("fused_stream", "fused_stream_bf16", "band_fold",
+                  "band_fold_masked")
+
+
+def _state_ptrs(states) -> tuple:
+    ptrs = []
+    tree_map(lambda t: ptrs.append(t.data_ptr()), states)
+    return tuple(ptrs)
+
+
+def _contract_engine(dev, pipeline: bool, stages: bool):
+    """An engine with one request a slot, each ``_STEPS`` chunks long; in
+    the band-only variant request 0 carries a liveness schedule."""
+    slots, p, q, h, n, K = ((8, 1024, 32, 128, 32, 8) if dev.type == "cuda"
+                            else (2, 8, 2, 1, 4, 2))
+    cfg = StreamConfig(
+        p=p, q=q, halfwidth=h, warmup_rounds=2, refresh_iters=_REFRESH_ITERS,
+        compression=CompressionConfig(epsilon=0.5) if stages else None,
+        detection=(DetectionConfig(alpha=1e-3, calib_rounds=2) if stages
+                   else None))
+    eng = StreamingPCAEngine(cfg, slots=slots, seed=0, chunk=K,
+                             pipeline=pipeline, device=dev)
+    rng = np.random.default_rng(0)
+    for i in range(slots):
+        live = None
+        if not stages and i == 0:
+            live = np.ones((_STEPS * K, p), np.float32)
+            live[K:, : p // 4] = 0.0
+        eng.submit(StreamRequest(
+            rounds=rng.normal(size=(_STEPS * K, n, p)).astype(np.float32),
+            liveness=live))
+
+    def serve():
+        ptrs = [_state_ptrs(eng.states)]
+        while eng.step() or eng.queue:
+            ptrs.append(_state_ptrs(eng.states))
+        return dict(state_ptrs=ptrs, steps=eng._clock,
+                    retired=len(eng.retired_log), pulls=dict(eng.pulls),
+                    prestage_hits=eng._prestage_hits,
+                    prestage_misses=eng._prestage_misses)
+    return serve
+
+
+def _engine_runs(dev, pipeline=False):
+    return {f"{kind}": _contract_engine(dev, pipeline, kind == "stages")
+            for kind in ("stages", "band-masked")}
+
+
+_ENGINE_RULES = (
+    # one chunk launch a step (the step after the last retirement has no
+    # live slot and launches nothing)
+    _ol.KernelBudget(_CHUNK_KERNELS, exact=_STEPS),
+    # every decision's refresh products, plus one a retirement
+    _ol.KernelBudget("banded_matmul", exact=lambda rec: _STEPS * (
+        1 + _REFRESH_ITERS + 2) + rec.result["retired"]),
+    _ol.OpBudget(_ol.EIGH_OP, exact=_STEPS),
+    _ol.InPlaceState(),
+    _ol.NoHostRead(allowed_sites=("_pull",)),
+    _ol.NoF64())
+
+_contracts.register(_contracts.Contract(
+    id="engine.step",
+    where="repro_torch.serve.engine.StreamingPCAEngine.step",
+    claim="one chunk launch a step; the fleet state updated in place "
+          "(every state tensor keeps its memory, the counterpart of "
+          "donation); no host read in the step but the retirement pull",
+    run=_engine_runs,
+    rules=_ENGINE_RULES,
+    cuda_rules=(_ol.SyncBudget(),),
+))
+
+
+def _pipelined_ledger(records):
+    rows = []
+    for label, rec in records.items():
+        r = rec.result
+        cid = "engine.step.pipelined"
+        rows += [
+            _contracts.RuleResult(
+                cid, f"hot-loop:no-host-pull[{label}]", r["pulls"]["hot"] == 0,
+                f"{r['pulls']['hot']} pulls in the hot path over "
+                f"{r['steps']} steps (want 0)"),
+            _contracts.RuleResult(
+                cid, f"hot-loop:retire-pulls[{label}]",
+                r["pulls"]["retire"] > 0,
+                f"retirement pulled {r['pulls']['retire']} times (want > 0: "
+                f"the loop's only device-to-host copies)"),
+            _contracts.RuleResult(
+                cid, f"hot-loop:prestage[{label}]", r["prestage_hits"] >= 1,
+                f"{r['prestage_hits']} prestaged chunks used, "
+                f"{r['prestage_misses']} staged inline (want >= 1 hit)")]
+    return rows
+
+
+_contracts.register(_contracts.Contract(
+    id="engine.step.pipelined",
+    where="repro_torch.serve.engine.StreamingPCAEngine.step",
+    claim="the pipelined loop keeps the step's contract, pulls nothing in "
+          "the hot path, pulls at retirement only and uses its prestaged "
+          "chunks",
+    run=lambda dev: _engine_runs(dev, pipeline=True),
+    rules=_ENGINE_RULES,
+    runtime=_pipelined_ledger,
+    cuda_rules=(_ol.SyncBudget(),),
+))

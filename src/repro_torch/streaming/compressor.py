@@ -29,6 +29,11 @@ __all__ = ["CompressionConfig", "RoundCompression", "quantize_scores",
            "row_mask", "compress_round", "compression_books",
            "compression_round_cost", "epoch_packet_split"]
 
+# the functions of every compression stage (checked by repolint's
+# host-pull rule)
+HOT_PATHS = ("quantize_scores", "row_mask", "compress_round",
+             "compression_books")
+
 
 @dataclasses.dataclass(frozen=True)
 class CompressionConfig:

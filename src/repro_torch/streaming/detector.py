@@ -26,6 +26,12 @@ __all__ = ["DetectionConfig", "DetectorState", "RoundDetection",
            "detector_init", "detect_round", "detect_apply", "inv_lambda",
            "row_liveness", "wilson_hilferty", "detection_packet_split"]
 
+# the functions of every detection stage (checked by repolint's host-pull
+# rule)
+HOT_PATHS = ("_moment_threshold", "_ordered_sum", "inv_lambda",
+             "row_liveness", "detect_round", "detect_apply",
+             "wilson_hilferty")
+
 
 @dataclasses.dataclass(frozen=True)
 class DetectionConfig:

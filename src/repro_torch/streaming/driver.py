@@ -85,6 +85,10 @@ __all__ = ["StreamConfig", "StreamState", "RoundMetrics", "random_bases",
            "fleet_chunk_step", "chunk_stream_step", "chunked_stream_run",
            "sharded_stream_run", "tree_map"]
 
+# the per-step functions of every driver (repolint's host-pull rule)
+HOT_PATHS = ("fleet_chunk_step", "_decide_and_stage", "_churn",
+             "fleet_round_step", "_fleet_round_run", "_fleet_chunked_run")
+
 
 @dataclasses.dataclass(frozen=True)
 class StreamConfig:
@@ -571,3 +575,182 @@ def sharded_stream_run(cfg: StreamConfig, group, states: StreamState,
     return batched_stream_run(cfg, shard_networks(states, rank, world),
                               shard_networks(xs, rank, world), chunk=chunk,
                               probe_every=probe_every)
+
+
+# ===========================================================================
+# Program contracts (checked by ``python -m repro_torch.analysis.check``).
+# Each runs its entry point once under the op recorder: at a tiny size on
+# the CPU, at the engine's widths on the card (one wsn-1m region a slot).
+# The refresh's banded products are kernel 10's (1 + refresh_iters + 2 a
+# decision), where the reference's refresh is plain jnp and counts none.
+# ===========================================================================
+from repro_torch.analysis import contracts as _contracts  # noqa: E402
+from repro_torch.analysis import op_lint as _ol  # noqa: E402
+from repro_torch.analysis import resources as _res  # noqa: E402
+
+_REFRESH_ITERS = 8
+_DECISION = 1 + _REFRESH_ITERS + 2         # kernel 10 launches a decision
+
+
+def _contract_dims(dev):
+    """(slots, p, q, h, n) of the contracts: tiny on the CPU (the
+    reference's p = 12, q = 3, h = 2, n = 4), the engine's on the card."""
+    return (8, 1024, 32, 128, 32) if dev.type == "cuda" else (2, 12, 3, 2, 4)
+
+
+def _contract_cfg(dev, *, fused=True, stages=True,
+                  precision="fp32") -> StreamConfig:
+    _, p, q, h, _ = _contract_dims(dev)
+    return StreamConfig(
+        p=p, q=q, halfwidth=h, warmup_rounds=4, refresh_iters=_REFRESH_ITERS,
+        compression=CompressionConfig(epsilon=0.5) if stages else None,
+        detection=(DetectionConfig(alpha=1e-3, calib_rounds=3) if stages
+                   else None),
+        fused=fused, precision=precision)
+
+
+def _contract_data(dev, shape, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev)
+
+
+def _chunk_body(dev, ks=(1, 4, 8), **kw):
+    """One decision's chunk body (``fleet_chunk_step``) on fresh fleet
+    states, past warmup so the refresh fires, at each K of ``ks``."""
+    S, p, _, _, n = _contract_dims(dev)
+    cfg = _contract_cfg(dev, **kw)
+
+    def body(k):
+        st = stream_init(cfg, S, device=dev)
+        st = st._replace(rounds=st.rounds + cfg.warmup_rounds)
+        x = _contract_data(dev, (S, k, n, p))
+        return lambda: fleet_chunk_step(cfg, st, x)
+    return {f"K={k}": body(k) for k in ks}
+
+
+def _stream_runs(dev, **variants):
+    """Whole runs of 8 rounds for one network: ``{label: (driver, cfg)}``
+    with driver "rounds" (``stream_run``) or a chunk size."""
+    _, p, _, _, n = _contract_dims(dev)
+    xs = _contract_data(dev, (8, n, p))
+    out = {}
+    for label, (chunk, cfg) in variants.items():
+        st = stream_init(cfg, device=dev)
+        out[label] = (
+            (lambda c=cfg, s=st: stream_run(c, s, xs)) if chunk is None else
+            (lambda c=cfg, s=st, k=chunk: chunked_stream_run(c, s, xs,
+                                                             chunk=k)))
+    return out
+
+
+_BODY_RULES = (_ol.KernelBudget("banded_matmul", exact=_DECISION),
+               _ol.OpBudget(_ol.EIGH_OP, max=1), _ol.NoHostRead(),
+               _ol.NoF64(), _res.HbmTrafficBudget())
+
+_contracts.register(_contracts.Contract(
+    id="chunk.body",
+    where="repro_torch.streaming.driver.fleet_chunk_step",
+    claim="the band-only chunk body launches kernel 2 once and kernel 10 "
+          "1 + refresh_iters + 2 times a decision, independent of K; at "
+          "most one eigh; no host read",
+    run=lambda dev: _chunk_body(dev, stages=False),
+    rules=(_ol.KernelBudget("band_fold", exact=1),) + _BODY_RULES,
+))
+
+_contracts.register(_contracts.Contract(
+    id="chunk.fused.fp32",
+    where="repro_torch.streaming.driver.fleet_chunk_step",
+    claim="with both stages configured the chunk body launches kernel 1 "
+          "once (fold and stages in one launch), plus the decision's "
+          "kernel-10 products",
+    run=lambda dev: _chunk_body(dev),
+    rules=(_ol.KernelBudget("fused_stream", exact=1),) + _BODY_RULES,
+))
+
+_contracts.register(_contracts.Contract(
+    id="chunk.fused.bf16",
+    where="repro_torch.streaming.driver.fleet_chunk_step",
+    claim="the bf16 fused body launches kernel 1's bf16 tile mode once and "
+          "keeps every accumulator fp32 (bf16 is a tile format only)",
+    run=lambda dev: _chunk_body(dev, precision="bf16"),
+    rules=(_ol.KernelBudget("fused_stream_bf16", exact=1),
+           _ol.Fp32Accumulators()) + _BODY_RULES,
+))
+
+_contracts.register(_contracts.Contract(
+    id="chunk.body.split",
+    where="repro_torch.streaming.driver.fleet_chunk_step",
+    claim="the split (fused=False) chunk body pays exactly the three "
+          "launches kernel 1 collapses: fold, kernel 4, kernel 5",
+    run=lambda dev: _chunk_body(dev, ks=(4,), fused=False),
+    rules=(_ol.KernelBudget("band_fold", exact=1),
+           _ol.KernelBudget("supervised_compress", exact=1),
+           _ol.KernelBudget("pca_monitor", exact=1)) + _BODY_RULES,
+))
+
+_contracts.register(_contracts.Contract(
+    id="driver.hot-loop",
+    where="repro_torch.streaming.driver.chunked_stream_run",
+    claim="8 rounds in chunks of 4: the body's launches x 2 steps, and no "
+          "host read in the loop",
+    run=lambda dev: _stream_runs(
+        dev, **{"R=8,chunk=4": (4, _contract_cfg(dev, stages=False))}),
+    rules=(_ol.KernelBudget("band_fold", exact=2),
+           _ol.KernelBudget("banded_matmul", exact=2 * _DECISION),
+           _ol.NoHostRead(), _ol.NoF64(), _res.HbmTrafficBudget()),
+))
+
+_contracts.register(_contracts.Contract(
+    id="dtype.policy",
+    where="repro_torch.streaming.driver",
+    claim="no f64 anywhere on the streaming paths; bf16 never leaves the "
+          "tile operands (every state and metric stays fp32)",
+    run=lambda dev: _stream_runs(dev, **{
+        "stream_run": (None, _contract_cfg(dev, stages=False)),
+        "chunked-fp32": (4, _contract_cfg(dev)),
+        "chunked-bf16": (4, _contract_cfg(dev, precision="bf16"))}),
+    rules=(_ol.NoF64(), _ol.Fp32Accumulators()),
+))
+
+
+def _bill_runs(dev):
+    """``stream_run`` over 16 rounds at link loss 0 and 0.1 (the
+    reference's TestSchedulerBillMatchesCostModel configuration)."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    xs = torch.randn((16, 6, 12), generator=g, device=dev)
+    out = {}
+    for loss in (0.0, 0.1):
+        cfg = StreamConfig(p=12, q=3, halfwidth=2, forgetting=0.95,
+                           drift_threshold=0.05, warmup_rounds=4,
+                           link_loss=loss)
+        st = stream_init(cfg, seed=1, device=dev)
+        out[f"link_loss={loss}"] = (
+            lambda c=cfg, s=st: (c, stream_run(c, s, xs)[0]))
+    return out
+
+
+def _bill_matches_cost_model(records):
+    rows = []
+    for label, rec in records.items():
+        cfg, fin = rec.result
+        sched = cfg.scheduler()
+        refreshes = int(fin.sched.refreshes)
+        want = 16 * sched.round_cost() + refreshes * sched.refresh_cost(cfg.p)
+        got = float(fin.sched.comm_packets)
+        ok = refreshes >= 1 and abs(got - want) <= 1e-5 * abs(want)
+        rows.append(_contracts.RuleResult(
+            "scheduler.bill", f"bill[{label}]", ok,
+            f"comm_packets {got} vs rounds x round_cost + refreshes "
+            f"({refreshes}) x refresh_cost = {want} (rtol 1e-5; want >= 1 "
+            f"refresh)"))
+    return rows
+
+
+_contracts.register(_contracts.Contract(
+    id="scheduler.bill",
+    where="repro_torch.streaming.driver.stream_run",
+    claim="the booked bill equals the cost model: rounds x round_cost + "
+          "refreshes x refresh_cost, lossless and at 10% link loss",
+    run=_bill_runs,
+    runtime=_bill_matches_cost_model,
+))

@@ -16,7 +16,8 @@
 The reference's ``shard_map`` over a ``region`` mesh axis becomes one
 process per device with a ``torch.distributed`` process group standing in
 for the axis (:mod:`repro_torch.launch.mesh`); the collectives issued are
-counted in :data:`COLLECTIVES`.  With one region the run is the flat
+counted in :data:`COLLECTIVES`, their payloads in
+:data:`COLLECTIVE_ELEMS`.  With one region the run is the flat
 driver bit for bit.
 """
 
@@ -35,16 +36,19 @@ from repro_torch.streaming.driver import (RoundMetrics, StreamConfig,
 from repro_torch.streaming.online_cov import (online_estimate,
                                               online_total_variance)
 
-__all__ = ["COLLECTIVES", "reset_collectives", "FleetBasis", "FleetMerge",
-           "region_energies", "merge_fleet", "fleet_basis_dense",
+__all__ = ["COLLECTIVES", "COLLECTIVE_ELEMS", "reset_collectives",
+           "FleetBasis", "FleetMerge", "region_energies", "merge_fleet", "fleet_basis_dense",
            "hierarchical_stream_init", "hierarchical_stream_run"]
 
 COLLECTIVES = {"all_gather": 0, "all_reduce": 0}
+# the elements this rank put into each kind of collective
+COLLECTIVE_ELEMS = {"all_gather": 0, "all_reduce": 0}
 
 
 def reset_collectives() -> None:
-    for k in COLLECTIVES:
-        COLLECTIVES[k] = 0
+    for d in (COLLECTIVES, COLLECTIVE_ELEMS):
+        for k in d:
+            d[k] = 0
 
 
 class FleetBasis(NamedTuple):
@@ -165,12 +169,14 @@ def hierarchical_stream_run(cfg: StreamConfig, group, states: StreamState,
     parts = [torch.empty_like(lam_l) for _ in range(world)]
     dist.all_gather(parts, lam_l.contiguous(), group=group)
     COLLECTIVES["all_gather"] += 1
+    COLLECTIVE_ELEMS["all_gather"] += lam_l.numel()
     lam_table = torch.cat(parts)
     # ONE all_reduce: the trace partial and the per-boundary refresh counts
     summed = torch.cat([den_l.sum().reshape(1),
                         metrics.did_refresh.to(torch.float32).sum(0)])
     dist.all_reduce(summed, group=group)
     COLLECTIVES["all_reduce"] += 1
+    COLLECTIVE_ELEMS["all_reduce"] += summed.numel()
     total_var, fired = summed[0], summed[1:]
     basis = merge_fleet(lam_table, total_var, qf)
     merges = (fired > 0).sum().clamp(min=1).to(torch.int32)
@@ -178,3 +184,59 @@ def hierarchical_stream_run(cfg: StreamConfig, group, states: StreamState,
                        merge_packets=merges.to(torch.float32)
                        * float(merge_price))
     return fin, metrics, fleet
+
+
+# ===========================================================================
+# Program contract (checked by ``python -m repro_torch.analysis.check``):
+# the run in a one-rank group of its own (gloo on the CPU, NCCL on the
+# card), over 4 and 8 rounds, so a collective a round would show.
+# ===========================================================================
+from repro_torch.analysis import contracts as _contracts  # noqa: E402
+from repro_torch.analysis import op_lint as _ol  # noqa: E402
+
+def _one_rank_run(dev, cfg, states, xs):
+    import tempfile
+
+    from repro_torch.launch.mesh import init_fleet_process_group
+
+    own = not dist.is_initialized()
+    with tempfile.TemporaryDirectory() as tmp:
+        if own:
+            init_fleet_process_group(0, 1, tmp, device=dev.type,
+                                     timeout_s=180)
+        try:
+            fin, metrics, fleet = hierarchical_stream_run(
+                cfg, dist.group.WORLD, states, xs, chunk=2)
+        finally:
+            if own:
+                dist.destroy_process_group()
+    return dict(states=fin, metrics=metrics, fleet=fleet,
+                regions_local=xs.shape[0], q=cfg.q)
+
+
+def _hierarchy_runs(dev):
+    regions, p, q, h, n = ((8, 1024, 32, 128, 32) if dev.type == "cuda"
+                           else (2, 8, 3, 1, 4))
+    cfg = StreamConfig(p=p, q=q, halfwidth=h, warmup_rounds=2)
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for rounds in (4, 8):
+        xs = torch.randn((regions, rounds, n, p), generator=g, device=dev)
+        states = hierarchical_stream_init(cfg, regions, device=dev)
+        out[f"rounds={rounds}"] = (
+            lambda s=states, x=xs: _one_rank_run(dev, cfg, s, x))
+    return out
+
+
+_contracts.register(_contracts.Contract(
+    id="hierarchy.refresh",
+    where="repro_torch.streaming.hierarchy.hierarchical_stream_run",
+    claim="exactly one all_gather and one all_reduce per run, none a round "
+          "(4 rounds or 8), with the (q + 1)-element merge record a region "
+          "that the merge's Table-1 price bills",
+    run=_hierarchy_runs,
+    rules=(_ol.CollectiveBudget("hierarchy", (("all_gather", 1),
+                                              ("all_reduce", 1))),
+           _ol.CollectiveBudget("aggregation", ()),
+           _ol.WirePayload(costs.merge_record_elems), _ol.NoF64()),
+))

@@ -32,6 +32,11 @@ __all__ = ["OnlineCovariance", "online_init", "online_update",
            "online_update_chunk", "online_chunk_stats", "online_apply_chunk",
            "online_estimate", "online_total_variance", "stream_covariance"]
 
+# the functions of every fold (checked by repolint's host-pull rule)
+HOT_PATHS = ("_per_round", "_pow_table", "online_chunk_stats",
+             "online_apply_chunk", "_fold", "online_update_chunk",
+             "online_update", "online_estimate", "online_total_variance")
+
 
 class OnlineCovariance(NamedTuple):
     """Decayed banded sufficient statistics; ``t_band[..., k, i]`` is the

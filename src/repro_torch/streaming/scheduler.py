@@ -40,6 +40,10 @@ from repro_torch.streaming.online_cov import (OnlineCovariance,
 __all__ = ["RecomputeScheduler", "SchedulerState", "retained_fraction",
            "ortho_refresh", "ortho_refresh_evals"]
 
+# the functions of every decision (checked by repolint's host-pull rule)
+HOT_PATHS = ("retained_fraction", "ortho_refresh_evals",
+             "RecomputeScheduler.step")
+
 
 def retained_fraction(band_est: torch.Tensor, W: torch.Tensor,
                       total_variance: torch.Tensor,
@@ -64,6 +68,8 @@ def ortho_refresh_evals(band_est: torch.Tensor, W0: torch.Tensor,
         V = orthonormalize(CV, CV.mT @ CV, eps)
     H = V.transpose(-1, -2) @ ops.banded_matmul(band_est, V)
     # jnp.linalg.eigh symmetrizes its input; torch reads one triangle
+    # (eigh checks its result on the host: one sync a decision, the fleet's)
+    # repolint: allow-host-pull the refresh's one sync
     evals, U = torch.linalg.eigh(0.5 * (H + H.transpose(-1, -2)))
     # descending order (eigh returns ascending)
     return V @ U.flip(-1), evals.flip(-1)

@@ -1140,3 +1140,41 @@ class TestCudaPipelinedEngine:
         sgn = np.sign(np.sum(a.basis * b.basis, axis=0))
         np.testing.assert_allclose(a.basis * sgn, b.basis, atol=1e-4)
         assert a.merge_packets == b.merge_packets
+
+
+@pytest.mark.cuda
+class TestCudaChecker:
+    """``python -m repro_torch.analysis.check --device cuda``: every
+    contract at the engine's widths (the engine's with the host syncs by
+    call site), every kernel call one pass, and the resource bill within
+    the H100's limits and equal to the committed baseline."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+
+    def test_checker_passes_on_the_card(self):
+        from repro_torch.analysis import check
+        rows = check.run_checks("cuda", echo=lambda line: None)
+        bad = [f"{r['contract']}/{r['rule']}: {r['detail']}"
+               for r in rows if not r["ok"]]
+        assert not bad, bad
+        assert any(r["rule"].startswith("syncs[") for r in rows)
+
+    def test_resource_bill_equals_baseline(self):
+        from repro_torch.analysis import resources
+        rows = resources.check_card("cuda")
+        assert any(r.rule.startswith("baseline:launch[") for r in rows)
+        bad = [r.line() for r in rows if not r.ok]
+        assert not bad, bad
+
+    def test_examples_pass_their_gates_on_the_card(self):
+        from repro_torch.examples import event_fleet, streaming_pca
+        ops.reset_counts()
+        r = streaming_pca.run("cuda")
+        assert r["total_refreshes"] >= 1
+        assert ops.LAUNCHES["band_round"] == streaming_pca.N_ROUNDS
+        assert sum(ops.PLAIN_CALLS.values()) == 0
+        r = event_fleet.run("cuda")
+        assert r["tpr"] > 0.8 and r["fpr"] < 0.05

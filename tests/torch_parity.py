@@ -20,15 +20,37 @@ ROOT = Path(__file__).resolve().parents[1]
 CHILD = ROOT / "tests" / "torch_ref_child.py"
 
 
-def run_reference(mode: str, out: Path, env: dict | None = None) -> dict:
-    """Run the child in ``mode``, with ``env`` added to its environment."""
+def _child_env(env: dict | None) -> dict:
     env = dict(os.environ, JAX_PLATFORMS="cpu", **(env or {}))
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT / "src")] + [p for p in [env.get("PYTHONPATH")] if p])
+    return env
+
+
+def run_reference(mode: str, out: Path, env: dict | None = None) -> dict:
+    """Run the child in ``mode``, with ``env`` added to its environment."""
     proc = subprocess.run([sys.executable, str(CHILD), mode, str(out)],
-                          env=env, capture_output=True, text=True,
-                          timeout=900)
+                          env=_child_env(env), capture_output=True,
+                          text=True, timeout=900)
     assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    with np.load(out) as z:
+        return {k: z[k] for k in z.files}
+
+
+def start_reference(mode: str, out: Path) -> subprocess.Popen:
+    """Start the child in ``mode`` without waiting for it
+    (:func:`finish_reference` collects it), so several run at once; each
+    computes on one thread, so that they and the parent share the cores."""
+    env = _child_env(dict(OMP_NUM_THREADS="1", XLA_FLAGS=(
+        "--xla_cpu_multi_thread_eigen=false intra_op_parallelism_threads=1")))
+    return subprocess.Popen([sys.executable, str(CHILD), mode, str(out)],
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def finish_reference(proc: subprocess.Popen, out: Path) -> dict:
+    log, _ = proc.communicate(timeout=900)
+    assert proc.returncode == 0, log[-4000:]
     with np.load(out) as z:
         return {k: z[k] for k in z.files}
 

@@ -1,7 +1,9 @@
 """Reference runs for the PyTorch port's parity tests, in a child process.
 
-Run as ``python tests/torch_ref_child.py {streaming|rounds|engine|hierarchy}
-OUT.npz`` with ``JAX_PLATFORMS=cpu`` and ``src`` on ``PYTHONPATH`` (and, for
+Run as ``python tests/torch_ref_child.py MODE OUT.npz`` (MODE one of
+streaming, rounds, engine, hierarchy, streaming_pca, faulty_fleet,
+compression_fleet, event_fleet) with ``JAX_PLATFORMS=cpu`` and ``src`` on
+``PYTHONPATH`` (and, for
 ``hierarchy``, ``XLA_FLAGS=--xla_force_host_platform_device_count=2``: its
 runs shard over a two-device mesh).  The installed jax
 moved ``ClosedJaxpr``, ``Jaxpr`` and ``Literal`` from ``jax.core`` to
@@ -433,9 +435,130 @@ def run_hierarchy(out):
         out.update(flatten(met, f"{name}/m"))
 
 
+def _example(name):
+    """The reference example module ``examples/<name>.py``."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"ref_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _fleet_init(cfg, key, n):
+    return jax.vmap(lambda k: stream_init(cfg, k))(jax.random.split(key, n))
+
+
+def example_streaming_pca(out):
+    """examples/streaming_pca.py's fleet: its draws and its results."""
+    mod = _example("streaming_pca")
+    cfg = StreamConfig(p=mod.P, q=mod.Q, halfwidth=4, forgetting=0.9,
+                       drift_threshold=0.1, refresh_iters=8,
+                       warmup_rounds=8, n_max=8, c_max=4)
+    xs = mod.fleet_streams(jax.random.PRNGKey(0))
+    states = _fleet_init(cfg, jax.random.PRNGKey(1), mod.N_NETWORKS)
+    out["x"], out["W0"] = np.asarray(xs), np.asarray(states.sched.W)
+    fin, met = batched_stream_run(cfg, states, xs)
+    out.update(flatten(met, "m"))
+    out.update(flatten(fin.sched, "final.sched"))
+
+
+def example_faulty_fleet(out):
+    """examples/faulty_fleet.py: both fleet runs and the engine coda, with
+    the engine's initial bases."""
+    from repro.serve.engine import StreamingPCAEngine, StreamRequest
+    mod = _example("faulty_fleet")
+    base = dict(p=mod.P, q=mod.Q, halfwidth=4, forgetting=0.95,
+                drift_threshold=0.08, refresh_iters=8, warmup_rounds=8,
+                n_max=8, c_max=4)
+    cfg_c = StreamConfig(**base)
+    cfg_f = StreamConfig(**base, link_loss=mod.LINK_LOSS, max_retries=3)
+    xs = mod.fleet_streams(jax.random.PRNGKey(0))
+    masks = mod.fleet_liveness(seed=1)
+    key = jax.random.PRNGKey(1)
+    st_c = _fleet_init(cfg_c, key, mod.N_NETWORKS)
+    out["x"], out["W0"], out["masks"] = (np.asarray(xs),
+                                         np.asarray(st_c.sched.W), masks)
+    for tag, cfg, st, m in (("clean", cfg_c, st_c, None),
+                            ("fault", cfg_f,
+                             _fleet_init(cfg_f, key, mod.N_NETWORKS),
+                             jnp.asarray(masks))):
+        fin, met = batched_stream_run(cfg, st, xs, m)
+        out.update(flatten(met, f"{tag}/m"))
+        out.update(flatten(fin.sched, f"{tag}/final.sched"))
+    eng = StreamingPCAEngine(cfg_f, slots=2, seed=0)
+    out["engine/W0"] = np.asarray(eng.states.sched.W)
+    rng = np.random.default_rng(2)
+    live = np.ones((40, mod.P), np.float32)
+    live[12:26, :] = 0.0
+    reqs = [StreamRequest(rounds=rng.normal(size=(40, mod.N_PER_ROUND,
+                                                   mod.P)).astype(np.float32),
+                          liveness=live if i == 0 else None)
+            for i in range(3)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_done()
+    out["engine/plans"] = np.array([(pl.data, pl.model)
+                                    for pl in eng.plan_history])
+    out["engine/dead_rounds"] = np.array([r.rounds
+                                          for r in reqs[0].retirements])
+    out["engine/dead_reasons"] = np.array([r.reason
+                                           for r in reqs[0].retirements])
+    for i, r in enumerate(reqs):
+        out[f"engine/r{i}/rounds"] = np.array(r.result.rounds)
+        out[f"engine/r{i}/reason"] = np.array(r.result.reason)
+        out[f"engine/r{i}/refreshes"] = np.array(r.result.refreshes)
+        out[f"engine/r{i}/comm_packets"] = np.array(r.result.comm_packets)
+        out[f"engine/r{i}/retained"] = np.array(r.result.retained)
+
+
+def example_compression_fleet(out):
+    """examples/compression_fleet.py: both sweeps, per reading."""
+    mod = _example("compression_fleet")
+    xs = mod.fleet_streams(jax.random.PRNGKey(0))
+    out["x"] = np.asarray(xs)
+    runs = [(f"eps{e}", CompressionConfig(epsilon=e)) for e in mod.EPSILONS]
+    runs += [(f"bits{b}", CompressionConfig(epsilon=mod.EPS_FOR_BITS,
+                                            score_bits=b))
+             for b in mod.BIT_WIDTHS]
+    for tag, comp in runs:
+        cfg = StreamConfig(p=mod.P, q=mod.Q, halfwidth=4, forgetting=0.95,
+                           drift_threshold=0.08, warmup_rounds=5,
+                           compression=comp)
+        st = _fleet_init(cfg, jax.random.PRNGKey(1), mod.N_NETWORKS)
+        out["W0"] = np.asarray(st.sched.W)
+        fin, met = batched_stream_run(cfg, st, xs)
+        out.update(flatten(met, f"{tag}/m"))
+        out.update(flatten(fin.sched, f"{tag}/final.sched"))
+
+
+def example_event_fleet(out):
+    """examples/event_fleet.py: its numpy draws, its initial bases and its
+    detector's results."""
+    from repro.core.topology import berkeley_like_layout
+    mod = _example("event_fleet")
+    cfg = StreamConfig(p=mod.P, q=mod.Q, halfwidth=4, forgetting=0.98,
+                       drift_threshold=0.5, warmup_rounds=mod.WARMUP,
+                       detection=DetectionConfig(
+                           alpha=mod.ALPHA, calib_rounds=mod.CALIB_ROUNDS))
+    positions = berkeley_like_layout(p=mod.P, seed=7)
+    xs, truth = mod.inject_events(mod.fleet_streams(), positions)
+    st = _fleet_init(cfg, jax.random.PRNGKey(2), mod.N_NETWORKS)
+    out["x"], out["truth"], out["W0"] = xs, truth, np.asarray(st.sched.W)
+    fin, met = batched_stream_run(cfg, st, jnp.asarray(xs))
+    out.update(flatten(met, "m"))
+    out.update(flatten(fin.det, "final.det"))
+    out.update(flatten(fin.sched, "final.sched"))
+
+
 if __name__ == "__main__":
     mode, path = sys.argv[1], sys.argv[2]
     results: dict = {}
     {"streaming": run_streaming, "rounds": run_rounds,
-     "engine": run_engine, "hierarchy": run_hierarchy}[mode](results)
+     "engine": run_engine, "hierarchy": run_hierarchy,
+     "streaming_pca": example_streaming_pca,
+     "faulty_fleet": example_faulty_fleet,
+     "compression_fleet": example_compression_fleet,
+     "event_fleet": example_event_fleet}[mode](results)
     np.savez(path, **results)
