@@ -12,7 +12,8 @@ over time falls on both sides.  Each run is ``python3 chip_smoke.py``
 from its tree's root; its output goes to ``<i>_<side>.log`` in ``--out``
 (default ``build/ab`` beside this script).  Then the script prints one
 row of values per side, in run order, for every engine or fleet line of
-the runs (rounds/s, and the wall time over its steps or rounds), for the
+the runs (rounds/s, and the wall time over its steps or rounds), for
+phase 17's LM engines (tokens/s and the median decode step), for the
 profiled runs' device idle shares and for every kernel of the JSON record
 (ms, and device ms where phase 11 gives it), and which kernel functions
 kept their SASS (``cuobjdump -sass`` of each tree's build,
@@ -36,6 +37,9 @@ RATE = re.compile(r"^\s+(?P<label>[^:]+): (?:(?P<steps>\d+) steps, \d+ "
                   r"rounds|\d+ networks x (?P<rounds>\d+) rounds) in "
                   r"(?P<wall>[\d.]+) s = (?P<rate>[\d.]+) rounds/s")
 IDLE = re.compile(r"^\s+profile: device busy .*idle (?P<idle>[\d.]+)%")
+LM = re.compile(r"^\s+(?P<label>[^:]+): \d+ requests, \d+ tokens in [\d.]+ "
+                r"s = (?P<rate>[\d.]+) tokens/s; decode step (?P<ms>[\d.]+) "
+                r"ms")
 
 
 def parse(log: str) -> dict[str, float]:
@@ -50,6 +54,11 @@ def parse(log: str) -> dict[str, float]:
             per, unit = ((m["steps"], "step") if m["steps"]
                          else (m["rounds"], "round"))
             out[f"{last}: ms a {unit}"] = 1e3 * float(m["wall"]) / int(per)
+            continue
+        m = LM.match(line)
+        if m:
+            out[f"{m['label'].strip()}: tokens/s"] = float(m["rate"])
+            out[f"{m['label'].strip()}: decode ms a step"] = float(m["ms"])
             continue
         m = IDLE.match(line)
         if m:

@@ -140,7 +140,16 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      p=1024, h=128, q=32, K=8, n=32; the engine's with the host syncs by
      call site), every kernel call one pass over HBM, the build's and the
      launches' registers, spills and shared memory within the H100's
-     limits and equal to analysis/baselines/resources.json, the lints.
+     limits and equal to analysis/baselines/resources.json, the lints;
+ 17. the LM serving path (repro_torch.models, the LM Engine) at the full
+     width of llama3.2-1b and granite-moe-3b-a800m, random bf16 weights
+     from a seed: an 8-slot engine (512-position fp32 cache) serving 16
+     requests of 16-256 prompt tokens, 32 new tokens each (tokens/s,
+     prefill ms by bucket, the decode step's ms beside its bytes bound,
+     peak memory); two requests through a one-slot engine equal to a
+     direct prefill + decode_step loop; the dense model's bucketed
+     prefill against the exact-length one; the first two layers in fp32,
+     card against CPU (``lm_serving``).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card, or without the rest
 of the repository beside it, the script exits non-zero and prints no
@@ -310,9 +319,14 @@ def profile_breakdown(run, top: int = 8) -> None:
     rows = sorted((e for e in prof.key_averages()
                    if e.device_type != DeviceType.CPU and _dev_time(e) > 0),
                   key=_dev_time, reverse=True)
+    if not rows:
+        print(f"   profile: the profiler caught no device event in "
+              f"{wall:.3f} s wall (device time not measured)")
+        return
     busy = sum(_dev_time(e) for e in rows) / 1e6
     print(f"   profile: device busy {busy:.3f} s of {wall:.3f} s wall "
-          f"({100 * busy / wall:.1f}%, idle {100 - 100 * busy / wall:.1f}%)")
+          f"({100 * busy / wall:.1f}%, idle {100 - 100 * busy / wall:.1f}%)"
+          f"; {sum(e.count for e in rows)} device events")
     print(f"   host-to-device copies: {h2d_copies(rows)}")
     ours = [e for e in rows[top:] if "repro_torch::" in e.key]
     for e in rows[:top] + ours:
@@ -1385,6 +1399,261 @@ def checker_on_card() -> None:
     check(not failed, f"the checker failed: {failed}")
 
 
+# the LM serving path (phase 17): the two public configurations the repo
+# ships at full width (configs/llama3p2_1b.py, configs/granite_moe_3b.py),
+# random weights from a seed; the reference engine's default ServeConfig
+LM_ARCHS = ("llama3.2-1b", "granite-moe-3b-a800m")
+LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_NEW = 8, 512, 16, 32
+LM_CUT = 2                 # layers of the card-vs-CPU depth cut
+LM_CUT_ATOL = 1e-3         # fp32 both sides, TF32 off: sums in other orders
+LM_BUCKET_ATOL = 0.125     # bf16 weights: a padded prefill's other shapes
+
+
+def _lm_burst(eng, prompts) -> dict:
+    """Serve ``prompts`` (LM_NEW tokens each) through ``eng``; the wall
+    time, each prefill's time by its length bucket, and the time of every
+    step that decoded all slots and admitted no request."""
+    from repro_torch.serve.engine import Request
+    prefill_ms: dict = collections.defaultdict(list)
+    inner = eng._prefill_slot
+
+    def timed(slot, req):
+        t = time.perf_counter()
+        inner(slot, req)                 # ends in a host read of the token
+        bucket = 1 << (max(eng._bucket_len(len(req.prompt)), 1) - 1
+                       ).bit_length()
+        prefill_ms[bucket].append(1e3 * (time.perf_counter() - t))
+
+    eng._prefill_slot = timed
+    reqs = [Request(prompt=p, max_new_tokens=LM_NEW) for p in prompts]
+    for r in reqs:
+        eng.submit(r)
+    steps, decode_ms = 0, []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while any(not r.done for r in reqs):
+        before = sum(map(len, prefill_ms.values()))
+        t = time.perf_counter()
+        live = eng.step()                # ends in a host read of the tokens
+        dt = 1e3 * (time.perf_counter() - t)
+        steps += 1
+        if live == eng.scfg.slots and sum(map(len, prefill_ms.values())) \
+                == before:
+            decode_ms.append(dt)
+        check(live > 0 or not eng.queue, "the engine stalled")
+    wall = time.perf_counter() - t0
+    del eng._prefill_slot
+    return dict(requests=reqs, wall=wall, steps=steps, decode_ms=decode_ms,
+                prefill_ms=dict(prefill_ms))
+
+
+def _lm_direct(T, params, cfg, prompt, bucket, n_new, dev):
+    """A direct prefill (the engine's bucketed one) and greedy decode_step
+    loop at one row; the tokens and whether every logit was finite."""
+    padded = np.zeros(bucket, np.int32)
+    padded[:len(prompt)] = prompt
+    state = T.init_decode_state(cfg, 1, LM_MAX_LEN, dtype=torch.float32,
+                                device=dev)
+    logits, state = T.prefill(params, cfg, torch.tensor(padded[None],
+                                                        device=dev),
+                              state, valid_len=len(prompt))
+    toks, finite = [int(torch.argmax(logits, -1)[0])], []
+    finite.append(torch.isfinite(logits).all())
+    for t in range(len(prompt), len(prompt) + n_new - 1):
+        logits, state = T.decode_step(
+            params, cfg, torch.tensor([[toks[-1]]], device=dev), state, t)
+        finite.append(torch.isfinite(logits).all())
+        toks.append(int(torch.argmax(logits, -1)[0]))
+    return toks, bool(torch.stack(finite).all())
+
+
+def lm_serving(dev, smi: str) -> None:
+    """Phase 17: the LM serving path (repro_torch.models,
+    repro_torch.serve.engine.Engine) at the full width of llama3.2-1b
+    (dense) and granite-moe-3b-a800m (MoE), random bf16 weights from a
+    seeded generator on the card, one model at a time.
+
+    1. An Engine of 8 slots and a 512-position fp32 cache (the reference's
+       ServeConfig) serves 16 requests (prompts of 16-256 tokens from a
+       numpy seed, 32 new tokens each) after a one-request warm-up: wall
+       time, tokens/s, prefill ms by power-of-two length bucket, the
+       decode step's ms at 8 live slots beside its bytes bound (every
+       weight but the embedding table, its 8 gathered rows, and the whole
+       KV cache read once, over the H100's 3.35 TB/s),
+       and the peak memory; 4 more decode steps at 8 live slots under
+       torch.profiler (the device's busy share, its largest items).
+    2. Two of the requests through a one-slot engine == a direct prefill
+       (the engine's bucket) and decode_step loop, token for token; for
+       the dense model the bucketed prefill's first token == the
+       exact-length prefill's, the logits within LM_BUCKET_ATOL (a first
+       token may differ only where the exact logits' top two lie within
+       twice the measured difference of each other: a tie at bf16).
+    3. The first LM_CUT layers at full width, the same weights in fp32 on
+       the card (TF32 off) and on the CPU: the teacher-forced logits of
+       ``forward`` within LM_CUT_ATOL.
+    Every request done, every token in [0, vocab), every logit finite, no
+    kernel launch and no plain call (the LM path has no Pallas kernel)."""
+    from repro_torch import configs
+    from repro_torch.analysis.resources import H100
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import tree_leaves, tree_map, tree_size
+    from repro_torch.serve.engine import Engine, Request, ServeConfig
+
+    ops.reset_counts()
+    for name in LM_ARCHS:
+        cfg = configs.get(name)
+        print(f"   -- {name} ({cfg.family}: {cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, "
+              f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}"
+              + (f", {cfg.n_experts} experts top-{cfg.top_k}"
+                 if cfg.family == "moe" else "") + ")", flush=True)
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()    # earlier phases' tensors
+        t = time.perf_counter()
+        params = T.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(17), device=dev)
+        torch.cuda.synchronize()
+        n = tree_size(params)
+        wbytes = sum(w.numel() * w.element_size()
+                     for _, w in tree_leaves(params))
+        print(f"   {name}: {n:,} parameters (the schema's leaves; "
+              f"param_count() {cfg.param_count():,}), {wbytes / 1e9:.3f} GB "
+              f"in {cfg.dtype}, drawn in {time.perf_counter() - t:.2f} s")
+        check(n == tree_size(T.model_schema(cfg)), f"{name}: parameters")
+
+        rng = np.random.default_rng(17)
+        lengths = rng.integers(16, 257, LM_REQUESTS)
+        prompts = [rng.integers(0, cfg.vocab_size, s).astype(np.int32)
+                   for s in lengths]
+        scfg = ServeConfig(slots=LM_SLOTS, max_len=LM_MAX_LEN)
+        warm = Engine(cfg, params, scfg, device=dev)
+        warm.submit(Request(prompt=prompts[0][:16], max_new_tokens=4))
+        warm.run_until_done()
+        del warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        eng = Engine(cfg, params, scfg, device=dev)
+        run = _lm_burst(eng, prompts)
+        reqs = run["requests"]
+        tokens = sum(len(r.output) for r in reqs)
+        check(all(r.done and len(r.output) == LM_NEW for r in reqs),
+              f"{name}: a request not done")
+        check(all(0 <= tok < cfg.vocab_size for r in reqs for tok in r.output),
+              f"{name}: a token outside the vocabulary")
+        peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+        cache = sum(c.numel() * c.element_size() for c in eng.state.attn)
+        dms = sorted(run["decode_ms"])
+        check(len(dms) > 0, f"{name}: no step at {LM_SLOTS} live slots")
+        med = dms[len(dms) // 2]
+        # a step reads every weight once but gathers only LM_SLOTS rows of
+        # the embedding table
+        emb = params["embed"]
+        step_w = (wbytes - emb.numel() * emb.element_size()
+                  + LM_SLOTS * emb.shape[1] * emb.element_size())
+        bound_ms = 1e3 * (step_w + cache) / H100.peak_bytes
+        print(f"   {name} engine: {LM_REQUESTS} requests, {tokens} tokens in "
+              f"{run['wall']:.3f} s = {tokens / run['wall']:.1f} tokens/s; "
+              f"decode step {med:.2f} ms (median of {len(dms)} steps at "
+              f"{LM_SLOTS} live slots; min {dms[0]:.2f}, max {dms[-1]:.2f}); "
+              f"{run['steps']} steps [{smi}]")
+        print(f"   {name}: prefill ms by bucket (prompt length rounded up "
+              f"to a power of two; "
+              + ("the engine pads to it" if cfg.family == "dense"
+                 else "MoE prefills exact lengths") + "): "
+              + ", ".join(f"{b}: {np.mean(v):.2f} x{len(v)}"
+                          for b, v in sorted(run["prefill_ms"].items())))
+        print(f"   {name}: decode step bound {bound_ms:.3f} ms (weights "
+              f"{step_w / 1e9:.3f} GB: every leaf but the embedding table, "
+              f"and its {LM_SLOTS} gathered rows; + the fp32 KV cache "
+              f"{cache / 1e9:.3f} GB; read once at "
+              f"{H100.peak_bytes / 1e12:.2f} TB/s); measured "
+              f"/ bound {med / bound_ms:.2f}x; peak memory "
+              f"{peak:.3f} GB (max_memory_allocated less the "
+              f"{held / 1e9:.3f} GB earlier phases hold) [{smi}]")
+        del eng
+
+        # where a decode step's time goes: 4 steps at 8 live slots under
+        # torch.profiler (device busy share, the largest device items)
+        eng = Engine(cfg, params, scfg, device=dev)
+        for p_ in prompts[:LM_SLOTS]:
+            eng.submit(Request(prompt=p_, max_new_tokens=LM_NEW))
+        eng.step()                       # admits every slot
+        print(f"   {name}: 4 decode steps at {LM_SLOTS} live slots, "
+              f"profiled:")
+        profile_breakdown(lambda: [eng.step() for _ in range(4)], top=6)
+        del eng
+
+        # 2. two requests: a one-slot engine == the direct loop
+        for i in (0, 1):
+            one = Engine(cfg, params, ServeConfig(slots=1, max_len=LM_MAX_LEN),
+                         device=dev)
+            req = Request(prompt=prompts[i], max_new_tokens=LM_NEW)
+            one.submit(req)
+            one.run_until_done()
+            direct, finite = _lm_direct(T, params, cfg, prompts[i],
+                                        one._bucket_len(len(prompts[i])),
+                                        LM_NEW, dev)
+            same8 = sum(a == b for a, b in zip(req.output, reqs[i].output))
+            print(f"   {name} request {i} (prompt {len(prompts[i])}): "
+                  f"one-slot engine == direct prefill + decode_step "
+                  f"{req.output == direct} ({LM_NEW} tokens); the 8-slot "
+                  f"burst's tokens equal in {same8} of {LM_NEW}")
+            check(req.output == direct, f"{name}: engine != direct decode")
+            check(finite, f"{name}: a non-finite logit")
+            del one
+        if cfg.family == "dense":
+            eng = Engine(cfg, params, scfg, device=dev)
+            for p_ in prompts[:4]:
+                bucket = eng._bucket_len(len(p_))
+                st = T.init_decode_state(cfg, 1, LM_MAX_LEN,
+                                         dtype=torch.float32, device=dev)
+                exact, _ = T.prefill(params, cfg,
+                                     torch.tensor(p_[None], device=dev), st)
+                padded = np.zeros(bucket, np.int32)
+                padded[:len(p_)] = p_
+                st = T.init_decode_state(cfg, 1, LM_MAX_LEN,
+                                         dtype=torch.float32, device=dev)
+                bucketed, _ = T.prefill(
+                    params, cfg, torch.tensor(padded[None], device=dev), st,
+                    valid_len=len(p_))
+                diff = float((exact - bucketed).abs().max())
+                top2 = exact[0].topk(2).values
+                gap = float(top2[0] - top2[1])
+                same = int(exact.argmax()) == int(bucketed.argmax())
+                print(f"   {name} prompt {len(p_)} (bucket {bucket}): first "
+                      f"token equal {same}; logits max |d| {diff:.3e} "
+                      f"(tolerance {LM_BUCKET_ATOL}); top-2 gap {gap:.3e}")
+                check(bool(torch.isfinite(exact).all()
+                           and torch.isfinite(bucketed).all()),
+                      f"{name}: a non-finite prefill logit")
+                check(diff <= LM_BUCKET_ATOL, f"{name}: bucketed prefill")
+                check(same or gap <= 2 * diff,
+                      f"{name}: bucketed first token differs off a tie")
+            del eng
+
+        # 3. the depth cut, card vs CPU in fp32
+        cut = dataclasses.replace(cfg, n_layers=LM_CUT)
+        cut_params = dict(params, layers=tree_map(lambda a: a[:LM_CUT],
+                                                  params["layers"]))
+        card = tree_map(lambda a: a.float(), cut_params)
+        cpu = tree_map(lambda a: a.cpu(), card)
+        toks = rng.integers(0, cfg.vocab_size, (2, 64))
+        lc, _ = T.forward(card, cut, torch.tensor(toks, device=dev))
+        lh, _ = T.forward(cpu, cut, torch.tensor(toks))
+        d = float((lc.cpu() - lh).abs().max())
+        print(f"   {name} first {LM_CUT} layers, fp32, (2, 64) tokens: card "
+              f"vs CPU logits max |d| {d:.3e} (tolerance {LM_CUT_ATOL}); "
+              f"max |logit| {float(lh.abs().max()):.3f}")
+        check(bool(torch.isfinite(lc).all()), f"{name}: non-finite logits")
+        check(d <= LM_CUT_ATOL, f"{name}: card vs CPU on the depth cut")
+        del params, cut_params, card, cpu, lc, lh
+    launches, plain = path_counts()
+    print(f"   LM path: kernel launches {launches or 'none'}; plain calls "
+          f"{plain}")
+    check(plain == 0 and not launches, "the LM path ran a kernel wrapper")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2192,6 +2461,11 @@ def main() -> int:
     t16 = time.perf_counter()
     checker_on_card()
     print(f"   phase 16: {time.perf_counter() - t16:.1f} s")
+
+    phase("17 LM serving (dense and MoE) at full width")
+    t17 = time.perf_counter()
+    lm_serving(dev, smi)
+    print(f"   phase 17: {time.perf_counter() - t17:.1f} s")
 
     print(f"   total {time.perf_counter() - t_start:.1f} s")
     for rec in record.values():

@@ -15,7 +15,11 @@ keyed by field path and rebuilds it here:
   the reference's draws as numpy (for ``power`` the q draws
   ``jax.random.normal(k, (p,))`` over ``jax.random.split(PRNGKey(seed),
   q)``, stacked (q, p); for ``ortho`` the draw
-  ``jax.random.normal(PRNGKey(seed), (p, q))``).
+  ``jax.random.normal(PRNGKey(seed), (p, q))``);
+* an LM's parameters (``repro.models.transformer.init_params``): the
+  reference's pytree flattened to numpy arrays keyed by dotted path
+  (``"embed"``, ``"layers.attn.wq"``, ``"layers.moe.router"``, ...), one
+  array a leaf of the port's schema, stacked over layers as there.
 """
 
 from __future__ import annotations
@@ -27,13 +31,16 @@ import torch
 
 from repro_torch.core.covariance import BandedCovState, CovState
 from repro_torch.device import as_tensor, resolve_device
+from repro_torch.models.params import tree_leaves, unflatten
+from repro_torch.models.transformer import model_schema, torch_dtype
 from repro_torch.streaming.detector import DetectorState
 from repro_torch.streaming.driver import StreamState
 from repro_torch.streaming.online_cov import OnlineCovariance
 from repro_torch.streaming.scheduler import SchedulerState
 
 __all__ = ["state_from_numpy", "state_to_numpy", "cov_state_from_numpy",
-           "cov_state_to_numpy"]
+           "cov_state_to_numpy", "lm_params_from_numpy",
+           "lm_params_to_numpy"]
 
 _INT_FIELDS = {"sched.refreshes", "rounds", "det.calib_left"}
 
@@ -103,3 +110,34 @@ def cov_state_to_numpy(state: CovState | BandedCovState,
     half-width stays implicit in the band's shape)."""
     return {prefix + f: v.detach().cpu().numpy()
             for f, v in zip(state._fields, state) if f != "halfwidth"}
+
+
+def lm_params_from_numpy(cfg, flat: Mapping[str, np.ndarray], device="cuda",
+                         dtype: torch.dtype | None = None) -> dict:
+    """An LM's parameters from numpy arrays keyed by dotted path, checked
+    one to one against the port's schema (every leaf present, with its
+    shape, and nothing else), in ``dtype`` (default ``cfg.dtype``) on
+    ``device``."""
+    dev = resolve_device(device)
+    dt = dtype or torch_dtype(cfg.dtype)
+    schema = dict(tree_leaves(model_schema(cfg)))
+    if set(flat) != set(schema):
+        raise ValueError(
+            f"parameter paths differ from the schema: missing "
+            f"{sorted(set(schema) - set(flat))}, extra "
+            f"{sorted(set(flat) - set(schema))}")
+    out = {}
+    for path, leaf in schema.items():
+        a = np.asarray(flat[path], dtype=np.float32)
+        if a.shape != leaf.shape:
+            raise ValueError(f"{path}: shape {a.shape}, the schema's "
+                             f"{leaf.shape}")
+        out[path] = as_tensor(a, dt, dev)
+    return unflatten(out)
+
+
+def lm_params_to_numpy(params: dict) -> dict:
+    """The inverse of :func:`lm_params_from_numpy`: dotted path -> numpy
+    (fp32)."""
+    return {path: v.detach().float().cpu().numpy()
+            for path, v in tree_leaves(params)}

@@ -15,6 +15,9 @@ One module per example, each runnable as
 * :mod:`.quickstart` — the paper's pipeline on the Berkeley surrogate;
 * :mod:`.event_detection` — the low-variance detector; its gate as the
   reference's.
+* :mod:`.serve_lm` — the continuous-batching LM engine serving a burst
+  of requests on lm100m's smoke configuration (no gate, as the
+  reference's).
 
 Each module keeps the reference example's configuration as its own
 constants and has ``run(device="cuda", ...) -> dict`` (every number the

@@ -39,8 +39,14 @@ its bf16 tile mode; the chunks are uploaded in fp32 all the same, since
 the statistics and the books read fp32 readings.
 :meth:`StreamingPCAEngine.fleet_summary` merges the retired regions'
 bases into the two-level fleet basis
-(:func:`repro_torch.streaming.hierarchy.merge_fleet`).  The LM ``Engine``
-of the reference module has no counterpart here.
+(:func:`repro_torch.streaming.hierarchy.merge_fleet`).
+
+The LM :class:`Engine` of the reference module is here too: prefill runs
+per request (a dense prompt padded to its power-of-two bucket) and is
+spliced into the request's slot of the stacked decode state; every step
+decodes all live slots one token greedily and refills finished slots from
+the queue.  Slot management is host Python, as in the reference; the host
+reads the step's argmax once a step.
 """
 
 from __future__ import annotations
@@ -55,6 +61,8 @@ from repro_torch.core import costs
 from repro_torch.core.faults import expected_transmissions
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 from repro_torch.runtime.elastic import RescalePlan, plan_mesh
 from repro_torch.runtime.health import HealthMonitor, StragglerPolicy
 from repro_torch.serve.queue import AdmissionQueue, QueuePolicy
@@ -69,7 +77,8 @@ from repro_torch.streaming.online_cov import (online_estimate,
                                               online_total_variance)
 from repro_torch.streaming.scheduler import retained_fraction
 
-__all__ = ["StreamRequest", "StreamResult", "FleetSummary",
+__all__ = ["Request", "ServeConfig", "Engine",
+           "StreamRequest", "StreamResult", "FleetSummary",
            "StreamingPCAEngine"]
 
 # the step and the callees that touch the device (repolint's host-pull
@@ -80,6 +89,122 @@ HOT_PATHS = ("StreamingPCAEngine.step", "StreamingPCAEngine._commit",
              "StreamingPCAEngine._accumulate_books",
              "StreamingPCAEngine._result_slices",
              "StreamingPCAEngine._pull")
+
+
+@dataclasses.dataclass
+class Request:
+    prompt: np.ndarray               # (S,) int32
+    max_new_tokens: int = 32
+    eos_id: int = -1                 # -1: never stops early
+    # filled by the engine:
+    output: list[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    slots: int = 8
+    max_len: int = 512
+    dtype: str = "float32"           # the decode state's (KV cache) dtype
+
+
+class Engine:
+    """Continuous-batching LM engine for the ``dense`` and ``moe`` families:
+    a fixed batch of ``scfg.slots`` decode slots on ``device`` (``cuda``
+    unless the caller asks for another; the parameters must lie there)."""
+
+    def __init__(self, cfg, params, scfg: ServeConfig, device="cuda"):
+        self.device = resolve_device(device)
+        on = params["embed"].device
+        if on.type != self.device.type or (
+                self.device.index is not None and on.index != self.device.index):
+            raise ValueError(f"the parameters lie on {on}, the engine on "
+                             f"{self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.scfg = scfg
+        self._dtype = T.torch_dtype(scfg.dtype)
+        self.state = T.init_decode_state(cfg, scfg.slots, scfg.max_len,
+                                         dtype=self._dtype,
+                                         device=self.device)
+        self.pos = np.zeros(scfg.slots, np.int32)       # next content position
+        self.active: list[Request | None] = [None] * scfg.slots
+        self.queue: list[Request] = []
+        self._last_tok = np.zeros((scfg.slots, 1), np.int32)
+
+    # -- request lifecycle ---------------------------------------------------
+    def submit(self, req: Request) -> None:
+        self.queue.append(req)
+
+    def _admit(self) -> None:
+        """Fill empty slots from the queue (continuous batching)."""
+        for slot in range(self.scfg.slots):
+            if self.active[slot] is None and self.queue:
+                req = self.queue.pop(0)
+                self._prefill_slot(slot, req)
+
+    def _bucket_len(self, s_len: int) -> int:
+        """Power-of-two prompt bucket, dense attention only: its caches are
+        position-indexed, so the pad suffix is masked out exactly (pos -1).
+        MoE routing counts pad tokens against expert capacity, so MoE
+        keeps exact lengths (as the reference does)."""
+        if self.cfg.family != "dense":
+            return s_len
+        bucket = 1 << (max(s_len, 8) - 1).bit_length()
+        return max(s_len, min(bucket, self.scfg.max_len))
+
+    def _prefill_slot(self, slot: int, req: Request) -> None:
+        """Prefill one request (a single row, padded to its bucket and
+        masked by ``valid_len``) straight into slot ``slot`` of the engine
+        state.  The slot's positions are reset to -1 first, so what an
+        earlier request left in its K/V is masked out."""
+        s_len = len(req.prompt)
+        padded = np.zeros(self._bucket_len(s_len), np.int32)
+        padded[:s_len] = req.prompt
+        prompt = torch.tensor(padded[None, :], device=self.device)
+        self.state.attn.pos[:, slot].fill_(-1)
+        # every stacked cache leaf has layout (L, B, ...): batch = axis 1
+        view = T.DecodeState(L.PosCache(*(c[:, slot:slot + 1]
+                                          for c in self.state.attn)))
+        logits, _ = T.prefill(self.params, self.cfg, prompt, view,
+                              valid_len=s_len)
+        tok = int(torch.argmax(logits, -1)[0])
+        req.output.append(tok)
+        self._last_tok[slot, 0] = tok
+        self.pos[slot] = s_len
+        self.active[slot] = req
+
+    # -- main loop ------------------------------------------------------------
+    def step(self) -> int:
+        """One decode step for all active slots; returns #active."""
+        self._admit()
+        live = [s for s in range(self.scfg.slots) if self.active[s]]
+        if not live:
+            return 0
+        # per-slot positions: unaligned requests decode together (the
+        # PosCache mask is derived from stored positions per row)
+        batch_tok = torch.tensor(self._last_tok, device=self.device)
+        t_vec = torch.tensor(self.pos, device=self.device)
+        logits, self.state = T.decode_step(self.params, self.cfg, batch_tok,
+                                           self.state, t_vec)
+        next_tok = torch.argmax(logits, -1).cpu().numpy()
+        for s in live:
+            req = self.active[s]
+            tok = int(next_tok[s])
+            req.output.append(tok)
+            self._last_tok[s, 0] = tok
+            self.pos[s] += 1
+            if (tok == req.eos_id
+                    or len(req.output) >= req.max_new_tokens
+                    or self.pos[s] >= self.scfg.max_len - 1):
+                req.done = True
+                self.active[s] = None
+        return len(live)
+
+    def run_until_done(self, max_steps: int = 10_000) -> None:
+        for _ in range(max_steps):
+            if self.step() == 0 and not self.queue:
+                return
 
 
 @dataclasses.dataclass(eq=False)   # identity equality: requests hold arrays

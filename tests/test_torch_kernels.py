@@ -637,3 +637,33 @@ class TestChipAb:
             "profiled bf16 stages engine: ms a step": 250.0,
             "profiled bf16 stages engine: device idle %": 66.7,
             "kernel banded_matmul: ms": 0.5})
+
+    def test_parse_reads_lm_serving_lines(self):
+        """Phase 17's engine lines give tokens/s and the median decode
+        step; its other lines (prefill, bound, checks) are not rates."""
+        import importlib.util
+        spec = importlib.util.spec_from_file_location("chip_ab",
+                                                      ROOT / "chip_ab.py")
+        chip_ab = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(chip_ab)
+        log = "\n".join([
+            "== 17 LM serving (dense and MoE) at full width",
+            "   llama3.2-1b engine: 16 requests, 512 tokens in 1.250 s = "
+            "409.6 tokens/s; decode step 12.50 ms (median of 60 steps at 8 "
+            "live slots; min 12.10, max 13.00); 62 steps [NVIDIA H100 80GB "
+            "HBM3, 700.00 W]",
+            "   llama3.2-1b: prefill ms by bucket (prompt length rounded up "
+            "to a power of two; the engine pads to it): 64: 20.00 x2",
+            "   llama3.2-1b: decode step bound 0.976 ms (weights 2.997 GB + "
+            "the fp32 KV cache 0.269 GB read once at 3.35 TB/s); measured "
+            "/ bound 12.81x; peak memory 4.500 GB (max_memory_allocated "
+            "less the 0.100 GB earlier phases hold)",
+            "   granite-moe-3b-a800m engine: 16 requests, 512 tokens in "
+            "3.000 s = 170.7 tokens/s; decode step 40.00 ms (median of 60 "
+            "steps at 8 live slots; min 39.0, max 41.0); 62 steps",
+            '{"ok": true}'])
+        assert chip_ab.parse(log) == pytest.approx({
+            "llama3.2-1b engine: tokens/s": 409.6,
+            "llama3.2-1b engine: decode ms a step": 12.5,
+            "granite-moe-3b-a800m engine: tokens/s": 170.7,
+            "granite-moe-3b-a800m engine: decode ms a step": 40.0})

@@ -716,7 +716,12 @@ class TestCopiesEqualReference:
         "serve/queue.py", "serve/telemetry.py", "core/topology.py",
         "core/faults.py", "core/events.py", "core/compression.py",
         "core/spatiotemporal.py", "sensors/dataset.py",
-        "sensors/__init__.py"])
+        "sensors/__init__.py", "configs/__init__.py", "configs/base.py",
+        *(f"configs/{m}.py" for m in (
+            "chameleon_34b", "granite_moe_3b", "hymba_1p5b", "llama3_405b",
+            "llama3p2_1b", "lm100m", "mamba2_2p7b", "moonshot_v1_16b",
+            "phi3_medium_14b", "qwen2_7b", "seamless_m4t_medium",
+            "wsn_1m"))])
     def test_same_code(self, rel):
         def code(path, pkg):
             tree = ast.parse(path.read_text().replace(pkg, "repro"))

@@ -2,7 +2,7 @@
 
 Run as ``python tests/torch_ref_child.py MODE OUT.npz`` (MODE one of
 streaming, rounds, engine, hierarchy, streaming_pca, faulty_fleet,
-compression_fleet, event_fleet) with ``JAX_PLATFORMS=cpu`` and ``src`` on
+compression_fleet, event_fleet, lm_engine) with ``JAX_PLATFORMS=cpu`` and ``src`` on
 ``PYTHONPATH`` (and, for
 ``hierarchy``, ``XLA_FLAGS=--xla_force_host_platform_device_count=2``: its
 runs shard over a two-device mesh).  The installed jax
@@ -31,7 +31,14 @@ prestage counts), the quantized configuration's under ``quant/`` and the
 bf16 tile mode's under ``bf16/``.  The hierarchy run writes ``merge/*``
 (``merge_fleet`` and ``fleet_basis_dense`` on energy tables with ties),
 and for each two-level or sharded scenario its inputs, initial states
-(``{name}/init.*``), final states, metrics and merge.
+(``{name}/init.*``), final states, metrics and merge.  The ``lm_engine``
+run serves the LM ``Engine`` at two smoke configurations (``dense``:
+llama3.2-1b's, with prompt buckets; ``moe``: granite-moe-3b-a800m's) and
+writes, under ``{name}/``, the configuration's name, slots and cache
+length, the parameters of ``repro.models.transformer.init_params(cfg,
+PRNGKey(0))`` keyed by dotted path (``params.layers.attn.wq``, ...), and
+each request's prompt, ``max_new_tokens``, ``eos_id`` and output tokens
+(``req{i}/...``).
 """
 
 from __future__ import annotations
@@ -552,6 +559,47 @@ def example_event_fleet(out):
     out.update(flatten(fin.sched, "final.sched"))
 
 
+# name: (config, slots, cache length, prompt lengths); the last dense
+# prompt runs into the cache's end (decoding stops at max_len - 1)
+LM_SCENARIOS = {
+    "dense": ("llama3.2-1b", 3, 32, (2, 3, 5, 7, 9, 12, 17, 27)),
+    "moe": ("granite-moe-3b-a800m", 3, 32, (3, 4, 6, 9, 11, 5, 14)),
+}
+
+
+def lm_engine(out):
+    from repro import configs
+    from repro.models import transformer as T
+    from repro.serve.engine import Engine, Request, ServeConfig
+    for name, (arch, slots, max_len, lengths) in LM_SCENARIOS.items():
+        cfg = configs.get(arch).smoke()
+        params = T.init_params(cfg, jax.random.PRNGKey(0))
+        out[f"{name}/arch"] = np.asarray(arch)
+        out[f"{name}/slots"] = np.asarray(slots)
+        out[f"{name}/max_len"] = np.asarray(max_len)
+        for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
+            key = ".".join(k.key for k in path)
+            out[f"{name}/params.{key}"] = np.asarray(leaf)
+        rng = np.random.default_rng(11)
+        eng = Engine(cfg, params, ServeConfig(slots=slots, max_len=max_len))
+        reqs = []
+        for i, s_len in enumerate(lengths):
+            req = Request(
+                prompt=rng.integers(0, cfg.vocab_size, s_len).astype(np.int32),
+                max_new_tokens=int(rng.integers(2, 9)),
+                eos_id=int(rng.integers(0, cfg.vocab_size)) if i % 3 == 1
+                else -1)
+            reqs.append(req)
+            eng.submit(req)
+        eng.run_until_done()
+        for i, req in enumerate(reqs):
+            assert req.done
+            out[f"{name}/req{i}/prompt"] = req.prompt
+            out[f"{name}/req{i}/max_new"] = np.asarray(req.max_new_tokens)
+            out[f"{name}/req{i}/eos"] = np.asarray(req.eos_id)
+            out[f"{name}/req{i}/output"] = np.asarray(req.output, np.int32)
+
+
 if __name__ == "__main__":
     mode, path = sys.argv[1], sys.argv[2]
     results: dict = {}
@@ -560,5 +608,6 @@ if __name__ == "__main__":
      "streaming_pca": example_streaming_pca,
      "faulty_fleet": example_faulty_fleet,
      "compression_fleet": example_compression_fleet,
-     "event_fleet": example_event_fleet}[mode](results)
+     "event_fleet": example_event_fleet,
+     "lm_engine": lm_engine}[mode](results)
     np.savez(path, **results)
