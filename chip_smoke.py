@@ -149,7 +149,20 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      peak memory); two requests through a one-slot engine equal to a
      direct prefill + decode_step loop; the dense model's bucketed
      prefill against the exact-length one; the first two layers in fp32,
-     card against CPU (``lm_serving``).
+     card against CPU (``lm_serving``);
+ 18. the LM training path (repro_torch.train, distributed.compression,
+     models.transformer.lm_loss with remat, data.tokens) at lm100m's full
+     width and depth (examples/train_lm.py's configuration: random bf16
+     weights from a seed, fp32 moments, AdamW lr 3e-4 wd 0.01, warmup 20,
+     remat, TokenPipeline(seed=0) batches of 8 x 256): 30 steps
+     uncompressed and 30 with rank-4 PowerSGD over a one-rank NCCL group,
+     the loss falling in both (step ms, tokens/s, model TFLOP/s as
+     6 N tokens / step time, peak memory; a profile of two steps); bitwise
+     resume (6 steps straight == 3, save, a fresh Trainer, resume, 3);
+     3 compressed steps of a 2-layer fp32 cut of lm100m and of
+     granite-moe-3b-a800m's smoke MoE card vs CPU from the same numpy
+     weights (and the MoE's twice on the card, bit for bit); llama3.2-1b
+     at full width and depth, 5 compressed steps (``lm_training``).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card, or without the rest
 of the repository beside it, the script exits non-zero and prints no
@@ -1654,6 +1667,313 @@ def lm_serving(dev, smi: str) -> None:
     check(plain == 0 and not launches, "the LM path ran a kernel wrapper")
 
 
+# the LM training path (phase 18): examples/train_lm.py's configuration on
+# lm100m at full width and depth (configs/lm100m.py), random bf16 weights
+# from a seed; llama3.2-1b (configs/llama3p2_1b.py) at full width too
+TRAIN_ARCH, TRAIN_BIG = "lm100m", "llama3.2-1b"
+TRAIN_STEPS, TRAIN_WARM, TRAIN_BIG_STEPS, TRAIN_RESUME = 30, 2, 5, 3
+TRAIN_RANK = 4             # train_lm --compress
+TRAIN_CUT = 2              # layers of lm100m's card-vs-CPU cut
+TRAIN_CUT_BATCH = (2, 64)  # its batch (the CPU runs it too)
+# fp32 on both sides with TF32 off: the same products and sums in another
+# order.  The cut runs without warm-up, so every step moves the weights by
+# train_lm's lr.  Its losses are held within TRAIN_CUT_RTOL (measured
+# 8.9e-8, an fp32 ulp), and every leaf of the final state within
+# TRAIN_CUT_LEAF of the leaf's largest CPU magnitude, as the CPU tests
+# hold PowerSGD to the reference: AdamW's moments, the Q factors and the
+# error buffers (the gradients' sizes; 5.4e-5 measured) everywhere, the
+# parameters at all but TRAIN_CUT_SHARE of their elements.  AdamW divides
+# each gradient element by its own size, so where an element is within
+# roundoff of 0 at some step its weight may move up to 2 lr one way on the
+# card and the other on the CPU (68 of lm100m's 61.7 M; 0 and 1 of the MoE
+# smoke's 254,784 over 3 steps and over 1; measured on the H100).
+TRAIN_CUT_RTOL = 1e-5
+TRAIN_CUT_LEAF = 1e-4
+TRAIN_CUT_SHARE = 3e-5
+TRAIN_STATE_PARTS = ("params", "opt.mu", "opt.nu", "comp.q", "comp.error")
+
+
+def _train_config(steps: int, rank: int, ckpt: str | None = None):
+    """examples/train_lm.py's TrainConfig (AdamW lr 3e-4, wd 0.01, warmup
+    20, remat) for ``steps`` steps, compressed at ``rank`` (0: off)."""
+    from repro_torch.examples import train_lm as ex
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import TrainConfig
+    return TrainConfig(optimizer=AdamWConfig(lr=ex.LR, weight_decay=ex.WD),
+                       warmup_steps=ex.WARMUP, total_steps=steps,
+                       compress_rank=rank, checkpoint_dir=ckpt,
+                       checkpoint_every=ex.CKPT_EVERY, remat=True)
+
+
+def _trainer(cfg, tcfg, dev, batch=(8, 256), **kw):
+    """A Trainer on ``dev`` over TokenPipeline(seed=0) batches, its weights
+    (and Q factors) drawn from a generator seeded 0 unless given."""
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.train.trainer import Trainer
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=batch[1],
+                         global_batch=batch[0], seed=0)
+    if "params" not in kw:
+        kw["gen"] = torch.Generator(device=dev).manual_seed(0)
+    return Trainer(cfg, tcfg, pipe, device=dev, **kw)
+
+
+def _train_rates(label, cfg, hist, held, smi, batch=(8, 256)) -> float:
+    """Print a run's step time (median after TRAIN_WARM warm-up steps; a
+    step ends in the host read of its metrics), tokens/s, model TFLOP/s
+    (6 N tokens / step time, N = ``param_count()``) and peak memory
+    beyond what earlier phases hold; returns the step ms."""
+    secs = sorted(h["seconds"] for h in hist[TRAIN_WARM:])
+    ms = 1e3 * secs[len(secs) // 2]
+    tokens = batch[0] * batch[1]
+    n = cfg.param_count()
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    print(f"   {label}: step {ms:.2f} ms (median of {len(secs)} after "
+          f"{TRAIN_WARM} warm-up; min {1e3 * secs[0]:.2f}, max "
+          f"{1e3 * secs[-1]:.2f}), {tokens / (ms / 1e3):,.0f} tokens/s, "
+          f"model {6 * n * tokens / (ms / 1e3) / 1e12:.2f} TFLOP/s "
+          f"(6 x {n:,} x {tokens} / step); peak memory {peak:.3f} GB "
+          f"[{smi}]")
+    return ms
+
+
+def _loss_falls(label, hist) -> None:
+    losses = [h["loss"] for h in hist]
+    first, last = np.mean(losses[:4]), np.mean(losses[-4:])
+    print(f"   {label}: loss {losses[0]:.4f} -> {losses[-1]:.4f}; mean of "
+          f"the first 4 {first:.4f}, of the last 4 {last:.4f}; lr "
+          f"{hist[0]['lr']:.2e} .. {hist[-1]['lr']:.2e}")
+    check(all(np.isfinite(losses)), f"{label}: a non-finite loss")
+    check(last < first, f"{label}: the loss did not fall")
+
+
+def _state_gaps(card, host) -> dict[str, dict]:
+    """Two runs' final training states (``train_state_to_numpy``) leaf by
+    leaf: for each of TRAIN_STATE_PARTS the largest gap over the leaf's
+    largest magnitude on the CPU, the elements beyond TRAIN_CUT_LEAF of it
+    and all the elements."""
+    check(sorted(card) == sorted(host) and
+          int(card["opt.step"]) == int(host["opt.step"]) and
+          all(any(k.startswith(part + ".") for k in host)
+              for part in TRAIN_STATE_PARTS),
+          "card vs CPU: the training states differ in their leaves or step")
+    gaps = {}
+    for part in TRAIN_STATE_PARTS:
+        g = dict(worst=0.0, over=0, size=0)
+        for k in (k for k in host if k.startswith(part + ".")):
+            scale = float(np.max(np.abs(host[k]))) or 1.0
+            diff = np.abs(card[k].astype(np.float64) - host[k]) / scale
+            g["worst"] = max(g["worst"], float(diff.max()))
+            g["over"] += int(np.count_nonzero(diff > TRAIN_CUT_LEAF))
+            g["size"] += diff.size
+        gaps[part] = g
+    return gaps
+
+
+def _train_card_vs_cpu(dev) -> None:
+    """3 compressed steps of a TRAIN_CUT-layer fp32 cut of lm100m and of
+    granite-moe-3b-a800m's smoke MoE, on the card and on the CPU from the
+    same numpy weights, Q factors and tokens, train_lm's AdamW without
+    warm-up: each loss within TRAIN_CUT_RTOL, the final state's moments, Q
+    factors and error buffers within TRAIN_CUT_LEAF of each leaf's largest
+    magnitude, its parameters too at all but TRAIN_CUT_SHARE of their
+    elements; the MoE run twice on the card, equal to the bit."""
+    from repro_torch import configs
+    from repro_torch.convert import (lm_params_from_numpy,
+                                     lm_params_to_numpy,
+                                     train_state_to_numpy)
+    from repro_torch.distributed import compression as GC
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import tree_leaves
+
+    cfg = configs.get(TRAIN_ARCH)
+    tcfg = dataclasses.replace(_train_config(3, TRAIN_RANK), warmup_steps=0)
+    cuts = (("lm100m 2-layer fp32 cut", dataclasses.replace(
+                cfg, n_layers=TRAIN_CUT, dtype="float32")),
+            ("granite-moe-3b-a800m smoke",
+             configs.get("granite-moe-3b-a800m").smoke()))
+    for label, cut in cuts:
+        host = T.init_params(cut, torch.Generator().manual_seed(5),
+                             device="cpu")
+        weights = lm_params_to_numpy(host)
+        comp = GC.init_compressor(host, TRAIN_RANK,
+                                  torch.Generator().manual_seed(6))
+        q = {k: v.numpy() for k, v in tree_leaves(comp.q) if v is not None}
+        runs = []
+        for d in (dev, torch.device("cpu"),
+                  *((dev,) if cut.family == "moe" else ())):
+            tr = _trainer(cut, tcfg, d, batch=TRAIN_CUT_BATCH,
+                          params=lm_params_from_numpy(cut, weights, d), q=q)
+            tr.run(3, log_every=0)
+            runs.append(tr)
+        lc = np.array([h["loss"] for h in runs[0].history])
+        lh = np.array([h["loss"] for h in runs[1].history])
+        gap = float(np.max(np.abs(lc - lh) / np.abs(lh)))
+        print(f"   {label}: 3 rank-{TRAIN_RANK} steps at "
+              f"{TRAIN_CUT_BATCH[0]} x {TRAIN_CUT_BATCH[1]} (lr "
+              f"{runs[1].history[0]['lr']:.2e} .. "
+              f"{runs[1].history[-1]['lr']:.2e}), card vs CPU losses "
+              f"{lc.round(6).tolist()} vs {lh.round(6).tolist()}: max "
+              f"relative gap {gap:.3e} (tolerance {TRAIN_CUT_RTOL})")
+        check(np.all(np.isfinite(lc)) and gap <= TRAIN_CUT_RTOL,
+              f"{label}: card vs CPU losses")
+        card = train_state_to_numpy(runs[0].state)
+        gaps = _state_gaps(card, train_state_to_numpy(runs[1].state))
+        print(f"   {label}: final state card vs CPU, largest gap over each "
+              f"leaf's largest magnitude (elements beyond "
+              f"{TRAIN_CUT_LEAF} of all): " + ", ".join(
+                  f"{part} {g['worst']:.3e} ({g['over']} of {g['size']:,})"
+                  for part, g in gaps.items()))
+        pars = gaps.pop("params")
+        check(all(g["over"] == 0 for g in gaps.values()) and
+              pars["over"] <= TRAIN_CUT_SHARE * pars["size"],
+              f"{label}: card vs CPU final state")
+        if len(runs) == 3:
+            again = [h["loss"] for h in runs[2].history] == lc.tolist() \
+                and all(np.array_equal(v, card[k]) for k, v in
+                        train_state_to_numpy(runs[2].state).items())
+            print(f"   {label}: two runs on the card equal to the bit "
+                  f"{again}")
+            check(again, f"{label}: the card's steps are not repeatable")
+        del runs, tr
+
+
+def lm_training(dev, smi: str) -> None:
+    """Phase 18: the LM training path on the card.
+
+    1. lm100m at full width and depth (12 layers, d_model 768, 12 heads /
+       4 kv, d_ff 2048, vocab 32,000), random bf16 weights, fp32 moments,
+       examples/train_lm.py's TrainConfig on TokenPipeline(seed=0) batches
+       of 8 x 256: (a) TRAIN_STEPS steps uncompressed, (b) TRAIN_STEPS
+       steps with rank-4 PowerSGD, ``reduce_fn`` an all-reduce mean over a
+       one-rank NCCL group; in both the mean loss of the last 4 steps below
+       that of the first 4; (c) bitwise resume: 2 x TRAIN_RESUME steps
+       straight == TRAIN_RESUME steps, ``save(async_=False)``, a fresh
+       Trainer, ``try_resume``, TRAIN_RESUME steps (losses and final
+       parameters equal to the bit).
+    2. Card vs CPU (:func:`_train_card_vs_cpu`).
+    3. llama3.2-1b at full width and depth (bf16), TRAIN_BIG_STEPS steps
+       with rank-4 compression.
+    No kernel of the port launches (the training path has no Pallas
+    kernel)."""
+    import os
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.distributed import compression as GC
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import init_fleet_process_group
+    from repro_torch.models.params import tree_leaves
+
+    ops.reset_counts()
+    cfg = configs.get(TRAIN_ARCH)
+    print(f"   -- {TRAIN_ARCH} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}; {cfg.param_count():,} "
+          f"parameters in {cfg.dtype}), batch 8 x 256", flush=True)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+
+    # (a) uncompressed
+    torch.cuda.reset_peak_memory_stats()
+    tr = _trainer(cfg, _train_config(TRAIN_STEPS, 0), dev)
+    t = time.perf_counter()
+    hist = tr.run(TRAIN_STEPS, log_every=0)
+    print(f"   (a) {TRAIN_STEPS} steps uncompressed in "
+          f"{time.perf_counter() - t:.2f} s")
+    _loss_falls("(a) lm100m", hist)
+    _train_rates("(a) lm100m", cfg, hist, held, smi)
+    print(f"   (a) lm100m: 2 more steps, profiled:")
+    profile_breakdown(lambda: tr.run(2, log_every=0), top=6)
+    del tr
+
+    # (b) rank-4 PowerSGD, reduce_fn over a one-rank NCCL group
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as store:
+        init_fleet_process_group(0, 1, store, device=dev, timeout_s=180)
+        try:
+            tr = _trainer(cfg, _train_config(TRAIN_STEPS, TRAIN_RANK), dev,
+                          reduce_fn=GC.all_reduce_mean())
+            t = time.perf_counter()
+            hist = tr.run(TRAIN_STEPS, log_every=0)
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+    ratio = GC.compression_ratio(tr.state.params, TRAIN_RANK)
+    print(f"   (b) {TRAIN_STEPS} steps with rank-{TRAIN_RANK} PowerSGD over "
+          f"a one-rank NCCL group in {time.perf_counter() - t:.2f} s; "
+          f"compression_ratio {ratio:.6f}")
+    _loss_falls("(b) lm100m compressed", hist)
+    _train_rates("(b) lm100m compressed", cfg, hist, held, smi)
+    del tr
+
+    # (c) bitwise resume
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        mk = lambda sub: _trainer(cfg, _train_config(
+            TRAIN_STEPS, TRAIN_RANK, os.path.join(d, sub)), dev)
+        full = mk("a")
+        full.run(2 * TRAIN_RESUME, log_every=0)
+        part = mk("b")
+        part.run(TRAIN_RESUME, log_every=0)
+        t = time.perf_counter()
+        part.save(async_=False)
+        save_s = time.perf_counter() - t
+        first = [h["loss"] for h in part.history]
+        del part
+        res = mk("b")
+        t = time.perf_counter()
+        check(res.try_resume() and res.state.step == TRAIN_RESUME,
+              "(c) resume")
+        load_s = time.perf_counter() - t
+        res.run(TRAIN_RESUME, log_every=0)
+        size = sum(f.stat().st_size for f in Path(d, "b").rglob("*")
+                   if f.is_file())
+        same_loss = [h["loss"] for h in full.history] == \
+            first + [h["loss"] for h in res.history]
+        same_params = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            tree_leaves(full.state.params), tree_leaves(res.state.params)))
+        same_q = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            tree_leaves(full.state.comp_state.q),
+            tree_leaves(res.state.comp_state.q)) if a is not None)
+    print(f"   (c) bitwise resume, rank-{TRAIN_RANK} "
+          f"compressed: {2 * TRAIN_RESUME} steps straight vs "
+          f"{TRAIN_RESUME} + save ({size / 1e9:.3f} GB in {save_s:.2f} s) + "
+          f"a fresh Trainer's resume ({load_s:.2f} s) + {TRAIN_RESUME}: "
+          f"losses equal {same_loss}, parameters equal {same_params}, Q "
+          f"factors equal {same_q}")
+    check(same_loss and same_params and same_q, "(c) bitwise resume")
+    del full, res
+
+    # 2. card vs CPU from the same numpy weights, Q factors and tokens
+    _train_card_vs_cpu(dev)
+
+    # 3. llama3.2-1b at full width and depth
+    big = configs.get(TRAIN_BIG)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    tr = _trainer(big, _train_config(TRAIN_BIG_STEPS, TRAIN_RANK), dev)
+    torch.cuda.synchronize()
+    print(f"   -- {TRAIN_BIG} ({big.n_layers} layers, d_model "
+          f"{big.d_model}, vocab {big.vocab_size}; {big.param_count():,} "
+          f"parameters in {big.dtype}), batch 8 x 256, rank-{TRAIN_RANK} "
+          f"PowerSGD; state made in {time.perf_counter() - t:.2f} s",
+          flush=True)
+    hist = tr.run(TRAIN_BIG_STEPS, log_every=0)
+    losses = [h["loss"] for h in hist]
+    print(f"   {TRAIN_BIG}: losses {np.round(losses, 4).tolist()}")
+    check(all(np.isfinite(losses)), f"{TRAIN_BIG}: a non-finite loss")
+    _train_rates(TRAIN_BIG, big, hist, held, smi)
+    del tr
+    torch.cuda.empty_cache()
+    launches, plain = path_counts()
+    print(f"   LM training path: kernel launches {launches or 'none'}; "
+          f"plain calls {plain}")
+    check(plain == 0 and not launches, "the training path ran a kernel "
+          "wrapper")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2466,6 +2786,12 @@ def main() -> int:
     t17 = time.perf_counter()
     lm_serving(dev, smi)
     print(f"   phase 17: {time.perf_counter() - t17:.1f} s")
+
+    phase("18 LM training (dense and MoE): lm100m at full width, "
+          "llama3.2-1b")
+    t18 = time.perf_counter()
+    lm_training(dev, smi)
+    print(f"   phase 18: {time.perf_counter() - t18:.1f} s")
 
     print(f"   total {time.perf_counter() - t_start:.1f} s")
     for rec in record.values():

@@ -413,6 +413,13 @@ def _traced_kernels(thunk, path: Path) -> tuple[list, set]:
     return events, {str(e.get("cat")) for e in trace}
 
 
+# a trace without one device kernel event of any kind: the profiler
+# caught no device activity (seen in a fresh process too, then not in the
+# next); the launch bill is taken again in a new process
+_NO_DEVICE_EVENTS = "the profiler recorded no kernel event"
+_LAUNCH_BILL_TRIES = 3
+
+
 def _launch_bill_here(device="cuda") -> dict[str, dict]:
     dev = torch.device(device)
     bill = {}
@@ -421,6 +428,9 @@ def _launch_bill_here(device="cuda") -> dict[str, dict]:
             thunk()
             torch.cuda.synchronize()
             events, cats = _traced_kernels(thunk, Path(tmp) / f"{kernel}.json")
+            if "kernel" not in {c.lower() for c in cats}:
+                raise RuntimeError(f"{_NO_DEVICE_EVENTS}: {kernel}'s trace "
+                                   f"(event categories {sorted(cats)})")
             if len(events) != 1:
                 raise RuntimeError(f"{kernel}: {len(events)} kernels of the "
                                    f"port in one launch's trace (event "
@@ -439,16 +449,27 @@ def launch_bill(device="cuda") -> dict[str, dict]:
     dynamic the wrapper requests) the launch was given, from the
     profiler's trace.  It runs in a child process of its own: in a
     process that has profiled before (as ``chip_smoke.py``'s phases 4-14
-    do) torch 2.11's profiler caught no kernel event on the H100 machine,
-    where a fresh process's always did."""
+    do) torch 2.11's profiler caught no kernel event on the H100 machine.
+    A fresh process's trace, too, once held no device kernel event at all;
+    such a process is run again, up to ``_LAUNCH_BILL_TRIES`` in all, and
+    each retry is printed with its reason (a trace with device events but
+    not exactly one of the port's kernels fails at once)."""
     src = str(Path(__file__).resolve().parents[2])
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [src] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     code = ("import json, sys; from repro_torch.analysis import resources; "
             "print(json.dumps(resources._launch_bill_here(sys.argv[1])))")
-    proc = subprocess.run([sys.executable, "-c", code, str(device)],
-                          capture_output=True, text=True, env=env,
-                          timeout=900)
+    for attempt in range(1, _LAUNCH_BILL_TRIES + 1):
+        proc = subprocess.run([sys.executable, "-c", code, str(device)],
+                              capture_output=True, text=True, env=env,
+                              timeout=900)
+        if _NO_DEVICE_EVENTS not in proc.stderr or \
+                attempt == _LAUNCH_BILL_TRIES:
+            break
+        reason = [line for line in proc.stderr.splitlines()
+                  if _NO_DEVICE_EVENTS in line][-1]
+        print(f"   launch bill: try {attempt} of {_LAUNCH_BILL_TRIES} "
+              f"failed ({reason.strip()}); running it again", flush=True)
     if proc.returncode != 0:
         raise RuntimeError(f"the launch bill's process failed "
                            f"(exit {proc.returncode}):\n{proc.stderr[-3000:]}")
@@ -512,16 +533,25 @@ def _limits(bill: dict) -> list[RuleResult]:
     return rows
 
 
+def record_diff(got: dict | None, want: dict | None) -> str:
+    """What differs between a record of this run's bill and the
+    baseline's (``""`` where they are equal): each field as
+    ``want -> got``, or which side lacks the record."""
+    if want is None:
+        return "missing from the baseline"
+    if got is None:
+        return "missing from this run"
+    return "; ".join(f"{f}: {want.get(f)} -> {got.get(f)}"
+                     for f in sorted(set(got) | set(want))
+                     if got.get(f) != want.get(f))
+
+
 def _against(bill: dict, base: dict) -> list[RuleResult]:
     rows = []
     for part in ("build", "launch"):
         for key in sorted(set(bill[part]) | set(base.get(part, {}))):
-            got, want = bill[part].get(key), base.get(part, {}).get(key)
-            diff = ("missing from the baseline" if want is None else
-                    "missing from this run" if got is None else
-                    "; ".join(f"{f}: {want.get(f)} -> {got.get(f)}"
-                              for f in sorted(set(got) | set(want))
-                              if got.get(f) != want.get(f)))
+            diff = record_diff(bill[part].get(key),
+                               base.get(part, {}).get(key))
             rows.append(RuleResult("resources", f"baseline:{part}[{key}]",
                                    not diff, diff or "== baseline"))
     return rows

@@ -19,7 +19,12 @@ keyed by field path and rebuilds it here:
 * an LM's parameters (``repro.models.transformer.init_params``): the
   reference's pytree flattened to numpy arrays keyed by dotted path
   (``"embed"``, ``"layers.attn.wq"``, ``"layers.moe.router"``, ...), one
-  array a leaf of the port's schema, stacked over layers as there.
+  array a leaf of the port's schema, stacked over layers as there;
+* an LM's training state (``repro.train.trainer.TrainState``): the same
+  paths under ``"params."``, the AdamW step and moments as ``"opt.step"``,
+  ``"opt.mu.<path>"`` and ``"opt.nu.<path>"``, and the compressor's Q
+  factors and error buffers as ``"comp.q.<path>"`` and
+  ``"comp.error.<path>"`` (the compressed leaves only).
 """
 
 from __future__ import annotations
@@ -40,7 +45,8 @@ from repro_torch.streaming.scheduler import SchedulerState
 
 __all__ = ["state_from_numpy", "state_to_numpy", "cov_state_from_numpy",
            "cov_state_to_numpy", "lm_params_from_numpy",
-           "lm_params_to_numpy"]
+           "lm_params_to_numpy", "train_state_from_numpy",
+           "train_state_to_numpy"]
 
 _INT_FIELDS = {"sched.refreshes", "rounds", "det.calib_left"}
 
@@ -141,3 +147,55 @@ def lm_params_to_numpy(params: dict) -> dict:
     (fp32)."""
     return {path: v.detach().float().cpu().numpy()
             for path, v in tree_leaves(params)}
+
+
+def _under(flat: Mapping[str, np.ndarray], prefix: str) -> dict:
+    return {k[len(prefix):]: v for k, v in flat.items()
+            if k.startswith(prefix)}
+
+
+def train_state_from_numpy(cfg, tcfg, flat: Mapping[str, np.ndarray],
+                           device="cuda", dtype: torch.dtype | None = None):
+    """The port's :class:`repro_torch.train.trainer.TrainState` from numpy
+    arrays keyed as the module docstring says: the parameters in ``dtype``
+    (default ``cfg.dtype``), the moments in ``tcfg.optimizer``'s
+    ``moment_dtype``, the compressor's factors in fp32 (when
+    ``tcfg.compress_rank``); the step counter is ``"opt.step"``."""
+    from repro_torch.train.optimizer import AdamWState
+    from repro_torch.train.trainer import TrainState
+
+    dev = resolve_device(device)
+    params = lm_params_from_numpy(cfg, _under(flat, "params."), dev, dtype)
+    mdt = torch_dtype(tcfg.optimizer.moment_dtype)
+    step = int(np.asarray(flat["opt.step"]))
+    opt = AdamWState(
+        step=torch.tensor(step, dtype=torch.int32, device=dev),
+        mu=lm_params_from_numpy(cfg, _under(flat, "opt.mu."), dev, mdt),
+        nu=lm_params_from_numpy(cfg, _under(flat, "opt.nu."), dev, mdt))
+    state = TrainState.create(cfg, tcfg, device=dev, params=params,
+                              q=_under(flat, "comp.q."))
+    state.opt_state, state.step = opt, step
+    if state.comp_state is not None:
+        errs = _under(flat, "comp.error.")
+        for path, e in tree_leaves(state.comp_state.error):
+            if e is not None:
+                e.copy_(as_tensor(errs[path], torch.float32, dev))
+    return state
+
+
+def train_state_to_numpy(state) -> dict:
+    """The inverse of :func:`train_state_from_numpy` (every array as it
+    lies, widened to fp32 where it is bf16)."""
+    out = {f"params.{k}": v for k, v in lm_params_to_numpy(
+        state.params).items()}
+    out["opt.step"] = np.asarray(int(state.opt_state.step), np.int32)
+    for name in ("mu", "nu"):
+        out.update({f"opt.{name}.{k}": v for k, v in lm_params_to_numpy(
+            getattr(state.opt_state, name)).items()})
+    if state.comp_state is not None:
+        for name in ("q", "error"):
+            out.update({f"comp.{name}.{k}": v.detach().cpu().numpy()
+                        for k, v in tree_leaves(
+                            getattr(state.comp_state, name))
+                        if v is not None})
+    return out

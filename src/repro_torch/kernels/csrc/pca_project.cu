@@ -144,6 +144,24 @@ constexpr int kProjMinBlocks = 6;             // registers for 6 blocks an SM
 constexpr int kProjSmemFloats =
     kProjStages * (kProjRows * (kProjK + 4) + kProjK * kColTile);
 
+// A 16-byte load from shared memory that the compiler cannot split, for
+// the inner loops of kernels 8 and 9.  With plain float4 loads there,
+// nvcc 12.9's cicc split one lane off a load (a narrower ld.shared further
+// down, the vector load marked "used_bytes_mask") in some builds and not
+// in others, from the same source and flags: two or three PTX texts, and
+// 96 or 100 registers for reconstruct_kernel<true> (about one build in
+// four).  An asm load is one PTX instruction in every build; volatile
+// keeps it after the barrier that publishes its tile (a pure asm could be
+// hoisted out of the tile loop).
+__device__ __forceinline__ float4 ld_shared_v4(const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(src));
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(s));
+  return v;
+}
+
 // x (S, R, p), basis (S, p, q) -> z (S, R, q); block (row block, slot,
 // column tile).  Thread t owns rows rg + 8 i (i < BM / 8) and columns
 // 4 cg .. 4 cg + 3 of the tile, rg = t / 8, cg = t % 8.
@@ -231,12 +249,10 @@ project_kernel(const float* __restrict__ x, const float* __restrict__ basis,
       float4 a[TM], b[4];
 #pragma unroll
       for (int i = 0; i < TM; ++i)
-        a[i] = *reinterpret_cast<const float4*>(
-            xt + i * RG * XLD + k);
+        a[i] = ld_shared_v4(xt + i * RG * XLD + k);
 #pragma unroll
       for (int j = 0; j < 4; ++j)   // b[j]: sensor k + j, columns 4 cg ..
-        b[j] = *reinterpret_cast<const float4*>(
-            wt + (k + j) * kColTile + cg * kTN);
+        b[j] = ld_shared_v4(wt + (k + j) * kColTile + cg * kTN);
 #pragma unroll
       for (int j = 0; j < 4; ++j)     // sensors k + j in increasing order
 #pragma unroll
@@ -378,11 +394,11 @@ reconstruct_kernel(const float* __restrict__ z,
       float4 a[TM], b[4];
 #pragma unroll
       for (int t = 0; t < TM; ++t)
-        a[t] = *reinterpret_cast<const float4*>(zr + t * RG * zld + c);
+        a[t] = ld_shared_v4(zr + t * RG * zld + c);
 #pragma unroll
       for (int j = 0; j < 4; ++j)   // b[j]: sensor 4 sg + j, components c ..
-        b[j] = *reinterpret_cast<const float4*>(
-            wt + (4 * sg + j) * q4 + 4 * swz(4 * sg + j, c >> 2));
+        b[j] = ld_shared_v4(wt + (4 * sg + j) * q4 +
+                            4 * swz(4 * sg + j, c >> 2));
 #pragma unroll
       for (int j = 0; j < 4; ++j)     // components c + j in increasing order
 #pragma unroll

@@ -3,7 +3,7 @@
 
 from repro_torch.models.transformer import (decode_step, forward,
                                             init_decode_state, init_params,
-                                            model_schema, prefill)
+                                            lm_loss, model_schema, prefill)
 
-__all__ = ["model_schema", "init_params", "forward", "init_decode_state",
-           "decode_step", "prefill"]
+__all__ = ["model_schema", "init_params", "forward", "lm_loss",
+           "init_decode_state", "decode_step", "prefill"]

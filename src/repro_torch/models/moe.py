@@ -78,10 +78,12 @@ def moe_apply(p: dict, cfg, x: torch.Tensor) -> tuple[torch.Tensor,
                        torch.full_like(flat_e, E * cap))     # E*cap: dropped
 
     # dispatch: each kept slot into its own row (the spare row E*cap takes
-    # every dropped slot and is cut off)
-    token_of_slot = torch.arange(T, device=x.device).repeat(K)   # (K*T,)
+    # every dropped slot and is cut off).  Slot k*T + t holds token t: the
+    # K copies of the tokens are a repeat, whose backward sums each token's
+    # K gradients in order (a gather's backward accumulates them in an
+    # order that varies from run to run on the CPU)
     buf = x.new_zeros((E * cap + 1, d))
-    buf[dest] = xt[token_of_slot]
+    buf[dest] = xt.repeat(K, 1)
     buf = buf[:-1].reshape(E, cap, d)
 
     # expert FFN (grouped SwiGLU over the expert axis)

@@ -10,13 +10,19 @@ request's caches at ``[:, slot:slot+1]``); the reference's ``lax.scan`` over
 the stack is a Python loop over the layer index here.  Entry points:
 
 ``model_schema / init_params``         parameters
-``forward``                            full-sequence logits
+``forward``                            full-sequence logits (train/prefill)
+``lm_loss``                            next-token CE (the train step core)
 ``prefill``                            a prompt into the decode state
 ``init_decode_state / decode_step``    single-token serving step
 
 ``prefill`` and ``decode_step`` write the decode state's caches in place and
-return it.  The ``ssm``, ``hybrid`` and ``encdec`` families (and the
-reference's ``lm_loss`` and remat, which serve training) are not ported yet.
+return it.  Remat (``forward(remat=True)``, the reference's default) wraps
+each layer in ``torch.utils.checkpoint`` (non-reentrant: only the layer's
+input is kept, the rest recomputed in the backward), or with
+``remat_groups`` G > 1 dividing the depth, each group of layers too, as the
+reference's ``_scan_layers`` nests its ``jax.checkpoint``; it acts only
+where autograd records.  The ``ssm``, ``hybrid`` and ``encdec`` families
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -25,15 +31,18 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
-from repro_torch.models.params import P, init_params as _init, tree_map
+from repro_torch.models.params import (P, init_params as _init, tree_leaves,
+                                       tree_map, unflatten)
 
 __all__ = ["model_schema", "init_params", "layer_windows", "forward",
-           "prefill", "DecodeState", "init_decode_state", "decode_step",
-           "torch_dtype"]
+           "lm_loss", "prefill", "DecodeState", "init_decode_state",
+           "decode_step", "torch_dtype"]
 
 PORTED_FAMILIES = ("dense", "moe")
 
@@ -125,26 +134,89 @@ def _logits(h: torch.Tensor, out_head: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Forward
+# Forward (train / prefill)
 # ---------------------------------------------------------------------------
-def forward(params, cfg, tokens: torch.Tensor
-            ) -> tuple[torch.Tensor, torch.Tensor]:
+def _layer_fwd(cfg, h, lp, positions, window: int):
+    """One layer, full sequence.  Returns (h, aux); aux is None for dense."""
+    h = h + L.attention_apply(lp["attn"], cfg,
+                              L.rms_norm(h, lp["ln1"], cfg.norm_eps),
+                              positions, window=window)
+    return _ffn(cfg, h, lp)
+
+
+def _unstack(stacked: dict, n: int) -> list[dict]:
+    """Layer i's parameters for every i: views of the stacked leaves, made
+    with one ``unbind`` a leaf, so the backward stacks each leaf's layer
+    gradients once (slicing layer by layer would sum a full-size zero
+    tensor per layer)."""
+    flat = [(path, a.unbind(0)) for path, a in tree_leaves(stacked)]
+    return [unflatten({path: parts[i] for path, parts in flat})
+            for i in range(n)]
+
+
+def _run_layers(cfg, h, layers: list[dict], positions, remat: bool,
+                remat_groups: int):
+    """The layer loop with single- or two-level rematerialization (the
+    reference's ``_scan_layers``): with ``remat_groups`` G > 1 dividing the
+    depth, each group of layers is checkpointed around its checkpointed
+    layers, so only the G group inputs stay alive between the forward and
+    the backward.  Returns (h, aux summed layer by layer into fp32
+    zeros, the reference's carry)."""
+    windows = [int(w) for w in layer_windows(cfg)]
+    remat = remat and torch.is_grad_enabled()
+
+    def one(hh, i):
+        return _layer_fwd(cfg, hh, layers[i], positions, windows[i])
+
+    def span(hh, aux, idx):
+        for i in idx:
+            hh, a = (checkpoint(one, hh, i, use_reentrant=False) if remat
+                     else one(hh, i))
+            if a is not None:
+                aux = aux + a
+        return hh, aux
+
+    n, G = len(layers), remat_groups
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if remat and G > 1 and n % G == 0:
+        per = n // G
+        for g in range(G):
+            h, aux = checkpoint(span, h, aux, range(g * per, (g + 1) * per),
+                                use_reentrant=False)
+        return h, aux
+    return span(h, aux, range(n))
+
+
+def forward(params, cfg, tokens: torch.Tensor, remat: bool = True,
+            remat_groups: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence logits.  tokens: (B, S) integer.
     Returns (logits (B, S, V) fp32, aux_loss scalar)."""
     _check_family(cfg)
-    h = params["embed"][tokens.long()]
+    # an embedding lookup, whose backward sums each row's gradients in a
+    # fixed order (an indexing gather's backward accumulates them in an
+    # order that varies from run to run on the CPU)
+    h = F.embedding(tokens.long(), params["embed"])
     positions = torch.arange(h.shape[1], device=h.device)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for i, w in enumerate(layer_windows(cfg)):
-        lp = _layer(params["layers"], i)
-        h = h + L.attention_apply(lp["attn"], cfg,
-                                  L.rms_norm(h, lp["ln1"], cfg.norm_eps),
-                                  positions, window=int(w))
-        h, a = _ffn(cfg, h, lp)
-        if a is not None:
-            aux = aux + a
+    h, aux = _run_layers(cfg, h, _unstack(params["layers"], cfg.n_layers),
+                         positions, remat, remat_groups)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _logits(h, params["out_head"]), aux
+
+
+def lm_loss(params, cfg, batch: dict, remat: bool = True,
+            remat_groups: int = 0):
+    """Next-token cross entropy in fp32 plus 0.01 x the MoE load-balancing
+    aux.  batch: ``{"tokens": (B, S)}``.  Returns (loss, {"ce", "aux"})."""
+    tokens = batch["tokens"]
+    logits, aux = forward(params, cfg, tokens, remat=remat,
+                          remat_groups=remat_groups)
+    labels = tokens[:, 1:].long()
+    lg = logits[:, :-1].float()
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = lg.gather(-1, labels[..., None])[..., 0]
+    ce = (logz - gold).mean()
+    loss = ce + 0.01 * aux
+    return loss, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -1178,3 +1178,70 @@ class TestCudaChecker:
         assert sum(ops.PLAIN_CALLS.values()) == 0
         r = event_fleet.run("cuda")
         assert r["tpr"] > 0.8 and r["fpr"] < 0.05
+
+
+@pytest.mark.cuda
+def test_compressed_train_step_on_card_matches_cpu():
+    """One rank-4 PowerSGD training step of granite-moe-3b-a800m's smoke
+    MoE (fp32, TF32 off, no warm-up) from the same weights, Q factors and
+    tokens on the card and on the CPU: the step's loss within rtol 1e-5
+    (the same sums in another order); AdamW's moments, the Q factors and
+    the error buffers after it within 1e-4 of each leaf's largest
+    magnitude on the CPU, as the CPU tests hold the port's PowerSGD to the
+    reference, and the parameters too at all but 3e-5 of their elements
+    (AdamW moves a weight by about lr whatever its gradient's size, so a
+    gradient within roundoff of 0 may move it one way on the card and the
+    other on the CPU: 1 element of 254,784 measured on the H100); the
+    next batch's loss under the updated weights within rtol 1e-5; a
+    second card run equal to the bit, state and all."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the training step runs on it")
+    from repro_torch import configs
+    from repro_torch.convert import (lm_params_from_numpy,
+                                     lm_params_to_numpy,
+                                     train_state_to_numpy)
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.distributed.compression import init_compressor
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = configs.get("granite-moe-3b-a800m").smoke()
+    host = T.init_params(cfg, 5, device="cpu")
+    weights = lm_params_to_numpy(host)
+    q = {k: v.numpy() for k, v in tree_leaves(
+        init_compressor(host, 4, torch.Generator().manual_seed(6)).q)
+        if v is not None}
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3), warmup_steps=0,
+                       total_steps=10, compress_rank=4, remat=True)
+    nxt = torch.tensor(TokenPipeline(cfg.vocab_size, 64, 4, seed=0)
+                       .batch_at(1))
+    out = []
+    for dev in ("cuda", "cpu", "cuda"):
+        tr = Trainer(cfg, tcfg, TokenPipeline(cfg.vocab_size, 64, 4, seed=0),
+                     device=dev,
+                     params=lm_params_from_numpy(cfg, weights, dev), q=q)
+        loss = tr.run(1, log_every=0)[0]["loss"]
+        with torch.no_grad():
+            after, _ = T.lm_loss(tr.state.params, cfg,
+                                 {"tokens": nxt.to(dev)})
+        out.append((loss, float(after), train_state_to_numpy(tr.state)))
+    (lc, ac, sc), (lh, ah, sh), (lc2, ac2, sc2) = out
+    assert lc == pytest.approx(lh, rel=1e-5)
+    assert ac == pytest.approx(ah, rel=1e-5)
+    assert sorted(sc) == sorted(sh)
+    for part in ("params.", "opt.mu.", "opt.nu.", "comp.q.", "comp.error."):
+        assert any(k.startswith(part) for k in sh), part
+    beyond = size = 0
+    for k, v in sh.items():
+        gap = np.abs(sc[k] - v) / (np.abs(v).max() or 1.0)
+        if k.startswith("params."):
+            beyond += int(np.count_nonzero(gap > 1e-4))
+            size += v.size
+        else:
+            np.testing.assert_array_less(gap, 1e-4, err_msg=k)
+    assert beyond <= 3e-5 * size, (beyond, size)
+    assert (lc, ac) == (lc2, ac2)
+    for k in sc:
+        np.testing.assert_array_equal(sc[k], sc2[k], err_msg=k)

@@ -717,6 +717,7 @@ class TestCopiesEqualReference:
         "core/faults.py", "core/events.py", "core/compression.py",
         "core/spatiotemporal.py", "sensors/dataset.py",
         "sensors/__init__.py", "configs/__init__.py", "configs/base.py",
+        "data/tokens.py",
         *(f"configs/{m}.py" for m in (
             "chameleon_34b", "granite_moe_3b", "hymba_1p5b", "llama3_405b",
             "llama3p2_1b", "lm100m", "mamba2_2p7b", "moonshot_v1_16b",

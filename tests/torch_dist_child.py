@@ -14,11 +14,16 @@ this rank's final states and metrics, the merge and the collectives each
 run issued to OUT.npz.  When IN.npz holds ``core/`` inputs (written by
 tests/test_torch_core_dist.py) it first runs the D/A/F collectives, the
 halo exchange and the sharded production steps and power iterations of
-``repro_torch.core`` on them (:func:`core_scenarios`).  Imports no JAX.
+``repro_torch.core`` on them (:func:`core_scenarios`); when it holds
+``train/`` inputs (written by tests/test_torch_train.py) it runs two rounds
+of PowerSGD (``compress_gradients`` with ``all_reduce_mean`` as
+``reduce_fn``) on this rank's gradients (:func:`train_scenarios`).
+Imports no JAX.
 """
 
 from __future__ import annotations
 
+import json
 import sys
 
 import numpy as np
@@ -29,7 +34,9 @@ from repro_torch.convert import state_from_numpy, state_to_numpy
 from repro_torch.core import aggregation as agg
 from repro_torch.core import power_iteration as pim
 from repro_torch.core import production as prod
+from repro_torch.distributed import compression as GC
 from repro_torch.launch.mesh import init_fleet_process_group, make_fleet_mesh
+from repro_torch.models.params import tree_leaves, unflatten
 from repro_torch.streaming import (hierarchical_stream_run,
                                    sharded_stream_run)
 from repro_torch.streaming.hierarchy import COLLECTIVES, reset_collectives
@@ -96,6 +103,26 @@ def core_scenarios(data, rank, world):
     return out
 
 
+def train_scenarios(data, rank, world):
+    """Two PowerSGD rounds over the default group from the given Q
+    factors: each round's reduced gradients, Q factors and this rank's
+    error buffers (``train/{round}/{g,q,e}/{path}``)."""
+    shapes = json.loads(str(data["train/paths"]))
+    params = unflatten({k: torch.zeros(v) for k, v in shapes.items()})
+    q = {k[len("train/q/"):]: data[k] for k in data
+         if k.startswith("train/q/")}
+    state = GC.init_compressor(params, 4, q=q)
+    out = {}
+    for rnd in range(2):
+        g = unflatten({k: torch.from_numpy(data[f"train/g{rnd}/{rank}/{k}"])
+                       for k in shapes})
+        g, state = GC.compress_gradients(g, state, GC.all_reduce_mean())
+        for name, tree in (("g", g), ("q", state.q), ("e", state.error)):
+            out.update({f"train/{rnd}/{name}/{k}": v.numpy()
+                        for k, v in tree_leaves(tree) if v is not None})
+    return out
+
+
 def main(rank, world, store_dir, path_in, path_out):
     data = dict(np.load(path_in))
     names = sorted({k.split("/")[0] for k in data
@@ -106,6 +133,8 @@ def main(rank, world, store_dir, path_in, path_out):
     try:
         if any(k.startswith("core/") for k in data):
             out.update(core_scenarios(data, rank, world))
+        if "train/paths" in data:
+            out.update(train_scenarios(data, rank, world))
         regions = make_fleet_mesh()                    # (WORLD, 1)
         networks = make_fleet_mesh(region=1, data=world)
         for name in names:
