@@ -163,6 +163,21 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      granite-moe-3b-a800m's smoke MoE card vs CPU from the same numpy
      weights (and the MoE's twice on the card, bit for bit); llama3.2-1b
      at full width and depth, 5 compressed steps (``lm_training``).
+ 19. the SSM, hybrid and encoder-decoder families (repro_torch.models.ssm,
+     the three branches of models.transformer) at the full width of
+     mamba2-2.7b, hymba-1.5b and seamless-m4t-medium, random bf16 weights
+     from a seed: mamba2 and hymba through the LM Engine (8 slots, a
+     512-position fp32 cache; 16 requests, 32 new tokens each: tokens/s,
+     prefill ms by length, the decode step's ms beside its bytes bound
+     with the fp32 SSM state read and written, peak memory, a profile; a
+     one-slot engine == a direct prefill + decode_step loop for two
+     requests); seamless's batched prefill of 8 x 16 tokens beside 256
+     encoder frames and 32 decode steps (encoder, prefill and decode ms,
+     bound, peak memory); each at a depth cut in fp32, card vs CPU
+     (mamba2 2 layers over a 256-token prompt, two SSD chunks; hymba 4
+     layers, layer 2 windowed, over 1,280 tokens, past the 1,024 window;
+     seamless 2 + 2 layers), no kernel launch, no plain call
+     (``lm_families``).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card, or without the rest
 of the repository beside it, the script exits non-zero and prints no
@@ -1422,10 +1437,15 @@ LM_CUT_ATOL = 1e-3         # fp32 both sides, TF32 off: sums in other orders
 LM_BUCKET_ATOL = 0.125     # bf16 weights: a padded prefill's other shapes
 
 
-def _lm_burst(eng, prompts) -> dict:
+def _pow2_bucket(eng, s_len: int) -> int:
+    return 1 << (max(eng._bucket_len(s_len), 1) - 1).bit_length()
+
+
+def _lm_burst(eng, prompts, key=_pow2_bucket) -> dict:
     """Serve ``prompts`` (LM_NEW tokens each) through ``eng``; the wall
-    time, each prefill's time by its length bucket, and the time of every
-    step that decoded all slots and admitted no request."""
+    time, each prefill's time by ``key(eng, prompt length)`` (by default
+    its power-of-two length bucket), and the time of every step that
+    decoded all slots and admitted no request."""
     from repro_torch.serve.engine import Request
     prefill_ms: dict = collections.defaultdict(list)
     inner = eng._prefill_slot
@@ -1433,9 +1453,8 @@ def _lm_burst(eng, prompts) -> dict:
     def timed(slot, req):
         t = time.perf_counter()
         inner(slot, req)                 # ends in a host read of the token
-        bucket = 1 << (max(eng._bucket_len(len(req.prompt)), 1) - 1
-                       ).bit_length()
-        prefill_ms[bucket].append(1e3 * (time.perf_counter() - t))
+        prefill_ms[key(eng, len(req.prompt))].append(
+            1e3 * (time.perf_counter() - t))
 
     eng._prefill_slot = timed
     reqs = [Request(prompt=p, max_new_tokens=LM_NEW) for p in prompts]
@@ -1971,6 +1990,353 @@ def lm_training(dev, smi: str) -> None:
     print(f"   LM training path: kernel launches {launches or 'none'}; "
           f"plain calls {plain}")
     check(plain == 0 and not launches, "the training path ran a kernel "
+          "wrapper")
+
+
+# the SSM, hybrid and encoder-decoder families (phase 19): the three
+# configurations the repo ships for them at full width
+# (configs/mamba2_2p7b.py, configs/hymba_1p5b.py,
+# configs/seamless_m4t_medium.py), random bf16 weights from a seed
+FAM_ENGINE_ARCHS = ("mamba2-2.7b", "hymba-1.5b")
+FAM_ENC_ARCH = "seamless-m4t-medium"
+FAM_CHUNK = 128            # the SSD's prefill chunk: longer prompts tile it
+FAM_ENC_ROWS, FAM_ENC_PROMPT, FAM_ENC_FRAMES = 8, 16, 256
+FAM_CUT_ATOL = 1e-3        # logits, fp32 both sides, TF32 off
+FAM_CUT_LEAF = 1e-4        # each cache leaf, of its largest magnitude
+FAM_CUTS = {               # arch: (layers, prompt tokens, rows)
+    "mamba2-2.7b": (2, 256, 2),           # two SSD chunks: the scan runs
+    "hymba-1.5b": (4, 1280, 1),           # layer 2 windowed; 1,408 positions
+    "seamless-m4t-medium": (2, FAM_ENC_PROMPT, 2),    # 2 + 2 layers
+}
+FAM_CUT_STEPS = 4
+
+
+def _chunk_key(eng, s_len: int) -> int:
+    """A prompt's length rounded up to the SSD chunk."""
+    return -(-s_len // FAM_CHUNK) * FAM_CHUNK
+
+
+def _fam_prompts(cfg, rng) -> list:
+    """LM_REQUESTS prompts: for mamba2 lengths in 16-128 and one each of
+    256 and 384, in a shuffled order; for hymba 128, 256 or 384 (with its
+    128 meta tokens every prompt must tile the SSD's 128-position
+    chunks)."""
+    if cfg.family == "hybrid":
+        lengths = rng.choice([128, 256, 384], LM_REQUESTS)
+    else:
+        lengths = rng.permutation(np.concatenate(
+            [rng.integers(16, 129, LM_REQUESTS - 2), [256, 384]]))
+    return [rng.integers(0, cfg.vocab_size, int(s)).astype(np.int32)
+            for s in lengths]
+
+
+def _state_bytes(state) -> dict:
+    """A decode state's bytes by field (``attn``, ``ssm``, ``cross_k``,
+    ``cross_v``)."""
+    out = {}
+    for name, field in zip(state._fields, state):
+        leaves = [field] if isinstance(field, torch.Tensor) else list(field)
+        out[name] = sum(c.numel() * c.element_size() for c in leaves)
+    return out
+
+
+def _decode_bound(params, state, rows: int):
+    """The bytes a decode step must move and its bound (ms) at the H100's
+    3.35 TB/s: every weight it reads once (all but the embedding table,
+    of which its ``rows`` gathered rows, hymba's meta tokens and the
+    encoder, which prefill consumed), the KV and cross caches read once,
+    the SSM state and conv history read once and written once.  Returns
+    (bound ms, weights, attention caches, SSM state, cross caches)."""
+    from repro_torch.analysis.resources import H100
+    from repro_torch.models.params import tree_leaves
+    skip = ("embed", "meta_tokens", "enc_layers.", "enc_final_norm")
+    emb = params["embed"]
+    w = (sum(a.numel() * a.element_size() for path, a in tree_leaves(params)
+             if not path.startswith(skip))
+         + rows * emb.shape[1] * emb.element_size())
+    sb = _state_bytes(state)
+    total = w + sb["attn"] + 2 * sb["ssm"] + sb["cross_k"] + sb["cross_v"]
+    return (1e3 * total / H100.peak_bytes, w, sb["attn"], sb["ssm"],
+            sb["cross_k"] + sb["cross_v"])
+
+
+def _fam_cut_vs_cpu(T, cfg, params, dev) -> None:
+    """The card against the CPU in fp32 at a depth cut (FAM_CUTS), the
+    weights the full model's first layers widened to fp32: a prefill and
+    FAM_CUT_STEPS decode steps fed the CPU's greedy tokens, every logit
+    within FAM_CUT_ATOL and every cache leaf within FAM_CUT_LEAF of its
+    largest magnitude on the CPU, the positions exactly."""
+    from repro_torch.convert import decode_state_to_numpy
+    from repro_torch.models.params import tree_map
+    n_layers, length, rows = FAM_CUTS[cfg.name]
+    enc_layers = n_layers if cfg.family == "encdec" else 0
+    cut = dataclasses.replace(cfg, n_layers=n_layers, enc_layers=enc_layers)
+    card = {k: (tree_map(lambda a: a[:n_layers].float(), v)
+                if k in ("layers", "enc_layers")
+                else tree_map(lambda a: a.float(), v))
+            for k, v in params.items()}
+    host = tree_map(lambda a: a.cpu(), card)
+    rng = np.random.default_rng(19)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (rows, length)))
+    enc_len = FAM_ENC_FRAMES if cfg.family == "encdec" else 0
+    enc = (torch.tensor(rng.normal(size=(rows, enc_len, cfg.d_model)),
+                        dtype=torch.float32) if enc_len else None)
+    runs = {}
+    for d, p in ((torch.device("cpu"), host), (dev, card)):
+        t = time.perf_counter()
+        state = T.init_decode_state(cut, rows, length + FAM_CUT_STEPS,
+                                    dtype=torch.float32, device=d,
+                                    enc_len=enc_len)
+        logits, state = T.prefill(p, cut, toks.to(d), state,
+                                  enc_input=None if enc is None
+                                  else enc.to(d))
+        seq = [logits.cpu()]
+        for i in range(FAM_CUT_STEPS):
+            # both sides decode the CPU's greedy tokens
+            src = seq[-1] if d.type == "cpu" else runs["cpu"][1][i]
+            logits, state = T.decode_step(
+                p, cut, src.argmax(-1, keepdim=True).to(d), state,
+                length + i)
+            seq.append(logits.cpu())
+        runs[d.type] = (decode_state_to_numpy(state), seq,
+                        time.perf_counter() - t)
+    (sh, qh, th), (sc, qc, tc) = runs["cpu"], runs[dev.type]
+    check(all(bool(torch.isfinite(a).all()) for a in qc),
+          f"{cfg.name}: a non-finite logit on the depth cut")
+    d_logit = max(float((a - b).abs().max()) for a, b in zip(qc, qh))
+    leaf = {}
+    for k, v in sh.items():
+        if k.endswith("pos"):
+            check(np.array_equal(sc[k], v), f"{cfg.name}: the cut's {k}")
+        else:
+            leaf[k] = float(np.abs(sc[k] - v).max()
+                            / (np.abs(v).max() or 1.0))
+    print(f"   {cfg.name} cut ({n_layers} layers"
+          + (f" + {enc_layers} encoder layers, {enc_len} frames"
+             if enc_len else "")
+          + (f"; windows {[int(w) for w in T.layer_windows(cut)]}"
+             if cfg.family == "hybrid" else "")
+          + f"; fp32, {rows} x {length} tokens, {FAM_CUT_STEPS} decode "
+          f"steps): card vs CPU logits max |d| {d_logit:.3e} (tolerance "
+          f"{FAM_CUT_ATOL}; max |logit| "
+          f"{max(float(a.abs().max()) for a in qh):.3f}); "
+          "cache leaves max |d| / max |CPU|: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in leaf.items())
+          + f" (tolerance {FAM_CUT_LEAF}); CPU {th:.1f} s, card {tc:.2f} s")
+    check(d_logit <= FAM_CUT_ATOL, f"{cfg.name}: card vs CPU logits")
+    check(all(v <= FAM_CUT_LEAF for v in leaf.values()),
+          f"{cfg.name}: card vs CPU caches")
+
+
+def _fam_draw(T, cfg, dev):
+    """The model's random bf16 weights on the card, with a line naming its
+    shape; (params, the bytes earlier phases hold)."""
+    from repro_torch.models.params import tree_leaves, tree_size
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()        # earlier phases' tensors
+    t = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(19),
+                           device=dev)
+    torch.cuda.synchronize()
+    n = tree_size(params)
+    wbytes = sum(w.numel() * w.element_size()
+                 for _, w in tree_leaves(params))
+    glob = [int(i) for i in np.flatnonzero(T.layer_windows(cfg) == 0)]
+    extra = {"ssm": f"d_inner {cfg.d_inner} in {cfg.n_ssm_heads} heads "
+                    f"of {cfg.ssm_headdim}, state {cfg.d_state}",
+             "hybrid": f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, d_ff "
+                       f"{cfg.d_ff}, SSM {cfg.n_ssm_heads} heads of "
+                       f"{cfg.ssm_headdim}, state {cfg.d_state}, "
+                       f"{cfg.n_meta_tokens} meta tokens, window "
+                       f"{cfg.swa_window}, global layers {glob}",
+             "encdec": f"{cfg.enc_layers} encoder layers, {cfg.n_heads} "
+                       f"heads / {cfg.n_kv_heads} kv, d_ff "
+                       f"{cfg.d_ff}"}[cfg.family]
+    print(f"   -- {cfg.name} ({cfg.family}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {extra}, vocab {cfg.vocab_size}): {n:,} "
+          f"parameters, {wbytes / 1e9:.3f} GB in {cfg.dtype}, drawn in "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+    check(n == tree_size(T.model_schema(cfg)), f"{cfg.name}: parameters")
+    return params, held
+
+
+def lm_families(dev, smi: str) -> None:
+    """Phase 19: the SSM, hybrid and encoder-decoder families
+    (repro_torch.models.ssm and the three branches of
+    repro_torch.models.transformer) at the full width of mamba2-2.7b,
+    hymba-1.5b and seamless-m4t-medium, random bf16 weights from a seeded
+    generator on the card, one model at a time.
+
+    1. mamba2-2.7b and hymba-1.5b through the LM Engine (8 slots, a
+       512-position fp32 cache, the SSM state fp32): 16 requests of 32 new
+       tokens after a one-request warm-up (mamba2's prompts 16-128 tokens
+       and one each of 256 and 384, hymba's 128, 256 or 384, from a numpy
+       seed): tokens/s, prefill ms by length (rounded up to the SSD's
+       128-position chunk), the decode step's ms at 8 live slots beside
+       its bytes bound (:func:`_decode_bound`), the peak memory, and 4
+       decode steps profiled; two requests through a one-slot engine ==
+       a direct prefill + decode_step loop, token for token.
+    2. seamless-m4t-medium, which no Engine serves (as in the reference):
+       a batched prefill of 8 rows of 16 tokens beside 256 encoder frames
+       of width 1,024 (numpy draws), then 32 greedy decode steps at one
+       shared position: the encoder's ms, the prefill's, the decode
+       step's beside its bytes bound, the peak memory.
+    3. Each model's depth cut in fp32, card vs CPU (:func:`_fam_cut_vs_cpu`).
+    Every request done, every token in [0, vocab), every logit finite, no
+    kernel launch and no plain call (these paths have no Pallas kernel)."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Engine, Request, ServeConfig
+
+    ops.reset_counts()
+    for name in FAM_ENGINE_ARCHS:
+        cfg = configs.get(name)
+        params, held = _fam_draw(T, cfg, dev)
+        rng = np.random.default_rng(19)
+        prompts = _fam_prompts(cfg, rng)
+        scfg = ServeConfig(slots=LM_SLOTS, max_len=LM_MAX_LEN)
+        warm = Engine(cfg, params, scfg, device=dev)
+        warm.submit(Request(prompt=prompts[0], max_new_tokens=4))
+        warm.run_until_done()
+        del warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        eng = Engine(cfg, params, scfg, device=dev)
+        run = _lm_burst(eng, prompts, key=_chunk_key)
+        reqs = run["requests"]
+        tokens = sum(len(r.output) for r in reqs)
+        check(all(r.done and len(r.output) == LM_NEW for r in reqs),
+              f"{name}: a request not done")
+        check(all(0 <= tok < cfg.vocab_size for r in reqs
+                  for tok in r.output), f"{name}: a token outside the "
+              f"vocabulary")
+        peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+        dms = sorted(run["decode_ms"])
+        check(len(dms) > 0, f"{name}: no step at {LM_SLOTS} live slots")
+        med = dms[len(dms) // 2]
+        bound_ms, w, attn, ssm, _ = _decode_bound(params, eng.state, LM_SLOTS)
+        print(f"   {name} engine: {LM_REQUESTS} requests, {tokens} tokens "
+              f"in {run['wall']:.3f} s = {tokens / run['wall']:.1f} "
+              f"tokens/s; decode step {med:.2f} ms (median of {len(dms)} "
+              f"steps at {LM_SLOTS} live slots; min {dms[0]:.2f}, max "
+              f"{dms[-1]:.2f}); {run['steps']} steps [{smi}]")
+        print(f"   {name}: prefill ms by prompt length (rounded up to the "
+              f"SSD's {FAM_CHUNK}-position chunk; exact lengths"
+              + (f", {cfg.n_meta_tokens} meta tokens ahead"
+                 if cfg.family == "hybrid" else "") + "): "
+              + ", ".join(f"{b}: {np.mean(v):.2f} x{len(v)}"
+                          for b, v in sorted(run["prefill_ms"].items())))
+        print(f"   {name}: decode step bound {bound_ms:.3f} ms (weights "
+              f"{w / 1e9:.3f} GB: every leaf but the embedding table, and "
+              f"its {LM_SLOTS} gathered rows"
+              + (", not the meta tokens" if cfg.family == "hybrid" else "")
+              + (f"; the fp32 KV cache {attn / 1e9:.3f} GB read once"
+                 if attn else "")
+              + f"; the fp32 SSM state and conv history {ssm / 1e9:.3f} GB "
+              f"({ssm / LM_SLOTS / 1e6:.1f} MB a slot) read and written "
+              f"once; at 3.35 TB/s); measured / bound {med / bound_ms:.2f}x; "
+              f"peak memory {peak:.3f} GB (max_memory_allocated less the "
+              f"{held / 1e9:.3f} GB earlier phases hold) [{smi}]")
+        del eng
+
+        eng = Engine(cfg, params, scfg, device=dev)
+        for p_ in prompts[:LM_SLOTS]:
+            eng.submit(Request(prompt=p_, max_new_tokens=LM_NEW))
+        eng.step()                       # admits every slot
+        print(f"   {name}: 4 decode steps at {LM_SLOTS} live slots, "
+              f"profiled:")
+        profile_breakdown(lambda: [eng.step() for _ in range(4)], top=6)
+        del eng
+
+        for i in (0, 1):
+            one = Engine(cfg, params,
+                         ServeConfig(slots=1, max_len=LM_MAX_LEN), device=dev)
+            req = Request(prompt=prompts[i], max_new_tokens=LM_NEW)
+            one.submit(req)
+            one.run_until_done()
+            direct, finite = _lm_direct(T, params, cfg, prompts[i],
+                                        len(prompts[i]), LM_NEW, dev)
+            same8 = sum(a == b for a, b in zip(req.output, reqs[i].output))
+            print(f"   {name} request {i} (prompt {len(prompts[i])}): "
+                  f"one-slot engine == direct prefill + decode_step "
+                  f"{req.output == direct} ({LM_NEW} tokens); the 8-slot "
+                  f"burst's tokens equal in {same8} of {LM_NEW}")
+            check(req.output == direct, f"{name}: engine != direct decode")
+            check(finite, f"{name}: a non-finite logit")
+            del one
+        _fam_cut_vs_cpu(T, cfg, params, dev)
+        del params
+
+    # seamless-m4t-medium: a direct batched prefill and decode
+    cfg = configs.get(FAM_ENC_ARCH)
+    params, held = _fam_draw(T, cfg, dev)
+    rng = np.random.default_rng(19)
+    rows, s_len = FAM_ENC_ROWS, FAM_ENC_PROMPT
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (rows, s_len)),
+                        device=dev)
+    frames = torch.tensor(rng.normal(size=(rows, FAM_ENC_FRAMES,
+                                           cfg.d_model)),
+                          dtype=torch.bfloat16, device=dev)
+
+    def once():
+        state = T.init_decode_state(cfg, rows, s_len + LM_NEW,
+                                    dtype=torch.float32, device=dev,
+                                    enc_len=FAM_ENC_FRAMES)
+        t = time.perf_counter()
+        logits, state = T.prefill(params, cfg, toks, state, enc_input=frames)
+        nxt = logits.argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        pre = 1e3 * (time.perf_counter() - t)
+        out, finite, steps = [nxt], [torch.isfinite(logits).all()], []
+        for i in range(LM_NEW):
+            t = time.perf_counter()
+            logits, state = T.decode_step(params, cfg, nxt, state, s_len + i)
+            nxt = logits.argmax(-1, keepdim=True)
+            torch.cuda.synchronize()
+            steps.append(1e3 * (time.perf_counter() - t))
+            out.append(nxt)
+            finite.append(torch.isfinite(logits).all())
+        return state, pre, steps, torch.cat(out, 1), bool(
+            torch.stack(finite).all())
+
+    once()                                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    enc_out = T.encode(params, cfg, frames, remat=False)
+    torch.cuda.synchronize()
+    enc_ms = 1e3 * (time.perf_counter() - t)
+    check(bool(torch.isfinite(enc_out).all()), f"{cfg.name}: encoder")
+    del enc_out
+    state, pre_ms, steps, out, finite = once()
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    check(finite, f"{cfg.name}: a non-finite logit")
+    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          f"{cfg.name}: a token outside the vocabulary")
+    steps = sorted(steps)
+    med = steps[len(steps) // 2]
+    bound_ms, w, attn, _, cross = _decode_bound(params, state, rows)
+    print(f"   {cfg.name} ({rows} rows of {s_len} tokens, {FAM_ENC_FRAMES} "
+          f"encoder frames of width {cfg.d_model}): encoder {enc_ms:.2f} ms; "
+          f"prefill (encoder included) {pre_ms:.2f} ms; decode step "
+          f"{med:.2f} ms (median of {LM_NEW}; min {steps[0]:.2f}, max "
+          f"{steps[-1]:.2f}) = {rows * LM_NEW / (sum(steps) / 1e3):.1f} "
+          f"tokens/s [{smi}]")
+    print(f"   {cfg.name}: decode step bound {bound_ms:.3f} ms (the "
+          f"decoder's weights and the head {w / 1e9:.3f} GB with {rows} "
+          f"gathered embedding rows; the fp32 self cache {attn / 1e9:.3f} GB "
+          f"and cross K/V {cross / 1e9:.3f} GB read once; at 3.35 TB/s); "
+          f"measured / bound {med / bound_ms:.2f}x; peak memory "
+          f"{peak:.3f} GB (less the {held / 1e9:.3f} GB earlier phases "
+          f"hold) [{smi}]")
+    del state
+    _fam_cut_vs_cpu(T, cfg, params, dev)
+    del params
+    launches, plain = path_counts()
+    print(f"   LM families path: kernel launches {launches or 'none'}; "
+          f"plain calls {plain}")
+    check(plain == 0 and not launches, "the LM families path ran a kernel "
           "wrapper")
 
 
@@ -2792,6 +3158,11 @@ def main() -> int:
     t18 = time.perf_counter()
     lm_training(dev, smi)
     print(f"   phase 18: {time.perf_counter() - t18:.1f} s")
+
+    phase("19 LM families (SSM, hybrid, encoder-decoder) at full width")
+    t19 = time.perf_counter()
+    lm_families(dev, smi)
+    print(f"   phase 19: {time.perf_counter() - t19:.1f} s")
 
     print(f"   total {time.perf_counter() - t_start:.1f} s")
     for rec in record.values():

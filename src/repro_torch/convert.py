@@ -18,8 +18,12 @@ keyed by field path and rebuilds it here:
   ``jax.random.normal(PRNGKey(seed), (p, q))``);
 * an LM's parameters (``repro.models.transformer.init_params``): the
   reference's pytree flattened to numpy arrays keyed by dotted path
-  (``"embed"``, ``"layers.attn.wq"``, ``"layers.moe.router"``, ...), one
-  array a leaf of the port's schema, stacked over layers as there;
+  (``"embed"``, ``"layers.attn.wq"``, ``"layers.moe.router"``,
+  ``"layers.ssm.in_proj"``, ``"layers.cross.wq"``, ``"meta_tokens"``,
+  ``"enc_layers.attn.wq"``, ...), one array a leaf of the port's schema,
+  stacked over layers as there; the other way, an LM's decode state
+  (``decode_state_to_numpy``: ``"attn.k"``, ``"ssm.h"``, ``"cross_k"``,
+  ...; the reference's ``DecodeState`` flattens to the same keys);
 * an LM's training state (``repro.train.trainer.TrainState``): the same
   paths under ``"params."``, the AdamW step and moments as ``"opt.step"``,
   ``"opt.mu.<path>"`` and ``"opt.nu.<path>"``, and the compressor's Q
@@ -45,8 +49,8 @@ from repro_torch.streaming.scheduler import SchedulerState
 
 __all__ = ["state_from_numpy", "state_to_numpy", "cov_state_from_numpy",
            "cov_state_to_numpy", "lm_params_from_numpy",
-           "lm_params_to_numpy", "train_state_from_numpy",
-           "train_state_to_numpy"]
+           "lm_params_to_numpy", "decode_state_to_numpy",
+           "train_state_from_numpy", "train_state_to_numpy"]
 
 _INT_FIELDS = {"sched.refreshes", "rounds", "det.calib_left"}
 
@@ -147,6 +151,23 @@ def lm_params_to_numpy(params: dict) -> dict:
     (fp32)."""
     return {path: v.detach().float().cpu().numpy()
             for path, v in tree_leaves(params)}
+
+
+def decode_state_to_numpy(state) -> dict:
+    """An LM's decode state (``repro_torch.models.transformer.DecodeState``)
+    as numpy arrays keyed by field path: ``"attn.k"``, ``"attn.v"``,
+    ``"attn.pos"``, ``"ssm.h"``, ``"ssm.conv"``, ``"cross_k"``,
+    ``"cross_v"``, each present where the family has it (bf16 widened to
+    fp32)."""
+    out = {}
+    for name, field in zip(state._fields, state):
+        if isinstance(field, torch.Tensor):
+            out[name] = field
+        elif field:
+            out.update({f"{name}.{f}": v for f, v in zip(field._fields,
+                                                          field)})
+    return {k: (v.float() if v.is_floating_point() else v).detach().cpu()
+            .numpy() for k, v in out.items()}
 
 
 def _under(flat: Mapping[str, np.ndarray], prefix: str) -> dict:

@@ -7,8 +7,12 @@ softmax are fp32 and the probabilities are cast to the values' dtype
 before the second product.  Masks go through a ``where`` with
 ``_NEG_INF = -1e30``, never ``-inf``, and read the per-row positions a
 :class:`PosCache` stores (-1 marks an empty slot).  Attention is written
-as two products with the reference's own masking (causal, sliding
-window, an always-visible meta prefix), not ``scaled_dot_product_attention``.
+as two products with the reference's own masking (causal or
+bidirectional, sliding window, an always-visible meta prefix), not
+``scaled_dot_product_attention``; the encoder attends bidirectionally and
+the decoder's cross-attention reads the encoder's output
+(``attention_apply(causal=False, kv_x=...)``, and at decode
+:func:`cross_attention_cached` against the prefill's roped K/V).
 
 Where the reference shards activations (``shard_activation``) the port
 does nothing: outside a mesh the reference's call is a no-op as well.
@@ -27,8 +31,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models.params import P
 
 __all__ = ["rms_norm", "rope", "attention_schema", "attention_apply",
-           "attention_cached", "mlp_schema", "mlp_apply", "PosCache",
-           "init_pos_cache"]
+           "attention_cached", "cross_attention_cached", "mlp_schema",
+           "mlp_apply", "PosCache", "init_pos_cache"]
 
 _NEG_INF = -1e30
 
@@ -103,10 +107,10 @@ def init_pos_cache(cfg, batch: int, cache_len: int,
                        device=dev))
 
 
-def _project_qkv(p, cfg, x):
+def _project_qkv(p, cfg, x, kv_src):
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    k = torch.einsum("bsd,dhk->bshk", kv_src, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", kv_src, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if cfg.qk_norm:
@@ -157,14 +161,14 @@ def _window_mask(qp, kp, window: int, n_meta: int):
 
 
 def _chunked_attend(q, k, v, q_pos, kv_pos, *, window, n_meta, head_dim,
-                    q_chunk=_Q_CHUNK, kv_chunk=_KV_CHUNK):
-    """Flash-style causal attention: never materializes the (Sq, Sk) score
+                    causal=True, q_chunk=_Q_CHUNK, kv_chunk=_KV_CHUNK):
+    """Flash-style attention: never materializes the (Sq, Sk) score
     matrix.
 
     A loop over query chunks, and inside it over KV chunks carrying the
     online-softmax state (running max m, normalizer l, weighted
-    accumulator acc), all fp32; the mask of each chunk pair is evaluated
-    from the position arrays.
+    accumulator acc), all fp32; with ``causal`` the mask of each chunk
+    pair is evaluated from the position arrays, else nothing is masked.
     """
     B, Sq, H, Dh = q.shape
     Sk, K = k.shape[1], k.shape[2]
@@ -186,8 +190,10 @@ def _chunked_attend(q, k, v, q_pos, kv_pos, *, window, n_meta, head_dim,
             kc = k[:, j:j + kv_chunk].float()
             vc = v[:, j:j + kv_chunk].float()
             s = torch.einsum("bqkgd,bskd->bkgqs", qc, kc) * scale
-            kp = kv_pos[j:j + kv_chunk][None, :]
-            s = torch.where(_window_mask(qp, kp, window, n_meta), s, _NEG_INF)
+            if causal:
+                kp = kv_pos[j:j + kv_chunk][None, :]
+                s = torch.where(_window_mask(qp, kp, window, n_meta), s,
+                                _NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p_ = torch.exp(s - m_new[..., None])
             alpha = torch.exp(m - m_new)
@@ -201,23 +207,30 @@ def _chunked_attend(q, k, v, q_pos, kv_pos, *, window, n_meta, head_dim,
 
 
 def attention_apply(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
-                    *, window: int = 0, return_kv: bool = False):
-    """Full-sequence causal GQA self-attention (prefill and the full
-    forward).  ``window`` <= 0 means full attention; meta-token positions
-    (< cfg.n_meta_tokens) are always visible under a window.  (The
-    reference's cross-attention and rope-free arguments serve the
-    families not ported here.)
+                    *, causal: bool = True, window: int = 0,
+                    kv_x: torch.Tensor | None = None,
+                    kv_positions: torch.Tensor | None = None,
+                    return_kv: bool = False):
+    """Full-sequence GQA attention (prefill, the full forward, the encoder
+    with ``causal=False``, cross-attention with ``kv_x``, the encoder's
+    output, at ``kv_positions``).  ``window`` <= 0 means full attention;
+    meta-token positions (< cfg.n_meta_tokens) are always visible under a
+    window.
     """
-    q, k, v = _project_qkv(p, cfg, x)
+    q, k, v = _project_qkv(p, cfg, x, x if kv_x is None else kv_x)
+    kv_pos = positions if kv_positions is None else kv_positions
     q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    k = rope(k, kv_pos, cfg.rope_theta)
     window = int(window)
-    if q.shape[1] >= CHUNKED_ATTN_THRESHOLD:
-        out = _chunked_attend(q, k, v, positions, positions, window=window,
-                              n_meta=cfg.n_meta_tokens, head_dim=cfg.head_dim)
+    if max(q.shape[1], k.shape[1]) >= CHUNKED_ATTN_THRESHOLD:
+        out = _chunked_attend(q, k, v, positions, kv_pos, causal=causal,
+                              window=window, n_meta=cfg.n_meta_tokens,
+                              head_dim=cfg.head_dim)
     else:
-        mask = _window_mask(positions[:, None], positions[None, :], window,
-                            cfg.n_meta_tokens)[None, None, None]
+        mask = None
+        if causal:
+            mask = _window_mask(positions[:, None], kv_pos[None, :], window,
+                                cfg.n_meta_tokens)[None, None, None]
         out = _gqa_attend(q, k, v, mask, cfg.head_dim)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     if return_kv:
@@ -228,8 +241,8 @@ def attention_apply(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
 def attention_cached(p: dict, cfg, x: torch.Tensor, t, cache: PosCache, *,
                      window: int = 0) -> tuple[torch.Tensor, PosCache]:
     """Single-token decode against a PosCache, which is written in place
-    at slot t (the linear layout; the reference's ring-buffer slot serves
-    the hybrid family, not ported here).
+    at slot t (the linear layout, the only one the reference's decode
+    path writes).
 
     x: (B, 1, d); t: an int or a (B,) tensor of absolute positions (per-row
     positions serve unaligned continuous batching).
@@ -242,7 +255,7 @@ def attention_cached(p: dict, cfg, x: torch.Tensor, t, cache: PosCache, *,
     Otherwise the cast is the reference's promotion.
     """
     B = x.shape[0]
-    q, k, v = _project_qkv(p, cfg, x)
+    q, k, v = _project_qkv(p, cfg, x, x)
     tv = torch.as_tensor(t, dtype=torch.int32, device=x.device)
     tv = tv.reshape(-1).expand(B)
     q = rope(q, tv[:, None], cfg.rope_theta)
@@ -267,6 +280,32 @@ def attention_cached(p: dict, cfg, x: torch.Tensor, t, cache: PosCache, *,
     out = _gqa_attend(q, cache.k, cache.v, mask, cfg.head_dim)
     y = torch.einsum("bshk,hkd->bsd", out.to(p["wo"].dtype), p["wo"])
     return y, cache
+
+
+def cross_attention_cached(p: dict, cfg, x: torch.Tensor, t,
+                           enc_k: torch.Tensor,
+                           enc_v: torch.Tensor) -> torch.Tensor:
+    """Decode-time cross attention against precomputed (roped) encoder K/V.
+
+    x: (B, 1, d); enc_k, enc_v: (B, Se, K, Dh); t: the decoder position, an
+    int or a one-element tensor: the reference ropes the query at
+    ``reshape(t, (1,))``, one position for the whole batch, so a per-row
+    vector is refused.  The output is cast to the output projection's
+    dtype, as in :func:`attention_cached`."""
+    tv = torch.as_tensor(t, dtype=torch.int32, device=x.device)
+    if tv.numel() != 1:
+        raise ValueError(
+            f"cross-attention decodes every row at one position (the "
+            f"reference ropes the query at reshape(t, (1,))); got {tv.numel()}"
+            f" positions")
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    q = rope(q, tv.reshape(1), cfg.rope_theta)
+    out = _gqa_attend(q, enc_k, enc_v, None, cfg.head_dim)
+    return torch.einsum("bshk,hkd->bsd", out.to(p["wo"].dtype), p["wo"])
 
 
 # ---------------------------------------------------------------------------

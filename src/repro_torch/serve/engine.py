@@ -41,12 +41,14 @@ the statistics and the books read fp32 readings.
 bases into the two-level fleet basis
 (:func:`repro_torch.streaming.hierarchy.merge_fleet`).
 
-The LM :class:`Engine` of the reference module is here too: prefill runs
-per request (a dense prompt padded to its power-of-two bucket) and is
-spliced into the request's slot of the stacked decode state; every step
-decodes all live slots one token greedily and refills finished slots from
-the queue.  Slot management is host Python, as in the reference; the host
-reads the step's argmax once a step.
+The LM :class:`Engine` of the reference module is here too, for the
+dense, MoE, SSM and hybrid families: prefill runs per request (a dense
+prompt padded to its power-of-two bucket, the others at their exact
+length) and is written into the request's slot of the stacked decode
+state (the slot's SSM state and conv history overwritten whole); every
+step decodes all live slots one token greedily and refills finished
+slots from the queue.  Slot management is host Python, as in the
+reference; the host reads the step's argmax once a step.
 """
 
 from __future__ import annotations
@@ -61,7 +63,6 @@ from repro_torch.core import costs
 from repro_torch.core.faults import expected_transmissions
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.runtime.elastic import RescalePlan, plan_mesh
 from repro_torch.runtime.health import HealthMonitor, StragglerPolicy
@@ -109,11 +110,19 @@ class ServeConfig:
 
 
 class Engine:
-    """Continuous-batching LM engine for the ``dense`` and ``moe`` families:
-    a fixed batch of ``scfg.slots`` decode slots on ``device`` (``cuda``
-    unless the caller asks for another; the parameters must lie there)."""
+    """Continuous-batching LM engine for the ``dense``, ``moe``, ``ssm`` and
+    ``hybrid`` families: a fixed batch of ``scfg.slots`` decode slots on
+    ``device`` (``cuda`` unless the caller asks for another; the parameters
+    must lie there).  The encoder-decoder family is refused: a request
+    carries no encoder input (the reference's engine passes none, and its
+    prefill then fails)."""
 
     def __init__(self, cfg, params, scfg: ServeConfig, device="cuda"):
+        if cfg.family == "encdec":
+            raise ValueError(
+                f"{cfg.name}: the LM Engine serves decoder-only families; an "
+                f"encoder-decoder prefill needs an encoder input, which a "
+                f"Request does not carry")
         self.device = resolve_device(device)
         on = params["embed"].device
         if on.type != self.device.type or (
@@ -157,15 +166,22 @@ class Engine:
         """Prefill one request (a single row, padded to its bucket and
         masked by ``valid_len``) straight into slot ``slot`` of the engine
         state.  The slot's positions are reset to -1 first, so what an
-        earlier request left in its K/V is masked out."""
+        earlier request left in its K/V is masked out; its SSM state and
+        conv history are overwritten whole by the prefill."""
         s_len = len(req.prompt)
         padded = np.zeros(self._bucket_len(s_len), np.int32)
         padded[:s_len] = req.prompt
         prompt = torch.tensor(padded[None, :], device=self.device)
-        self.state.attn.pos[:, slot].fill_(-1)
+        st = self.state
+        if st.attn:
+            st.attn.pos[:, slot].fill_(-1)
+
         # every stacked cache leaf has layout (L, B, ...): batch = axis 1
-        view = T.DecodeState(L.PosCache(*(c[:, slot:slot + 1]
-                                          for c in self.state.attn)))
+        def one(cache):
+            return type(cache)(*(c[:, slot:slot + 1] for c in cache)) \
+                if cache else cache
+
+        view = T.DecodeState(attn=one(st.attn), ssm=one(st.ssm))
         logits, _ = T.prefill(self.params, self.cfg, prompt, view,
                               valid_len=s_len)
         tok = int(torch.argmax(logits, -1)[0])

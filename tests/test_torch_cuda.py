@@ -1245,3 +1245,94 @@ def test_compressed_train_step_on_card_matches_cpu():
     assert (lc, ac) == (lc2, ac2)
     for k in sc:
         np.testing.assert_array_equal(sc[k], sc2[k], err_msg=k)
+
+
+@pytest.mark.cuda
+class TestCudaLMFamilies:
+    """The SSM, hybrid and encoder-decoder families on the card against
+    the CPU at their smoke widths, fp32, TF32 off, from the same weights
+    (drawn on the CPU) and tokens: ``forward``'s logits, a 24-token
+    ``prefill`` and 5 ``decode_step``s fed the CPU's greedy tokens (logits
+    within rtol/atol 1e-4: the same sums in other orders), every cache
+    leaf within 1e-4 of its largest magnitude on the CPU and the
+    positions exactly; for ssm and hybrid, an Engine on the card gives
+    the CPU engine's tokens."""
+
+    ARCHS = ("mamba2-2.7b", "hymba-1.5b", "seamless-m4t-medium")
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card: the models run on it")
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        yield
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    def _weights(self, arch):
+        from repro_torch import configs
+        from repro_torch.models import transformer as T
+        from repro_torch.models.params import tree_map
+        cfg = configs.get(arch).smoke()
+        host = T.init_params(cfg, 7, device="cpu")
+        return cfg, host, tree_map(lambda a: a.cuda(), host)
+
+    @pytest.mark.parametrize("arch", ARCHS)
+    def test_family_on_card_matches_cpu(self, arch):
+        from repro_torch.convert import decode_state_to_numpy
+        from repro_torch.models import transformer as T
+        cfg, host, card = self._weights(arch)
+        rng = np.random.default_rng(8)
+        toks = torch.tensor(rng.integers(0, cfg.vocab_size, (2, 24)))
+        enc = (torch.tensor(rng.normal(size=(2, 10, cfg.d_model)),
+                            dtype=torch.float32)
+               if cfg.family == "encdec" else None)
+        out = {}
+        for dev, params in (("cpu", host), ("cuda", card)):
+            e = None if enc is None else enc.to(dev)
+            fwd, _ = T.forward(params, cfg, toks.to(dev), enc_input=e)
+            state = T.init_decode_state(cfg, 2, 40, dtype=torch.float32,
+                                        device=dev, enc_len=10)
+            logits, state = T.prefill(params, cfg, toks.to(dev), state,
+                                      enc_input=e)
+            seq = [logits.cpu()]
+            nxt = out["cpu"][2][0].argmax(-1, keepdim=True) \
+                if dev == "cuda" else logits.argmax(-1, keepdim=True).cpu()
+            for i, t in enumerate(range(24, 29)):
+                logits, state = T.decode_step(params, cfg, nxt.to(dev),
+                                              state, t)
+                seq.append(logits.cpu())
+                nxt = (out["cpu"][2][i + 1] if dev == "cuda"
+                       else logits.cpu()).argmax(-1, keepdim=True)
+            out[dev] = (fwd.cpu(), decode_state_to_numpy(state), seq)
+        (fh, sh, qh), (fc, sc, qc) = out["cpu"], out["cuda"]
+        torch.testing.assert_close(fc, fh, rtol=1e-4, atol=1e-4)
+        for a, b in zip(qc, qh):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        assert sorted(sc) == sorted(sh)
+        for k, v in sh.items():
+            if k.endswith("pos"):
+                np.testing.assert_array_equal(sc[k], v)
+            else:
+                np.testing.assert_allclose(
+                    sc[k], v, rtol=0, atol=1e-4 * (np.abs(v).max() or 1.0),
+                    err_msg=k)
+
+    @pytest.mark.parametrize("arch", ARCHS[:2])
+    def test_engine_on_card_matches_cpu(self, arch):
+        from repro_torch.serve.engine import Engine, Request, ServeConfig
+        cfg, host, card = self._weights(arch)
+        rng = np.random.default_rng(9)
+        prompts = [rng.integers(0, cfg.vocab_size, s).astype(np.int32)
+                   for s in (3, 17, 9, 26, 5)]
+        outs = []
+        for dev, params in (("cpu", host), ("cuda", card)):
+            eng = Engine(cfg, params, ServeConfig(slots=2, max_len=40),
+                         device=dev)
+            reqs = [Request(prompt=p, max_new_tokens=6) for p in prompts]
+            for r in reqs:
+                eng.submit(r)
+            eng.run_until_done()
+            assert all(r.done for r in reqs)
+            outs.append([r.output for r in reqs])
+        assert outs[0] == outs[1]

@@ -173,13 +173,25 @@ def test_convert_round_trip_and_checks(model):
         lm_params_from_numpy(cfg, bad, device="cpu")
 
 
-def test_families_not_ported_raise():
-    for name in ("mamba2-2.7b", "hymba-1.5b", "seamless-m4t-medium"):
-        cfg = configs.get(name).smoke()
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            T.model_schema(cfg)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            T.init_decode_state(cfg, 1, 8, device="cpu")
+def test_unknown_family_and_encdec_engine_refused():
+    """The refusals that remain once every family is ported: a family
+    outside the five, at every entry point, and the LM Engine on the
+    encoder-decoder family (a Request carries no encoder input)."""
+    from repro_torch.serve.engine import Engine, ServeConfig
+    bad = dataclasses.replace(configs.get("llama3.2-1b").smoke(),
+                              family="rnn")
+    for call in (lambda: T.model_schema(bad),
+                 lambda: T.init_params(bad, 0, device="cpu"),
+                 lambda: T.init_decode_state(bad, 1, 8, device="cpu"),
+                 lambda: T.forward({}, bad, torch.zeros((1, 4), dtype=int)),
+                 lambda: T.decode_step({}, bad, torch.zeros((1, 1),
+                                                            dtype=int), (), 0)):
+        with pytest.raises(ValueError, match="unknown family 'rnn'"):
+            call()
+    cfg = configs.get("seamless-m4t-medium").smoke()
+    params = T.init_params(cfg, 0, device="cpu")
+    with pytest.raises(ValueError, match="encoder input"):
+        Engine(cfg, params, ServeConfig(slots=1, max_len=16), device="cpu")
 
 
 def test_cuda_without_card_raises():

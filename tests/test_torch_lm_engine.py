@@ -6,13 +6,17 @@ so the reference engine runs once in a child process
 (``tests/torch_ref_child.py lm_engine``): at the ``.smoke()`` widths of
 llama3.2-1b (dense, 3 slots, a 32-slot cache, eight prompts of 2 to 27
 tokens over the 8/16/32 buckets, the longest running into the cache's
-end) and granite-moe-3b-a800m (MoE, exact prompt lengths), from the
-reference's ``init_params(cfg, PRNGKey(0))``, with random
-``max_new_tokens`` and an ``eos_id`` on every third request.  The port's
-engine serves the same requests from the same weights, and every
+end), granite-moe-3b-a800m (MoE), mamba2-2.7b (SSM, a one-token prompt
+among them) and hymba-1.5b (hybrid: 8 meta tokens ahead of each prompt,
+a 16-position window on layer 1), the last three at exact prompt
+lengths, from the reference's ``init_params(cfg, PRNGKey(0))``, with
+random ``max_new_tokens`` and an ``eos_id`` on every third request.  The
+port's engine serves the same requests from the same weights, and every
 request's tokens must be equal: greedy tokens are integers, and the
 smoke widths leave the arg-max far from a tie (the logits agree to 1e-4,
-tests/test_torch_lm.py).
+tests/test_torch_lm.py and tests/test_torch_lm_families.py).  A slot's
+prefill overwrites its SSM state and conv history whole, so what an
+earlier request left there never reaches the next one.
 
 The reference's own engine tests (tests/test_train.py::TestServing) are
 ported on the port alone: continuous batching, the engine == a direct
@@ -33,7 +37,7 @@ from repro_torch.serve.engine import Engine, Request, ServeConfig
 
 from torch_parity import run_reference
 
-SCENARIOS = ("dense", "moe")
+SCENARIOS = ("dense", "moe", "ssm", "hybrid")
 
 
 @pytest.fixture(scope="module")
@@ -83,10 +87,11 @@ def test_bucket_lengths():
     eng = Engine(cfg, params, ServeConfig(slots=1, max_len=32), device="cpu")
     assert [eng._bucket_len(s) for s in (2, 3, 5, 7, 8, 9, 12, 17, 31)] == \
         [8, 8, 8, 8, 8, 16, 16, 32, 32]
-    moe = configs.get("granite-moe-3b-a800m").smoke()
-    eng = Engine(moe, T.init_params(moe, 0, device="cpu"),
-                 ServeConfig(slots=1, max_len=32), device="cpu")
-    assert [eng._bucket_len(s) for s in (2, 9, 17)] == [2, 9, 17]
+    for name in ("granite-moe-3b-a800m", "mamba2-2.7b", "hymba-1.5b"):
+        other = configs.get(name).smoke()
+        eng = Engine(other, T.init_params(other, 0, device="cpu"),
+                     ServeConfig(slots=1, max_len=32), device="cpu")
+        assert [eng._bucket_len(s) for s in (2, 9, 17)] == [2, 9, 17]
 
 
 @pytest.mark.parametrize("name", SCENARIOS)

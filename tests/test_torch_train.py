@@ -193,9 +193,21 @@ def test_grads_repeat_bit_for_bit(family):
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "hymba-1.5b",
                                   "seamless-m4t-medium"])
 def test_lm_loss_refuses_unported_families(arch):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        T.lm_loss({}, configs.get(arch).smoke(),
-                  {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    """Every family of the repo is ported: the three last ones take a loss
+    (finite, at their smoke widths; held against the reference in
+    tests/test_torch_lm_families.py), a family outside the five is
+    refused, and so is an encoder-decoder batch without ``enc_input``."""
+    cfg = configs.get(arch).smoke()
+    params = T.init_params(cfg, 0, device="cpu")
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
+    if cfg.family == "encdec":
+        with pytest.raises(ValueError, match="enc_input"):
+            T.lm_loss(params, cfg, batch)
+        batch["enc_input"] = torch.ones((1, 6, cfg.d_model))
+    loss, _ = T.lm_loss(params, cfg, batch)
+    assert torch.isfinite(loss)
+    with pytest.raises(ValueError, match="unknown family"):
+        T.lm_loss(params, dataclasses.replace(cfg, family="rnn"), batch)
 
 
 # --------------------------------------------------------------------------

@@ -32,8 +32,9 @@ bf16 tile mode's under ``bf16/``.  The hierarchy run writes ``merge/*``
 (``merge_fleet`` and ``fleet_basis_dense`` on energy tables with ties),
 and for each two-level or sharded scenario its inputs, initial states
 (``{name}/init.*``), final states, metrics and merge.  The ``lm_engine``
-run serves the LM ``Engine`` at two smoke configurations (``dense``:
-llama3.2-1b's, with prompt buckets; ``moe``: granite-moe-3b-a800m's) and
+run serves the LM ``Engine`` at four smoke configurations (``dense``:
+llama3.2-1b's, with prompt buckets; ``moe``: granite-moe-3b-a800m's;
+``ssm``: mamba2-2.7b's; ``hybrid``: hymba-1.5b's) and
 writes, under ``{name}/``, the configuration's name, slots and cache
 length, the parameters of ``repro.models.transformer.init_params(cfg,
 PRNGKey(0))`` keyed by dotted path (``params.layers.attn.wq``, ...), and
@@ -564,6 +565,11 @@ def example_event_fleet(out):
 LM_SCENARIOS = {
     "dense": ("llama3.2-1b", 3, 32, (2, 3, 5, 7, 9, 12, 17, 27)),
     "moe": ("granite-moe-3b-a800m", 3, 32, (3, 4, 6, 9, 11, 5, 14)),
+    # a one-token prompt: the conv history is padded with zeros
+    "ssm": ("mamba2-2.7b", 3, 32, (1, 4, 6, 11, 19, 2, 27, 8)),
+    # 8 meta tokens ahead of every prompt; layer 1's window of 16 cuts
+    # the longer ones
+    "hybrid": ("hymba-1.5b", 3, 32, (2, 5, 9, 14, 21, 3, 26, 12)),
 }
 
 
