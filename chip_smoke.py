@@ -178,6 +178,21 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      layers, layer 2 windowed, over 1,280 tokens, past the 1,024 window;
      seamless 2 + 2 layers), no kernel launch, no plain call
      (``lm_families``).
+ 20. the dry run (repro_torch.launch): ``dryrun --smoke`` on a one-rank
+     NCCL mesh, the five wsn-1m cells at WSN.smoke() (p = 4096, h = 8,
+     q = 8, n = 8) each within 1e-6 of the unsharded step through the
+     kernels' plain versions on the CPU (max abs and rel err, and whether
+     bit for bit), kernels 6, 10 and 11 launched (under
+     ``launches_by_path["dryrun_smoke"]``) and no plain call; the full
+     fake dry run of llama3.2-1b and granite-moe-3b-a800m decode_32k (the
+     expert-parallel branch) and wsn-1m pim_block on the 16x16 mesh, a
+     row each (peak GB per device, FLOPs, wire bytes, roofline terms at
+     the H100 datasheet's rates); the planner against the card: phase
+     18's lm100m step (8 x 256) run once for real under the dry run's
+     meter and FlopCounterMode and once planned on a one-rank fake mesh,
+     the three FLOP counts equal and the planned peak within 10% of
+     max_memory_allocated over what earlier phases hold
+     (``dryrun_on_card``).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card, or without the rest
 of the repository beside it, the script exits non-zero and prints no
@@ -2340,6 +2355,129 @@ def lm_families(dev, smi: str) -> None:
           "wrapper")
 
 
+DRYRUN_CELLS = [("llama3.2-1b", "decode_32k"),
+                ("granite-moe-3b-a800m", "decode_32k"),
+                ("wsn-1m", "pim_block")]
+SMOKE_KERNELS = {"cov_update": "band_round", "pim_block": "banded_matmul",
+                 "pim_deflated": "banded_matvec"}
+
+
+def dryrun_on_card(record, dev, smi: str) -> None:
+    """Phase 20: the dry run (``repro_torch.launch``) on and for the card.
+
+    1. ``dryrun --smoke``: the five wsn-1m cells at ``WSN.smoke()`` on a
+       one-rank NCCL mesh, each ok (within 1e-6 of its largest magnitude
+       of the unsharded step, run on CPU copies of the operands through
+       the kernels' plain versions), the sharded cov_update, pim_block
+       and pim_deflated each launching kernel 6, 10 or 11 once (recorded
+       under ``launches_by_path["dryrun_smoke"]``) and no sharded step a
+       plain call.
+    2. The fake dry run of :data:`DRYRUN_CELLS` on the 16x16 mesh (a fake
+       process group of 256 ranks; fake tensors, nothing allocated), one
+       row each.
+    3. The planner against the card: phase 18's lm100m step (bf16
+       weights, fp32 moments, remat, 8 x 256 tokens) run once for real
+       under the dry run's meter and torch's ``FlopCounterMode``, then
+       planned on a one-rank fake mesh: the FLOPs of all three equal, and
+       the planned peak of live bytes within 10% of
+       ``max_memory_allocated`` over what earlier phases hold."""
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import configs
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import analytic as A
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.trainer import make_train_step
+
+    check(not dist.is_initialized(), "no process group left open")
+    print("   -- dryrun --smoke: wsn-1m at WSN.smoke(), one NCCL rank")
+    for shape in D.WSN_SHAPES:
+        ops.reset_counts()
+        rec = D.run_cell("wsn-1m", shape, False, smoke=True, device="cuda")
+        check(rec["ok"], f"smoke {shape}: {rec.get('error')}")
+        # the unsharded step on the CPU (the reference) runs plain versions
+        # and launches nothing: every launch is the sharded step's
+        launched, _ = path_counts()
+        kernel = SMOKE_KERNELS.get(shape)
+        want = {kernel: 1} if kernel else {}
+        check(rec["launches"] == want == launched
+              and rec["plain_calls"] == {},
+              f"smoke {shape}: launches {rec['launches']} / {launched}, "
+              f"plain {rec['plain_calls']}")
+        if kernel:
+            by = record[kernel].setdefault("launches_by_path", {})
+            by["dryrun_smoke"] = by.get("dryrun_smoke", 0) + 1
+        print(f"   smoke {shape:<13s} ok against the unsharded step's "
+              f"plain versions on the CPU: max abs err "
+              f"{rec['max_abs_err']:.3g}, max rel err "
+              f"{rec['max_rel_err']:.3g} of the largest magnitude (tol "
+              f"{D.SMOKE_RTOL:g}; bit for bit: {rec['bitwise']}), launches "
+              f"{rec['launches']}, peak "
+              f"{rec['memory']['peak_per_device'] / 1e6:.3f} MB, "
+              f"{rec['total_s']} s [{smi}]")
+
+    print("   -- the fake dry run at 16x16 (256 fake ranks; plan figures "
+          "at the H100 SXM5 datasheet's rates)")
+    for arch, shape in DRYRUN_CELLS:
+        rec = D.run_cell(arch, shape, False)
+        check(rec["ok"], f"{arch} {shape}: {rec.get('error')}")
+        rl, col = rec["roofline"], rec["collectives"]
+        print(f"   {arch} {shape} 16x16: peak "
+              f"{rec['memory']['peak_per_device'] / 2**30:.3f} GiB/device, "
+              f"{rec['cost']['flops']:.4g} FLOP/device, "
+              f"{col['total_wire_bytes'] / 2**20:.1f} MiB wire/device "
+              f"({sum(col['counts'].values())} collectives), compute "
+              f"{rl['compute_s']:.3g} s, memory {rl['memory_s']:.3g} s, "
+              f"collective {rl['collective_s']:.3g} s ({rl['dominant']}); "
+              f"ran in {rec['total_s']} s [{smi}]")
+
+    print("   -- the planner against the card: lm100m, 8 x 256")
+    cfg = configs.get(TRAIN_ARCH)
+    tcfg = _train_config(TRAIN_STEPS, 0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = T.init_params(cfg, gen, device=dev)
+    opt = adamw_init(params, tcfg.optimizer)
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=256,
+                         global_batch=8, seed=0)
+    tokens = torch.from_numpy(next(pipe)).to(dev)
+    step = make_train_step(cfg, tcfg)
+    # torch's own FlopCounterMode over the same step: a count that shares
+    # the formulas but not the meter's handling of the dispatch
+    with FlopCounterMode(display=False) as counter:
+        real = D.measure(lambda p, o, b: step(p, o, None, b, 0),
+                         (params, opt, {"tokens": tokens}))
+    torch.cuda.synchronize()
+    card_peak = torch.cuda.max_memory_allocated() - held
+    del params, opt, real.result
+    plan = D.plan_train_step(cfg, tcfg, (8, 256))
+    gap = plan.peak / card_peak - 1
+    # the analytic model's 6 N D + 3 x attention (launch.analytic): it
+    # leaves out remat's recomputed forward and counts the embedding
+    # table's lookup as a product, so it is printed, not held
+    model = (6.0 * cfg.active_param_count() * 8 * 256
+             + 3.0 * A._attn_fwd_flops(cfg, 8, 256, 128))
+    print(f"   lm100m step: FLOPs counted on the card {real.flops:.6g}, "
+          f"by FlopCounterMode {counter.get_total_flops():.6g}, planned "
+          f"{plan.flops:.6g} (the analytic 6 N D + 3 attention "
+          f"{model:.6g}, ratio {real.flops / model:.4f}); peak on the card "
+          f"(max_memory_allocated - held) {card_peak / 1e9:.4f} GB, the "
+          f"meter's on the card {real.peak / 1e9:.4f} GB, planned "
+          f"{plan.peak / 1e9:.4f} GB ({100 * gap:+.2f}%) [{smi}]")
+    check(real.flops == counter.get_total_flops(), "the meter's FLOPs "
+          "differ from FlopCounterMode's")
+    check(plan.flops == real.flops, "the planned FLOPs differ from the "
+          "card's")
+    check(abs(gap) <= 0.10, f"the planned peak is {100 * gap:+.1f}% off "
+          f"the card's")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3163,6 +3301,12 @@ def main() -> int:
     t19 = time.perf_counter()
     lm_families(dev, smi)
     print(f"   phase 19: {time.perf_counter() - t19:.1f} s")
+
+    phase("20 the dry run (repro_torch.launch): smoke cells on the card, "
+          "fake 16x16 cells, the planner against the card")
+    t20 = time.perf_counter()
+    dryrun_on_card(record, dev, smi)
+    print(f"   phase 20: {time.perf_counter() - t20:.1f} s")
 
     print(f"   total {time.perf_counter() - t_start:.1f} s")
     for rec in record.values():

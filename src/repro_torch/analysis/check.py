@@ -4,10 +4,11 @@ contract, the resource checks and the source lints; print one line a rule
 failure.
 
 Options:
-    --device cpu|cuda   where the contracts run (default cpu: tiny sizes;
-                        cuda: the engine's widths, plus the host syncs by
-                        call site on the engine contracts and the card
-                        part of the resource checks)
+    --device cpu|cuda   where the contracts run (default cuda: the
+                        engine's widths, plus the host syncs by call site
+                        on the engine contracts and the card part of the
+                        resource checks; raises where there is no card;
+                        cpu: tiny sizes)
     --only SUBSTR       only the contracts whose id contains SUBSTR (the
                         resource checks and the lints still run)
     --json PATH         also write the rows as JSON
@@ -25,11 +26,12 @@ import json
 import sys
 
 
-def run_checks(device: str = "cpu", only: str | None = None,
+def run_checks(device: str = "cuda", only: str | None = None,
                echo=print) -> list[dict]:
-    """Every contract, resource check and lint on ``device``; returns the
-    rows (``contract``, ``rule``, ``ok``, ``detail``), each echoed as a
-    line."""
+    """Every contract, resource check and lint on ``device`` (the card
+    unless asked for the CPU: where there is no card it raises); returns
+    the rows (``contract``, ``rule``, ``ok``, ``detail``), each echoed as
+    a line."""
     from repro_torch.analysis import contracts, repolint, resources
     from repro_torch.device import resolve_device
 
@@ -70,7 +72,7 @@ def run_checks(device: str = "cpu", only: str | None = None,
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.analysis.check")
-    ap.add_argument("--device", default="cpu", choices=("cpu", "cuda"))
+    ap.add_argument("--device", default="cuda", choices=("cpu", "cuda"))
     ap.add_argument("--only", help="substring filter on contract ids")
     ap.add_argument("--json", dest="json_path",
                     help="write the rows to this path")

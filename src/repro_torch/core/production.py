@@ -10,11 +10,15 @@ diagonals.  The four steps, on one device:
     pim_deflated_step  one deflated single-vector PIM round    kernel 11
     transform_step     PCAg scores of an epoch batch       torch.matmul
 
-and the two iteration steps' sharded forms over a process group, the
-port's form of what GSPMD makes of the reference's steps
-(collective-permute halos plus all-reduce): each rank holds a contiguous
-slice of p and its band slice stored padded with h zero columns a side
-(:func:`shard_band`).  An iteration runs one
+and the four steps' sharded forms over a process group, the port's form
+of what GSPMD makes of the reference's steps (collective-permute halos
+plus all-reduce): each rank holds a contiguous slice of p.  The update
+(:func:`sharded_cov_update_step`) keeps the band slice unpadded, takes
+x's h edge columns from its neighbours (one halo exchange) and folds the
+padded batch in one launch of kernel 6, keeping the middle columns; the
+transform (:func:`sharded_transform_step`) sums the slices' partial
+scores with one all-reduce.  The iterations hold the band slice stored
+padded with h zero columns a side (:func:`shard_band`).  An iteration runs one
 :func:`~repro_torch.core.aggregation.halo_exchange` of the iterate, one
 launch of kernel 11 (or 10) on the padded width, and keeps the middle
 columns; the Gram matrix and the norm are
@@ -36,7 +40,8 @@ from repro_torch.kernels import ops
 
 __all__ = ["cov_update_step", "pim_block_step", "pim_deflated_step",
            "transform_step", "shard_band", "halo_matvec", "halo_matmul",
-           "sharded_pim_block_step", "sharded_pim_deflated_step"]
+           "sharded_cov_update_step", "sharded_pim_block_step",
+           "sharded_pim_deflated_step", "sharded_transform_step"]
 
 
 def cov_update_step(state: cov.BandedCovState,
@@ -141,6 +146,29 @@ def halo_matmul(band_pad: torch.Tensor, V: torch.Tensor,
     local = V.shape[0]
     vp = _padded(V.T, h, group).T.contiguous()
     return ops.banded_matmul(band_pad, vp)[h:h + local]
+
+
+def sharded_cov_update_step(state: cov.BandedCovState, x: torch.Tensor,
+                            group=None) -> cov.BandedCovState:
+    """:func:`cov_update_step` on this rank's columns: ``state`` holds the
+    slice (``s`` (local,), ``band`` (2h+1, local)), ``x`` (n, local).  One
+    halo exchange of x's h edge columns, one launch of kernel 6 on the
+    padded (n, local + 2h) batch, the middle columns kept: a middle
+    column's diagonals pair it with the same neighbours, in the same row
+    order, as the unsharded fold."""
+    h = state.halfwidth
+    local = x.shape[-1]
+    delta = ops.cov_band_update(_padded(x, h, group), h)[:, h:h + local]
+    return cov.BandedCovState(t=state.t + x.shape[0], s=state.s + x.sum(0),
+                              band=state.band + delta, halfwidth=h)
+
+
+def sharded_transform_step(w: torch.Tensor, mean: torch.Tensor,
+                           x: torch.Tensor, group=None) -> torch.Tensor:
+    """:func:`transform_step` on this rank's rows of W (``w`` (local, q),
+    ``mean`` (local,), ``x`` (n, local)): the partial scores summed over
+    the ranks by ONE all_reduce of the (n, q) table."""
+    return a_op((x - mean[None, :]) @ w, group)
 
 
 def sharded_pim_block_step(band_pad: torch.Tensor, v: torch.Tensor,

@@ -1,2 +1,3 @@
-"""Fleet sharding over ``torch.distributed`` ranks (counterpart of the
-streaming half of ``repro.distributed``)."""
+"""The sharding plan (the LM's FSDP + TP rules as DTensor placements, the
+fleet's axes over ranks) and gradient compression (counterpart of
+``repro.distributed``, but for ``pipeline``)."""

@@ -10,6 +10,14 @@ a run can show which path it took (:func:`reset_counts`).
 
 Kernels launch on PyTorch's current stream, do not synchronise, and
 allocate nothing: the wrapper allocates every output with ``torch.empty``.
+
+A dry run (``repro_torch.launch.dryrun``) hands the wrappers of kernels 6,
+7, 10 and 11 fake tensors (``FakeTensorMode``: shapes, no data).  Such a
+call neither launches nor runs the plain version: it appends the call
+(kernel, operand shapes and dtypes, parameters, output) to
+:data:`PLANNED`, which the dry run prices with
+``analysis.resources.call_work``, and returns an empty output of the
+kernel's shape.
 """
 
 from __future__ import annotations
@@ -18,11 +26,12 @@ import functools
 import math
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import load_library
 
-__all__ = ["LAUNCHES", "PLAIN_CALLS", "reset_counts",
+__all__ = ["LAUNCHES", "PLAIN_CALLS", "PLANNED", "reset_counts",
            "cov_band_update", "cov_band_update_batched",
            "cov_band_update_chunk", "cov_band_update_chunk_batched",
            "fused_tiles", "fused_stream_update",
@@ -40,10 +49,24 @@ PLAIN_CALLS = dict.fromkeys(_KERNELS, 0)
 _MAX_SLOTS = 65535              # grid y
 
 
+PLANNED: list = []
+
+
 def reset_counts() -> None:
     for d in (LAUNCHES, PLAIN_CALLS):
         for k in d:
             d[k] = 0
+    PLANNED.clear()
+
+
+def _planned(kernel: str, operands: dict, params: dict,
+             out: torch.Tensor) -> torch.Tensor:
+    """A call on fake tensors: recorded in :data:`PLANNED`, ``out``
+    returned as it is (empty)."""
+    PLANNED.append((kernel, {k: (tuple(t.shape), t.dtype)
+                             for k, t in operands.items()},
+                    params, ((tuple(out.shape), out.dtype),)))
+    return out
 
 
 def _check(ret: int, kernel: str) -> None:
@@ -133,6 +156,10 @@ def cov_band_update_batched(x: torch.Tensor, halfwidth: int, *,
     if mask is not None and mask.shape not in ((B, p), (B, n, p)):
         raise ValueError(f"mask shape {tuple(mask.shape)} is neither "
                          f"{(B, p)} nor {(B, n, p)}")
+    if isinstance(x, FakeTensor):
+        ops_ = {"x": x} if mask is None else {"x": x, "mask": mask}
+        return _planned(kernel, ops_, {"halfwidth": h}, x.new_empty(
+            (B, 2 * h + 1, p), dtype=torch.float32))
     if not x.is_cuda:
         PLAIN_CALLS[kernel] += 1
         return ref.cov_band_update(x, h, mask)
@@ -546,6 +573,9 @@ def _banded(band: torch.Tensor, V: torch.Tensor, vec: bool) -> torch.Tensor:
         raise ValueError(f"{kernel}: band {tuple(band.shape)} (2h+1 "
                          f"diagonals) and operand {tuple(V.shape)} do not "
                          f"fit (want {tuple(want)})")
+    if isinstance(band, FakeTensor):
+        return _planned(kernel, {"band": band, "V": V}, {},
+                        band.new_empty(want, dtype=torch.float32))
     if not band.is_cuda:
         PLAIN_CALLS[kernel] += 1
         return (ref.banded_matvec if vec else ref.banded_matmul)(band, V)

@@ -1,2 +1,3 @@
-"""Process-group layout of the fleet (counterpart of ``repro.launch``'s
-fleet mesh)."""
+"""Meshes, the dry run and the roofline plan (counterpart of
+``repro.launch``): ``mesh``, ``dryrun``, ``collectives``, ``analytic``,
+``roofline``, ``inspect_collectives``, ``tiling``."""

@@ -1,13 +1,19 @@
-"""The fleet's process-group layout (counterpart of
-``repro.launch.mesh.make_fleet_mesh`` and ``mesh_axis_sizes``).
+"""Meshes (counterpart of ``repro.launch.mesh``).
 
-The reference lays its devices out as a (region, data) mesh; here one
+The LM's pod meshes are ``torch.distributed.device_mesh.DeviceMesh``es
+with the reference's axis names over the default process group's ranks:
+16x16 = 256 ranks ``("data", "model")`` for one pod, 2x16x16 = 512
+``("pod", "data", "model")`` for two (:func:`make_production_mesh`; the
+dry run opens a fake group of that many ranks), and a (data, model) mesh
+over however many ranks there are (:func:`make_local_mesh`).
+
+The fleet's process-group layout (``make_fleet_mesh``): the reference
+lays its devices out as a (region, data) mesh; here one
 process per device takes that place, rank ``r * data + d`` at mesh
 coordinate (r, d) as ``jax.make_mesh`` numbers them, and each axis is a
 process group over the ranks that differ only along it.  Every process
 group is opened with a ``file://`` store and a timeout, so no run waits on
-a network port or hangs.  The LM workloads' pod meshes are not set up
-here.
+a network port or hangs.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ import torch.distributed as dist
 from repro_torch.device import resolve_device
 
 __all__ = ["FleetMesh", "init_fleet_process_group", "make_fleet_mesh",
-           "mesh_axis_sizes"]
+           "make_production_mesh", "make_local_mesh", "mesh_axis_sizes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,5 +85,29 @@ def make_fleet_mesh(region: int | None = None, data: int = 1) -> FleetMesh:
                      sizes=(("region", n), ("data", data)))
 
 
-def mesh_axis_sizes(mesh: FleetMesh) -> dict[str, int]:
-    return dict(mesh.sizes)
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cpu"):
+    """16x16 = 256 ranks per pod; 2x16x16 = 512 for two pods, over the
+    default group (which must hold that many ranks).
+
+    Axes: 'data' carries DP/FSDP, 'model' carries TP/EP; 'pod' (multi-pod)
+    carries the cross-pod data-parallel / FSDP dimension.
+    """
+    from torch.distributed.device_mesh import init_device_mesh
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+def make_local_mesh(data: int = 1, model: int = 1, device_type: str = "cpu"):
+    """A (data, model) mesh over the default group's ranks."""
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(device_type, (data, model),
+                            mesh_dim_names=("data", "model"))
+
+
+def mesh_axis_sizes(mesh) -> dict[str, int]:
+    """Axis name -> size of a :class:`FleetMesh` or a ``DeviceMesh``."""
+    if isinstance(mesh, FleetMesh):
+        return dict(mesh.sizes)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))

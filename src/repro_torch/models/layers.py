@@ -14,9 +14,12 @@ the decoder's cross-attention reads the encoder's output
 (``attention_apply(causal=False, kv_x=...)``, and at decode
 :func:`cross_attention_cached` against the prefill's roped K/V).
 
-Where the reference shards activations (``shard_activation``) the port
-does nothing: outside a mesh the reference's call is a no-op as well.
-The decode path writes its KV cache in place.
+Where the reference shards activations the port calls
+:func:`~repro_torch.distributed.sharding.shard_activation` at the same
+sites: a no-op outside a mesh, a redistribute of a DTensor inside one.
+The decode path writes its KV cache in place; on a DTensor cache each
+rank writes its own shard (:func:`write_slots`, :func:`write_prefix`),
+since DTensor has no sharded ``index_put_``.
 """
 
 from __future__ import annotations
@@ -28,11 +31,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (from_local, is_dtensor,
+                                              shard_activation, shard_window)
 from repro_torch.models.params import P
 
 __all__ = ["rms_norm", "rope", "attention_schema", "attention_apply",
            "attention_cached", "cross_attention_cached", "mlp_schema",
-           "mlp_apply", "PosCache", "init_pos_cache"]
+           "mlp_apply", "PosCache", "init_pos_cache", "write_slots",
+           "write_prefix"]
 
 _NEG_INF = -1e30
 
@@ -134,6 +140,131 @@ def _gqa_attend(q, k, v, mask, head_dim):
     return out.reshape(B, Sq, H, Dh)
 
 
+def _attend(q, k, v, mask, head_dim):
+    """:func:`_gqa_attend`, on DTensors shard by shard
+    (:func:`_sharded_attend`)."""
+    if is_dtensor(q):
+        return _sharded_attend(
+            lambda qq, kk, vv, mm: _gqa_attend(qq, kk, vv, mm, head_dim),
+            q, k, v, mask)
+    return _gqa_attend(q, k, v, mask, head_dim)
+
+
+def _sharded_attend(core, q, k, v, mask):
+    """An attention ``core(q, k, v, mask)`` on DTensors, run on the local
+    shards (DTensor has no sharding rule for the grouped heads' reshape
+    when a shard splits a KV group).
+
+    * K/V sequence-sharded over ``model`` (a decode cache, as the
+      reference places it): split-K attention.  Each model rank scores its
+      slice of the keys for every head; the softmax's max and normaliser
+      and the PV products are summed over the model ranks (three
+      all-reduces: max, sum, sum).
+    * Otherwise heads-parallel, where the query heads divide by the model
+      ranks (the reference's ``act_heads``): each rank attends with its
+      query heads, reading the KV heads they group onto (KV heads
+      replicated where they do not divide, ``act_kv_heads``'s fallback).
+    * Else every model rank attends for the whole of its batch shard.
+
+    The batch stays sharded over the data axes throughout."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = q.device_mesh
+    names = mesh.mesh_dim_names
+    mi = names.index("model") if "model" in names else None
+    nm = mesh.shape[mi] if mi is not None else 1
+    B, Sq, H, Dh = q.shape
+    K = k.shape[2]
+    dp_ok = all(B % mesh.shape[i] == 0 for i, n in enumerate(names)
+                if n != "model")
+
+    def pl(model_pl):
+        return [model_pl if i == mi else (Shard(0) if dp_ok else Replicate())
+                for i in range(len(names))]
+
+    kv_seq = (mi is not None and is_dtensor(k)
+              and k.placements[mi] == Shard(1) and nm > 1)
+    if kv_seq:
+        q_pl, kv_pl = pl(Replicate()), pl(Shard(1))
+        m_pl = pl(Shard(4))
+    elif mi is not None and nm > 1 and H % nm == 0:
+        q_pl = pl(Shard(2))
+        kv_pl = pl(Shard(2) if K % nm == 0 else Replicate())
+        m_pl = pl(Replicate())
+    else:
+        q_pl = kv_pl = m_pl = pl(Replicate())
+    grad = lambda p: [Partial() if (i == mi and p[i] == Replicate()
+                                    and q_pl[i] != Replicate()) else p[i]
+                      for i in range(len(p))]
+
+    def dt(t):
+        return t if is_dtensor(t) else from_local(
+            t, mesh, [Replicate()] * len(names))
+
+    def local(t, p, g=None):
+        return dt(t).redistribute(mesh, p).to_local(grad_placements=g)
+
+    ql = local(q, q_pl, [Partial() if i == mi else p for i, p in
+                         enumerate(q_pl)] if kv_seq else None)
+    kl, vl = local(k, kv_pl, grad(kv_pl)), local(v, kv_pl, grad(kv_pl))
+    ml = None
+    if mask is not None:
+        if mask.shape[0] == 1 and not kv_seq:
+            ml = mask.to_local() if is_dtensor(mask) else mask
+        else:
+            ml = dt(mask).expand(B, *mask.shape[1:])
+            ml = ml.redistribute(mesh, m_pl).to_local()
+    if kv_seq:
+        out = _split_k(ql, kl, vl, ml, q.shape[-1],
+                       mesh.get_group("model").group_name)
+    else:
+        if (mi is not None and q_pl[mi] == Shard(2)
+                and kv_pl[mi] == Replicate() and K != H):
+            # this rank's query heads and the KV heads they group onto
+            Hl = ql.shape[2]
+            first = mesh.get_local_rank("model") * Hl
+            kv_idx = torch.div(torch.arange(first, first + Hl,
+                                            device=ql.device),
+                               H // K, rounding_mode="floor")
+            kl, vl = kl[:, :, kv_idx], vl[:, :, kv_idx]
+        out = core(ql, kl, vl, ml)
+    return from_local(out, mesh, q_pl, q.shape)
+
+
+class _SumOver(torch.autograd.Function):
+    """All-reduce (``op``) over a group; the backward passes the gradient
+    through (every rank holds the whole reduced value)."""
+
+    @staticmethod
+    def forward(ctx, x, op, group_name):
+        f = torch.ops._c10d_functional
+        return f.wait_tensor(f.all_reduce(x.contiguous(), op, group_name))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def _split_k(q, k, v, mask, head_dim, group_name):
+    """Grouped attention over this rank's slice of the keys, the softmax
+    completed across the group: the global max and normaliser by two
+    all-reduces, the PV products summed by a third."""
+    B, Sq, H, Dh = q.shape
+    K = k.shape[2]
+    qg = q.reshape(B, Sq, K, H // K, Dh)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float())
+    scores = scores / math.sqrt(head_dim)
+    if mask is not None:
+        scores = torch.where(mask, scores, _NEG_INF)
+    m = _SumOver.apply(scores.amax(dim=-1, keepdim=True).detach(), "max",
+                       group_name)
+    e = torch.exp(scores - m)
+    denom = _SumOver.apply(e.sum(dim=-1, keepdim=True), "sum", group_name)
+    probs = e / denom
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
+    out = _SumOver.apply(out, "sum", group_name)
+    return out.reshape(B, Sq, H, Dh)
+
+
 # Sequences at or above this length take the online-softmax chunked path —
 # full (Sq, Sk) score materialization at 32k+ would need tens of GB.
 CHUNKED_ATTN_THRESHOLD = 8192
@@ -221,18 +352,23 @@ def attention_apply(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     kv_pos = positions if kv_positions is None else kv_positions
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, kv_pos, cfg.rope_theta)
+    q = shard_activation(q, ("batch", "seq", "act_heads", None))
+    k = shard_activation(k, ("batch", "seq", "act_kv_heads", None))
     window = int(window)
     if max(q.shape[1], k.shape[1]) >= CHUNKED_ATTN_THRESHOLD:
-        out = _chunked_attend(q, k, v, positions, kv_pos, causal=causal,
-                              window=window, n_meta=cfg.n_meta_tokens,
-                              head_dim=cfg.head_dim)
+        core = lambda qq, kk, vv, _: _chunked_attend(
+            qq, kk, vv, positions, kv_pos, causal=causal, window=window,
+            n_meta=cfg.n_meta_tokens, head_dim=cfg.head_dim)
+        out = (_sharded_attend(core, q, k, v, None) if is_dtensor(q)
+               else core(q, k, v, None))
     else:
         mask = None
         if causal:
             mask = _window_mask(positions[:, None], kv_pos[None, :], window,
                                 cfg.n_meta_tokens)[None, None, None]
-        out = _gqa_attend(q, k, v, mask, cfg.head_dim)
+        out = _attend(q, k, v, mask, cfg.head_dim)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    y = shard_activation(y, ("batch", "seq", "act_embed"))
     if return_kv:
         return y, (k, v)
     return y
@@ -261,11 +397,10 @@ def attention_cached(p: dict, cfg, x: torch.Tensor, t, cache: PosCache, *,
     q = rope(q, tv[:, None], cfg.rope_theta)
     k = rope(k, tv[:, None], cfg.rope_theta)
 
-    bidx = torch.arange(B, device=x.device)
     slot = tv.long()
-    cache.k[bidx, slot] = k[:, 0].to(cache.k.dtype)
-    cache.v[bidx, slot] = v[:, 0].to(cache.v.dtype)
-    cache.pos[bidx, slot] = tv
+    write_slots(cache.k, k[:, 0], slot)
+    write_slots(cache.v, v[:, 0], slot)
+    write_slots(cache.pos, tv, slot)
 
     kp = cache.pos                                       # (B, Cl)
     tb = tv[:, None]
@@ -277,9 +412,11 @@ def attention_cached(p: dict, cfg, x: torch.Tensor, t, cache: PosCache, *,
         mask = mask & in_window
     mask = mask[:, None, None, None, :]                  # (B,1,1,1,Cl)
 
-    out = _gqa_attend(q, cache.k, cache.v, mask, cfg.head_dim)
+    out = _attend(q, cache.k, cache.v, mask, cfg.head_dim)
     y = torch.einsum("bshk,hkd->bsd", out.to(p["wo"].dtype), p["wo"])
-    return y, cache
+    # attention_apply's placement of its output (DTensor cannot reduce a
+    # partial sum onto a one-token sequence dim on its own)
+    return shard_activation(y, ("batch", "seq", "act_embed")), cache
 
 
 def cross_attention_cached(p: dict, cfg, x: torch.Tensor, t,
@@ -304,8 +441,10 @@ def cross_attention_cached(p: dict, cfg, x: torch.Tensor, t,
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
     q = rope(q, tv.reshape(1), cfg.rope_theta)
-    out = _gqa_attend(q, enc_k, enc_v, None, cfg.head_dim)
-    return torch.einsum("bshk,hkd->bsd", out.to(p["wo"].dtype), p["wo"])
+    out = _attend(q, enc_k, enc_v, None, cfg.head_dim)
+    return shard_activation(
+        torch.einsum("bshk,hkd->bsd", out.to(p["wo"].dtype), p["wo"]),
+        ("batch", "seq", "act_embed"))
 
 
 # ---------------------------------------------------------------------------
@@ -323,4 +462,86 @@ def mlp_schema(cfg) -> dict:
 
 def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
-    return h @ p["w_down"]
+    h = shard_activation(h, ("batch", "seq", "act_mlp"))
+    return shard_activation(h @ p["w_down"], ("batch", "seq", "act_embed"))
+
+
+# ---------------------------------------------------------------------------
+# In-place cache writes, plain or shard by shard
+# ---------------------------------------------------------------------------
+def _local_window(dst):
+    """(local tensor, global offset of each dim) of a DTensor."""
+    _, off = shard_window(dst.shape, dst.device_mesh, dst.placements)
+    return dst.to_local(), off
+
+
+def _src_local(src, dst, dim_map: dict[int, int]):
+    """``src`` as the tensor this rank needs for its shard of ``dst``:
+    a DTensor redistributed to ``dst``'s placements on the dims
+    ``dim_map`` pairs (dst dim -> src dim) and replicated on the others,
+    then made local; a plain tensor as it is (the same on every rank).
+    Returns (local tensor, whether each src dim is already local)."""
+    if not is_dtensor(src):
+        return src, {}
+    from torch.distributed.tensor import Replicate, Shard
+    pl = []
+    for p in dst.placements:
+        if isinstance(p, Shard) and p.dim in dim_map:
+            pl.append(Shard(dim_map[p.dim]))
+        else:
+            pl.append(Replicate())
+    src = src.redistribute(src.device_mesh, pl)
+    return src.to_local(), {dim_map[p.dim] for p in dst.placements
+                            if isinstance(p, Shard) and p.dim in dim_map}
+
+
+def write_slots(dst: torch.Tensor, src: torch.Tensor,
+                slot: torch.Tensor) -> None:
+    """``dst[b, slot[b]] = src[b]`` in place for every row b (``dst`` (B,
+    Cl, ...), ``src`` (B, ...), ``slot`` (B,)).  On a DTensor ``dst`` each
+    rank writes its own shard: the rows of its batch shard, and of a
+    sequence-sharded cache only the slots in its range (the others keep
+    their value through a ``where``)."""
+    if not is_dtensor(dst):
+        bidx = torch.arange(dst.shape[0], device=dst.device)
+        dst[bidx, slot] = src.to(dst.dtype)
+        return
+    local, off = _local_window(dst)
+    nd = dst.dim()
+    s_loc, done = _src_local(src, dst, {0: 0, **{d: d - 1
+                                                 for d in range(2, nd)}})
+    sl, _ = _src_local(slot, dst, {0: 0})
+    B, Cl = local.shape[:2]
+    if 0 not in done:
+        s_loc = s_loc[off[0]:off[0] + B]
+    if not is_dtensor(slot):
+        sl = sl[off[0]:off[0] + B]
+    for d in range(2, nd):
+        if d - 1 not in done:
+            s_loc = s_loc.narrow(d - 1, off[d], local.shape[d])
+    ls = sl.long() - off[1]
+    inside = (ls >= 0) & (ls < Cl)
+    ls = ls.clamp(0, Cl - 1)
+    bidx = torch.arange(B, device=local.device)
+    old = local[bidx, ls]
+    keep = inside.reshape((B,) + (1,) * (old.dim() - 1))
+    local[bidx, ls] = torch.where(keep, s_loc.to(local.dtype), old)
+
+
+def write_prefix(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst[:, :S] = src`` in place (``src`` (B, S, ...), S <= Cl).  On a
+    DTensor ``dst`` each rank copies the part of ``src`` its shard
+    covers."""
+    S = src.shape[1]
+    if not is_dtensor(dst):
+        dst[:, :S] = src.to(dst.dtype)
+        return
+    local, off = _local_window(dst)
+    nd = dst.dim()
+    same = {d: d for d in range(nd) if d != 1 or S == dst.shape[1]}
+    s_loc, done = _src_local(src, dst, same)
+    for d in range(nd):
+        if d not in done:
+            n = min(local.shape[d], max(src.shape[d] - off[d], 0))
+            s_loc = s_loc.narrow(d, min(off[d], src.shape[d]), n)
+    local.narrow(1, 0, s_loc.shape[1]).copy_(s_loc.to(local.dtype))

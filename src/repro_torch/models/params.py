@@ -1,9 +1,12 @@
 """Parameter schema system (counterpart of ``repro.models.params``).
 
 A model's parameters are described once as a nested dict of :class:`P`
-descriptors (shape + logical axis names + init law); :func:`init_params`
-materializes a schema into tensors on a device.  The reference's
-``param_pspecs`` (a GSPMD partitioning rule) waits with ``launch/``.
+descriptors (shape + logical axis names + init law).  From the schema
+:func:`init_params` materializes tensors on a device and
+:func:`param_pspecs` derives the reference's ``PartitionSpec`` entries
+for any rule set and mesh size (a tree of tuples, one entry a dim);
+:func:`distribute_params` places a tree of tensors on a ``DeviceMesh`` as
+DTensors by those entries.
 """
 
 from __future__ import annotations
@@ -14,8 +17,8 @@ from typing import Any, Callable
 
 import torch
 
-__all__ = ["P", "init_params", "tree_size", "tree_leaves", "tree_map",
-           "unflatten"]
+__all__ = ["P", "init_params", "param_pspecs", "distribute_params",
+           "tree_size", "tree_leaves", "tree_map", "unflatten"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,6 +93,36 @@ def unflatten(flat: dict[str, Any]) -> dict:
             node = node.setdefault(k, {})
         node[last] = v
     return out
+
+
+def param_pspecs(schema: dict,
+                 rules: dict[str, str | tuple[str, ...] | None],
+                 mesh_axis_sizes: dict[str, int] | None = None) -> dict:
+    """The ``PartitionSpec`` entries (a tuple a leaf) from logical-axis
+    rules.
+
+    ``rules`` maps logical axis name -> mesh axis (or tuple / None).  When
+    ``mesh_axis_sizes`` is given, a mapping is dropped (replicated) if the
+    dimension size is not divisible by the mesh-axis product: 8 KV heads
+    cannot shard over a 16-way model axis, so they replicate.
+    """
+    from repro_torch.distributed.sharding import spec_entries
+    return tree_map(lambda leaf: spec_entries(leaf.axes, rules,
+                                              mesh_axis_sizes, leaf.shape),
+                    schema)
+
+
+def distribute_params(params: dict, specs: dict, mesh) -> dict:
+    """``params`` (a tree of full tensors, the same on every rank) as
+    DTensors on ``mesh`` by ``specs`` (from :func:`param_pspecs`): each
+    rank keeps its own shard, with no communication."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.distributed.sharding import to_placements
+    flat = dict(tree_leaves(specs))
+    return unflatten({
+        path: distribute_tensor(t, mesh, to_placements(flat[path], mesh),
+                                src_data_rank=None)
+        for path, t in tree_leaves(params)})
 
 
 def tree_size(tree: Any) -> int:

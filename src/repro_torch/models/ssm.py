@@ -17,7 +17,16 @@ is ``exp`` of ``-inf`` above the diagonal (not the attention masks'
 -1e30): there ``diff`` is positive and its ``exp`` could overflow.  The
 reference's ``lax.scan`` over chunks is a Python loop carrying the fp32
 ``(B, nh, hd, N)`` state, which keeps the state before each chunk for the
-inter-chunk term.  The decode step writes its cache in place.
+inter-chunk term.  The decode step writes its cache in place.  The
+reference's ``shard_activation`` sites call the port's (a no-op outside
+a mesh).
+
+On DTensors (under a mesh) the block runs on each rank's batch shard with
+its weights and caches gathered over ``model`` (:func:`_on_batch_shards`):
+the port has no tensor-parallel SSD, since the in-projection's z, x, B, C
+and dt columns do not split along the model shards' boundaries, nor do
+hymba's 25 heads over 16 ranks.  The results are placed back as the
+caches are placed.
 """
 
 from __future__ import annotations
@@ -29,6 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (from_local, is_dtensor,
+                                              shard_activation)
 from repro_torch.models.params import P
 
 __all__ = ["ssm_schema", "ssd_apply", "ssd_decode_step", "SSMCache",
@@ -98,8 +109,51 @@ def _conv_causal(u, w, b):
     return out + b
 
 
+def _on_batch_shards(fn, p, cfg, x, cache=None, **kw):
+    """``fn`` (the SSD forward or decode step) on this rank's batch shard
+    of DTensor ``x``, with every weight and cache leaf gathered to it
+    (replicated over ``model``; the weights' gradients are partial over
+    the data axes).  Outputs come back as DTensors sharded like ``x``; a
+    decode ``cache`` is written back into its own placements."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    pl = [Shard(0) if n != "model" and x.shape[0] % mesh.shape[i] == 0
+          else Replicate() for i, n in enumerate(names)]
+    grad = [Partial() if q == Shard(0) else Replicate() for q in pl]
+    rep = [Replicate()] * len(names)
+    pw = {k: w.redistribute(mesh, rep).to_local(grad_placements=grad)
+          if is_dtensor(w) else w for k, w in p.items()}
+    xl = x.redistribute(mesh, pl).to_local()
+
+    def wrap(t):
+        return from_local(t, mesh, pl, (x.shape[0], *t.shape[1:]))
+
+    if cache is not None:
+        cl = SSMCache(*(c.redistribute(mesh, pl).to_local() for c in cache))
+        out, _ = fn(pw, cfg, xl, cl)
+        for c, new in zip(cache, cl):
+            c.copy_(wrap(new))
+        return wrap(out), cache
+    res = fn(pw, cfg, xl, **kw)
+    if kw.get("return_state"):
+        out, st = res
+        return wrap(out), SSMCache(wrap(st.h), wrap(st.conv))
+    return wrap(res)
+
+
 def ssd_apply(p: dict, cfg, x: torch.Tensor, *, chunk: int = 128,
               return_state: bool = False):
+    """Chunked SSD forward (on DTensors: :func:`_on_batch_shards`).  See
+    :func:`_ssd_apply`."""
+    if is_dtensor(x):
+        return _on_batch_shards(_ssd_apply, p, cfg, x, chunk=chunk,
+                                return_state=return_state)
+    return _ssd_apply(p, cfg, x, chunk=chunk, return_state=return_state)
+
+
+def _ssd_apply(p: dict, cfg, x: torch.Tensor, *, chunk: int = 128,
+               return_state: bool = False):
     """Chunked SSD forward.  x: (B, S, d) -> y: (B, S, d); with
     ``return_state`` also the :class:`SSMCache` after the last position
     (the fp32 state, the conv history in x's dtype).  The chunk is
@@ -121,6 +175,7 @@ def ssd_apply(p: dict, cfg, x: torch.Tensor, *, chunk: int = 128,
     conv_out = F.silu(_conv_causal(u, p["conv_w"], p["conv_b"]))
     xin, bmat, cmat = torch.split(conv_out, [di, n, n], dim=-1)
 
+    xin = shard_activation(xin, ("batch", "seq", "act_ssm_inner"))
     xh = xin.reshape(B, nc, Q, nh, hd)
     dt = _softplus(dt_raw.float() + p["dt_bias"])             # (B,S,nh)
     dt = dt.reshape(B, nc, Q, nh)
@@ -161,7 +216,7 @@ def ssd_apply(p: dict, cfg, x: torch.Tensor, *, chunk: int = 128,
     y32 = y.float()
     scale = torch.rsqrt((y32 * y32).mean(-1, keepdim=True) + cfg.norm_eps)
     y = (y32 * scale).to(x.dtype) * p["norm"] * F.silu(z)
-    out = y @ p["out_proj"]
+    out = shard_activation(y @ p["out_proj"], ("batch", "seq", "act_embed"))
 
     if return_state:
         conv_state = F.pad(u, (0, 0, cfg.d_conv - 1, 0))[
@@ -172,6 +227,15 @@ def ssd_apply(p: dict, cfg, x: torch.Tensor, *, chunk: int = 128,
 
 def ssd_decode_step(p: dict, cfg, x: torch.Tensor,
                     cache: SSMCache) -> tuple[torch.Tensor, SSMCache]:
+    """One-token recurrent update (on DTensors: :func:`_on_batch_shards`).
+    See :func:`_ssd_decode_step`."""
+    if is_dtensor(x):
+        return _on_batch_shards(_ssd_decode_step, p, cfg, x, cache=cache)
+    return _ssd_decode_step(p, cfg, x, cache)
+
+
+def _ssd_decode_step(p: dict, cfg, x: torch.Tensor,
+                     cache: SSMCache) -> tuple[torch.Tensor, SSMCache]:
     """One-token recurrent update.  x: (B, 1, d) -> (B, 1, d).  Writes the
     new state and conv history into ``cache`` in place (each cast to its
     leaf's dtype) and returns it."""

@@ -20,7 +20,11 @@ the stack is a Python loop over the layer index here.  Entry points:
 ``init_decode_state / decode_step``    single-token serving step
 
 ``prefill`` and ``decode_step`` write the decode state's caches in place and
-return it.  Remat (``forward(remat=True)``, the reference's default) wraps
+return it.  Under a mesh (DTensor parameters from ``param_pspecs`` inside
+an ``activation_sharding`` context) each layer's weights are gathered over
+the FSDP axes where the layer runs (``unshard_fsdp``), and the reference's
+``shard_activation`` sites call the port's; outside a mesh both are
+no-ops.  Remat (``forward(remat=True)``, the reference's default) wraps
 each layer in ``torch.utils.checkpoint`` (non-reentrant: only the layer's
 input is kept, the rest recomputed in the backward), or with
 ``remat_groups`` G > 1 dividing the depth, each group of layers too, as the
@@ -42,6 +46,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (from_local, is_dtensor,
+                                              shard_activation, shard_window,
+                                              unshard_fsdp)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
@@ -172,7 +179,7 @@ def layer_windows(cfg) -> np.ndarray:
 
 
 def _layer(stacked: dict, i: int) -> dict:
-    return tree_map(lambda a: a[i], stacked)
+    return unshard_fsdp(tree_map(lambda a: a[i], stacked))
 
 
 def _ffn(cfg, h, lp):
@@ -194,21 +201,59 @@ def _mix(cfg, lp, a, s):
 def _logits(h: torch.Tensor, out_head: torch.Tensor) -> torch.Tensor:
     """The output head in fp32 (the reference's fp32 product of the final
     hidden state and the head)."""
-    return h.float() @ out_head.float()
+    return h.float() @ unshard_fsdp(out_head).float()
 
 
 def _embed(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    """Token embeddings, with hybrid's meta tokens prepended.  An
-    embedding lookup, whose backward sums each row's gradients in a fixed
-    order (an indexing gather's backward accumulates them in an order that
-    varies from run to run on the CPU)."""
-    h = F.embedding(tokens.long(), params["embed"])
+    """Token embeddings, placed as the reference's full forward places
+    them (under a mesh: a vocab-sharded lookup is a partial sum until
+    then), with hybrid's meta tokens prepended.  An embedding lookup,
+    whose backward sums each row's gradients in a fixed order (an indexing
+    gather's backward accumulates them in an order that varies from run to
+    run on the CPU)."""
+    h = _lookup(unshard_fsdp(params["embed"]), tokens)
     n_meta = _n_meta(cfg)
     if n_meta:
-        meta = params["meta_tokens"][None].expand(
+        meta = unshard_fsdp(params["meta_tokens"])[None].expand(
             h.shape[0], n_meta, cfg.d_model).to(h.dtype)
         h = torch.cat([meta, h], dim=1)
     return h
+
+
+def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``F.embedding`` of the tokens, placed as the reference's full
+    forward places the embeddings (batch over the data axes).  A DTensor
+    table with its vocabulary sharded over ``model`` is looked up shard
+    by shard: each rank reads the rows it holds for its batch shard's
+    tokens, and one all-reduce over ``model`` sums the pieces (DTensor's
+    own vocab-sharded lookup leaves a partial sum whose gradient it
+    cannot route back)."""
+    if not is_dtensor(table):
+        return F.embedding(tokens.long(), table)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = table.device_mesh
+    names = mesh.mesh_dim_names
+    if not is_dtensor(tokens):
+        tokens = from_local(tokens, mesh, [Replicate()] * len(names))
+    vocab = [i for i, p in enumerate(table.placements) if p == Shard(0)]
+    out_pl = [Shard(0) if (n != "model" and tokens.shape[0] % mesh.shape[i]
+                           == 0) else Replicate()
+              for i, n in enumerate(names)]
+    tok = tokens.redistribute(mesh, out_pl).to_local().long()
+    w_pl = [p if i in vocab else Replicate()
+            for i, p in enumerate(table.placements)]
+    w_grad = [p if i in vocab else (Partial() if out_pl[i] == Shard(0)
+                                    else Replicate())
+              for i, p in enumerate(table.placements)]
+    w = table.redistribute(mesh, w_pl).to_local(grad_placements=w_grad)
+    _, off = shard_window(table.shape, mesh, w_pl)
+    V = w.shape[0]
+    idx = tok - off[0]
+    mine = (idx >= 0) & (idx < V)
+    h = F.embedding(idx.clamp(0, V - 1), w) * mine[..., None].to(w.dtype)
+    for i in vocab:
+        h = L._SumOver.apply(h, "sum", mesh.get_group(names[i]).group_name)
+    return from_local(h, mesh, out_pl, (*tokens.shape, table.shape[1]))
 
 
 def _check_length(cfg, S: int) -> None:
@@ -302,7 +347,7 @@ def encode(params, cfg, enc_input: torch.Tensor, remat: bool = True,
     layers = _unstack(params["enc_layers"], cfg.enc_layers)
 
     def one(hh, i):
-        lp = layers[i]
+        lp = unshard_fsdp(layers[i])
         hh = hh + L.attention_apply(lp["attn"], cfg,
                                     L.rms_norm(hh, lp["ln1"], cfg.norm_eps),
                                     pos, causal=False)
@@ -310,7 +355,8 @@ def encode(params, cfg, enc_input: torch.Tensor, remat: bool = True,
                                 L.rms_norm(hh, lp["ln2"], cfg.norm_eps)), None
 
     h, _ = _run_layers(enc_input, cfg.enc_layers, one, remat, remat_groups)
-    return L.rms_norm(h, params["enc_final_norm"], cfg.norm_eps)
+    return L.rms_norm(h, unshard_fsdp(params["enc_final_norm"]),
+                      cfg.norm_eps)
 
 
 def _need_enc(cfg, enc_input):
@@ -341,17 +387,19 @@ def forward(params, cfg, tokens: torch.Tensor,
         enc_pos = torch.arange(enc_out.shape[1], device=h.device)
 
         def one(hh, i):
-            return _dec_layer_fwd(cfg, hh, layers[i], positions, enc_out,
-                                  enc_pos)
+            return _dec_layer_fwd(cfg, hh, unshard_fsdp(layers[i]),
+                                  positions, enc_out, enc_pos)
     else:
         windows = [int(w) for w in layer_windows(cfg)]
 
         def one(hh, i):
-            return _layer_fwd(cfg, hh, layers[i], positions, windows[i])
+            return _layer_fwd(cfg, hh, unshard_fsdp(layers[i]), positions,
+                              windows[i])
 
     h, aux = _run_layers(h, cfg.n_layers, one, remat, remat_groups)
-    h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return _logits(h[:, _n_meta(cfg):], params["out_head"]), aux
+    h = L.rms_norm(h, unshard_fsdp(params["final_norm"]), cfg.norm_eps)
+    logits = _logits(h[:, _n_meta(cfg):], params["out_head"])
+    return shard_activation(logits, ("batch", "seq", "act_vocab")), aux
 
 
 def lm_loss(params, cfg, batch: dict, remat: bool = True,
@@ -365,11 +413,50 @@ def lm_loss(params, cfg, batch: dict, remat: bool = True,
                           remat_groups=remat_groups)
     labels = tokens[:, 1:].long()
     lg = logits[:, :-1].float()
-    logz = torch.logsumexp(lg, dim=-1)
-    gold = lg.gather(-1, labels[..., None])[..., 0]
+    if is_dtensor(lg):
+        logz, gold = _vocab_parallel_terms(lg, labels)
+    else:
+        logz = torch.logsumexp(lg, dim=-1)
+        gold = lg.gather(-1, labels[..., None])[..., 0]
     ce = (logz - gold).mean()
     loss = ce + 0.01 * aux
     return loss, {"ce": ce, "aux": aux}
+
+
+def _vocab_parallel_terms(lg, labels):
+    """``logsumexp`` over the vocabulary and the gold logit of DTensor
+    logits (B, S, V) whose vocabulary may be sharded over ``model`` (the
+    reference's ``act_vocab``): each rank reduces its slice, and the
+    maxima, exponential sums and gold picks are combined by all-reduces,
+    so no rank gathers the logits.  Both come back as DTensors with the
+    batch sharded as the logits' and replicated over ``model``."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = lg.device_mesh
+    names = mesh.mesh_dim_names
+    vocab_sharded = [i for i, p in enumerate(lg.placements)
+                     if p == Shard(2)]
+    lab_pl = [Replicate() if i in vocab_sharded else p
+              for i, p in enumerate(lg.placements)]
+    ll = lg.to_local()
+    lab = labels.redistribute(mesh, lab_pl).to_local()
+    _, off = shard_window(lg.shape, mesh, lg.placements)
+    V = ll.shape[-1]
+    idx = lab - off[2]
+    mine = (idx >= 0) & (idx < V)
+    gold = ll.gather(-1, idx.clamp(0, V - 1)[..., None])[..., 0] \
+        * mine.to(ll.dtype)
+    m = ll.amax(dim=-1).detach()
+    for i in vocab_sharded:
+        group = mesh.get_group(names[i]).group_name
+        m = L._SumOver.apply(m, "max", group)
+    e = torch.exp(ll - m[..., None]).sum(dim=-1)
+    for i in vocab_sharded:
+        group = mesh.get_group(names[i]).group_name
+        e = L._SumOver.apply(e, "sum", group)
+        gold = L._SumOver.apply(gold, "sum", group)
+    logz = m + torch.log(e)
+    return (from_local(logz, mesh, lab_pl, labels.shape),
+            from_local(gold, mesh, lab_pl, labels.shape))
 
 
 # ---------------------------------------------------------------------------
@@ -427,10 +514,10 @@ def _layer_ssm(state: DecodeState, i: int) -> SSM.SSMCache:
 
 def _write_prefix(cache: L.PosCache, k, v, positions) -> None:
     """Write full-sequence K/V into cache slots [0, S) (linear layout)."""
-    S = k.shape[1]
-    cache.k[:, :S] = k.to(cache.k.dtype)
-    cache.v[:, :S] = v.to(cache.v.dtype)
-    cache.pos[:, :S] = positions.to(torch.int32)[None, :]
+    L.write_prefix(cache.k, k)
+    L.write_prefix(cache.v, v)
+    L.write_prefix(cache.pos, positions.to(torch.int32)[None, :].expand(
+        cache.pos.shape[0], k.shape[1]))
 
 
 def _write_ssm(cache: SSM.SSMCache, new: SSM.SSMCache) -> None:
@@ -522,7 +609,7 @@ def prefill(params, cfg, tokens: torch.Tensor, state: DecodeState,
                 lp["cross"], cfg, L.rms_norm(h, lp["ln_cross"], cfg.norm_eps),
                 positions, causal=False, kv_x=enc_out, kv_positions=enc_pos)
         h, _ = _ffn(cfg, h, lp)
-    h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+    h = L.rms_norm(h, unshard_fsdp(params["final_norm"]), cfg.norm_eps)
     # the last REAL content position: the bucket's pad suffix carries no
     # signal
     last = h[:, -1] if valid_len is None else h[:, n_meta + int(valid_len) - 1]
@@ -538,7 +625,7 @@ def decode_step(params, cfg, tokens: torch.Tensor, state: DecodeState,
     slots [0, n_meta) and position t maps to slot n_meta + t.  Writes the
     caches in place; returns (logits (B, V) fp32, the state)."""
     _check_family(cfg)
-    h = F.embedding(tokens.long(), params["embed"])      # (B, 1, d)
+    h = _lookup(unshard_fsdp(params["embed"]), tokens)   # (B, 1, d)
     t_abs = torch.as_tensor(t, dtype=torch.int32, device=h.device) \
         + _n_meta(cfg)
     if cfg.family == "encdec" and t_abs.numel() != 1:
@@ -567,5 +654,5 @@ def decode_step(params, cfg, tokens: torch.Tensor, state: DecodeState,
                 lp["cross"], cfg, L.rms_norm(h, lp["ln_cross"], cfg.norm_eps),
                 t_abs, state.cross_k[i], state.cross_v[i])
         h, _ = _ffn(cfg, h, lp)
-    h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+    h = L.rms_norm(h, unshard_fsdp(params["final_norm"]), cfg.norm_eps)
     return _logits(h, params["out_head"])[:, 0], state

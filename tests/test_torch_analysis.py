@@ -454,8 +454,17 @@ def test_check_cli_lists_the_contracts(capsys):
 def test_check_cli_fails_on_a_violation(monkeypatch, capsys):
     monkeypatch.setattr(engine.StreamingPCAEngine, "_commit",
                         lambda self, new: setattr(self, "states", new))
-    assert check.main(["--only", "engine.step"]) == 1
+    assert check.main(["--only", "engine.step", "--device", "cpu"]) == 1
     assert "engine.step/state:in-place" in capsys.readouterr().out
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="needs a host "
+                    "without a card: the default device is the card")
+def test_check_defaults_to_the_card():
+    with pytest.raises(RuntimeError, match="CUDA device was asked for"):
+        check.run_checks(only="engine.step", echo=lambda *_: None)
+    with pytest.raises(RuntimeError, match="CUDA device was asked for"):
+        check.main(["--only", "engine.step"])
 
 
 def test_bill_matches_cost_model_rows():

@@ -1336,3 +1336,48 @@ class TestCudaLMFamilies:
             assert all(r.done for r in reqs)
             outs.append([r.output for r in reqs])
         assert outs[0] == outs[1]
+
+
+@pytest.mark.cuda
+class TestCudaLaunch:
+    """``repro_torch.launch`` on the card: the block plan's q limits equal
+    the C entries' (276, 208, 276, 224 on the H100), and ``dryrun --smoke``
+    on a one-rank NCCL mesh launches kernels 6, 10 and 11 with no plain
+    call, each cell within 1e-6 of the unsharded step run through the
+    kernels' plain versions on CPU copies of its operands."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+
+    def test_tiling_q_limits_match_the_entries(self):
+        from repro_torch.kernels.build import load_library
+        from repro_torch.launch import tiling
+        dev = torch.cuda.current_device()
+        optin = torch.cuda.get_device_properties(dev) \
+            .shared_memory_per_block_optin
+        fused = load_library("fused_stream")
+        split = load_library("pca_project")
+        got = {"fused_stream": fused.fused_stream_max_q(dev, 0),
+               "fused_stream_bf16": fused.fused_stream_max_q(dev, 1),
+               "stage_tile": split.stage_tile_max_q(dev),
+               "pca_reconstruct": split.pca_reconstruct_max_q(dev)}
+        for entry, q in got.items():
+            assert q == tiling.max_q(entry, optin), entry
+        if optin == tiling.SMEM_BYTES:
+            assert list(got.values()) == [276, 208, 276, 224]
+
+    def test_dryrun_smoke_on_card(self):
+        from repro_torch.launch import dryrun as D
+        want = {"cov_update": {"band_round": 1},
+                "pim_block": {"banded_matmul": 1},
+                "pim_deflated": {"banded_matvec": 1},
+                "transform": {}, "hier_merge": {}}
+        for shape, launches in want.items():
+            rec = D.run_cell("wsn-1m", shape, False, smoke=True,
+                             device="cuda")
+            assert rec["ok"], rec.get("error")
+            assert rec["max_rel_err"] <= D.SMOKE_RTOL, shape
+            assert rec["launches"] == launches, (shape, rec["launches"])
+            assert rec["plain_calls"] == {}, shape

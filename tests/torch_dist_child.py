@@ -17,7 +17,12 @@ halo exchange and the sharded production steps and power iterations of
 ``repro_torch.core`` on them (:func:`core_scenarios`); when it holds
 ``train/`` inputs (written by tests/test_torch_train.py) it runs two rounds
 of PowerSGD (``compress_gradients`` with ``all_reduce_mean`` as
-``reduce_fn``) on this rank's gradients (:func:`train_scenarios`).
+``reduce_fn``) on this rank's gradients (:func:`train_scenarios`); when
+it holds ``lm/`` inputs (tests/test_torch_lm_mesh.py) it runs the LM
+families at their smoke widths with DTensor parameters on a (2, 2)
+(data, model) mesh (:func:`lm_mesh_scenarios`), and with ``moe/`` inputs
+the expert-parallel ``moe_apply`` on each case's mesh
+(:func:`moe_ep_scenarios`).
 Imports no JAX.
 """
 
@@ -123,6 +128,134 @@ def train_scenarios(data, rank, world):
     return out
 
 
+def _lm_cfg(name):
+    import dataclasses
+    from repro_torch import configs
+    base, _, variant = name.partition(":")
+    cfg = configs.get(base).smoke()
+    if cfg.n_experts:
+        # ample capacity: the expert-parallel branch's capacity per data
+        # shard then drops no more than the single device's
+        cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+    if variant == "mqa":
+        cfg = dataclasses.replace(cfg, n_kv_heads=1)
+    return cfg
+
+
+def lm_inputs(name, B=4, S=16, steps=3):
+    """The parameters and token streams of an ``lm/`` scenario (seeded, so
+    the test process makes the same ones)."""
+    from repro_torch.models import transformer as T
+    cfg = _lm_cfg(name)
+    params = T.init_params(cfg, 0, dtype=torch.float32, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g)
+    nxt = torch.randint(0, cfg.vocab_size, (steps, B, 1), generator=g)
+    return cfg, params, tokens, nxt
+
+
+def lm_run(cfg, params, tokens, nxt, mesh=None):
+    """forward, prefill + decode steps, and lm_loss with its gradients of
+    one scenario; under a mesh on DTensors (results gathered whole)."""
+    import contextlib
+    from torch.distributed.tensor import (Replicate, Shard,
+                                          distribute_tensor)
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.distributed.sharding import (act_rules,
+                                                  activation_sharding,
+                                                  param_rules)
+    from repro_torch.launch.dryrun import distribute_state
+    from repro_torch.launch.mesh import mesh_axis_sizes
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import distribute_params, param_pspecs
+    from repro_torch.train.trainer import TrainConfig, _value_and_grad
+    B, S = tokens.shape
+    state = T.init_decode_state(cfg, B, S + nxt.shape[0], torch.float32,
+                                device="cpu")
+    ctx = contextlib.ExitStack()
+    whole = lambda t: t
+    if mesh is not None:
+        specs = param_pspecs(T.model_schema(cfg), param_rules(False),
+                             mesh_axis_sizes(mesh))
+        params = distribute_params(params, specs, mesh)
+        bpl = [Shard(0), Replicate()]
+        tokens = distribute_tensor(tokens, mesh, bpl, src_data_rank=None)
+        nxt = [distribute_tensor(t, mesh, bpl, src_data_rank=None)
+               for t in nxt]
+        state = distribute_state(state, mesh)
+        ctx.enter_context(activation_sharding(mesh, act_rules(False)))
+        ctx.enter_context(implicit_replication())
+        whole = lambda t: t.full_tensor() if hasattr(t, "full_tensor") \
+            else t
+    out = {}
+    with ctx:
+        logits, aux = T.forward(params, cfg, tokens, remat=False)
+        out["forward"] = whole(logits)
+        lg, state = T.prefill(params, cfg, tokens, state)
+        out["prefill"] = whole(lg)
+        for i, tok in enumerate(nxt):
+            lg, state = T.decode_step(params, cfg, tok, state, S + i)
+            out[f"decode{i}"] = whole(lg)
+        loss, _, grads = _value_and_grad(cfg, TrainConfig(), params,
+                                         {"tokens": tokens})
+        out["loss"] = whole(loss)
+        for path, g in tree_leaves(grads):
+            out[f"grad/{path}"] = whole(g)
+    return {k: v.detach().numpy() for k, v in out.items()}
+
+
+def lm_mesh_scenarios(data, rank, world):
+    """Each ``lm/`` scenario on a (2, 2) (data, model) mesh of the default
+    group's four ranks: DTensor parameters from ``param_pspecs``, the
+    decode state placed as the dry run places it."""
+    from torch.distributed.device_mesh import init_device_mesh
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    out = {}
+    for name in json.loads(str(data["lm/archs"])):
+        res = lm_run(*lm_inputs(name), mesh=mesh)
+        out.update({f"lm/{name}/{k}": v for k, v in res.items()})
+    return out
+
+
+def moe_ep_scenarios(data, rank, world):
+    """The expert-parallel ``moe_apply`` on each ``moe/`` case's mesh over
+    the default group: (E, mesh shape) with the reference's parameters
+    and input."""
+    import dataclasses
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import (Replicate, Shard,
+                                          distribute_tensor)
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch import configs
+    from repro_torch.distributed.sharding import (act_rules,
+                                                  activation_sharding,
+                                                  param_rules)
+    from repro_torch.launch.mesh import mesh_axis_sizes
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.params import distribute_params, param_pspecs
+    out = {}
+    for case in json.loads(str(data["moe/cases"])):
+        E, shape = case["E"], tuple(case["mesh"])
+        key = f"moe/{E}_{shape[0]}x{shape[1]}"
+        cfg = dataclasses.replace(
+            configs.get("granite-moe-3b-a800m").smoke(), n_experts=E,
+            top_k=2, capacity_factor=8.0)
+        mesh = init_device_mesh("cpu", shape,
+                                mesh_dim_names=("data", "model"))
+        p = {k: torch.from_numpy(data[f"{key}/p/{k}"])
+             for k in ("router", "w_gate", "w_up", "w_down")}
+        specs = param_pspecs(MOE.moe_schema(cfg), param_rules(False),
+                             mesh_axis_sizes(mesh))
+        pd = distribute_params(p, specs, mesh)
+        x = distribute_tensor(torch.from_numpy(data[f"{key}/x"]), mesh,
+                              [Shard(0), Replicate()], src_data_rank=None)
+        with activation_sharding(mesh, act_rules(False)), \
+                implicit_replication():
+            y, _ = MOE.moe_apply(pd, cfg, x)
+        out[f"{key}/y"] = y.full_tensor().numpy()
+    return out
+
+
 def main(rank, world, store_dir, path_in, path_out):
     data = dict(np.load(path_in))
     names = sorted({k.split("/")[0] for k in data
@@ -135,6 +268,10 @@ def main(rank, world, store_dir, path_in, path_out):
             out.update(core_scenarios(data, rank, world))
         if "train/paths" in data:
             out.update(train_scenarios(data, rank, world))
+        if "lm/archs" in data:
+            out.update(lm_mesh_scenarios(data, rank, world))
+        if "moe/cases" in data:
+            out.update(moe_ep_scenarios(data, rank, world))
         regions = make_fleet_mesh()                    # (WORLD, 1)
         networks = make_fleet_mesh(region=1, data=world)
         for name in names:
