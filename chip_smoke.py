@@ -142,11 +142,17 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      launches' registers, spills and shared memory within the H100's
      limits and equal to analysis/baselines/resources.json, the lints;
  17. the LM serving path (repro_torch.models, the LM Engine) at the full
-     width of llama3.2-1b and granite-moe-3b-a800m, random bf16 weights
-     from a seed: an 8-slot engine (512-position fp32 cache) serving 16
-     requests of 16-256 prompt tokens, 32 new tokens each (tokens/s,
+     width of the six dense and MoE configurations that fit one card
+     (llama3.2-1b, granite-moe-3b-a800m, qwen2-7b, phi3-medium-14b,
+     moonshot-v1-16b-a3b, chameleon-34b), one at a time, random bf16
+     weights from a seed (the draw's peak beside the weights; leaves past
+     2 GiB in fp32 drawn in blocks of layers): an 8-slot engine
+     (512-position fp32 cache) serving 16 (past 5 B parameters 8, the
+     time limit's cut) requests of 16-256 prompt tokens, 32 new tokens
+     each (tokens/s,
      prefill ms by bucket, the decode step's ms beside its bytes bound,
-     peak memory); two requests through a one-slot engine equal to a
+     peak memory); two requests (one past 5 B) through a one-slot
+     engine equal to a
      direct prefill + decode_step loop; the dense model's bucketed
      prefill against the exact-length one; the first two layers in fp32,
      card against CPU (``lm_serving``);
@@ -162,7 +168,15 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      3 compressed steps of a 2-layer fp32 cut of lm100m and of
      granite-moe-3b-a800m's smoke MoE card vs CPU from the same numpy
      weights (and the MoE's twice on the card, bit for bit); llama3.2-1b
-     at full width and depth, 5 compressed steps (``lm_training``).
+     at full width and depth, 5 compressed steps (``lm_training``);
+     then the SSM, hybrid and encoder-decoder families at full width
+     (mamba2-2.7b's first 32 of 64 layers, hymba-1.5b, seamless-m4t-medium
+     with 8 x 256 encoder frames): 16 steps plain and 16 with rank-4
+     PowerSGD each, the loss falling (step ms, tokens/s, model TFLOP/s
+     from the dry run's meter over one more plain step, peak memory, a
+     profile), 2 compressed steps of each family's fp32 depth cut card vs
+     CPU (the losses, and the state after the first step), and bitwise
+     resume on a 4-layer cut of hymba (``family_training``).
  19. the SSM, hybrid and encoder-decoder families (repro_torch.models.ssm,
      the three branches of models.transformer) at the full width of
      mamba2-2.7b, hymba-1.5b and seamless-m4t-medium, random bf16 weights
@@ -192,7 +206,13 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      meter and FlopCounterMode and once planned on a one-rank fake mesh,
      the three FLOP counts equal and the planned peak within 10% of
      max_memory_allocated over what earlier phases hold
-     (``dryrun_on_card``).
+     (``dryrun_on_card``);
+ 21. the pipeline schedule (repro_torch.distributed.pipeline) on a
+     one-rank NCCL group: llama3.2-1b's 16 layers at full width as the
+     one stage over 8 x 256 embedded bf16 tokens in 4 microbatches, the
+     output and every gradient equal bit for bit to the microbatch loop,
+     no point-to-point call, the time beside the loop's and the bubble
+     fraction (``pipeline_on_card``).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card, or without the rest
 of the repository beside it, the script exits non-zero and prints no
@@ -204,6 +224,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -1442,11 +1463,18 @@ def checker_on_card() -> None:
     check(not failed, f"the checker failed: {failed}")
 
 
-# the LM serving path (phase 17): the two public configurations the repo
-# ships at full width (configs/llama3p2_1b.py, configs/granite_moe_3b.py),
-# random weights from a seed; the reference engine's default ServeConfig
-LM_ARCHS = ("llama3.2-1b", "granite-moe-3b-a800m")
+# the LM serving path (phase 17): the six dense and MoE configurations the
+# repo ships that fit one card, at full width (configs/llama3p2_1b.py,
+# granite_moe_3b.py, qwen2_7b.py, phi3_medium_14b.py, moonshot_v1_16b.py,
+# chameleon_34b.py), smallest first, random weights from a seed; the
+# reference engine's default ServeConfig (llama3-405b, 810 GB in bf16,
+# runs in the dry run only)
+LM_ARCHS = ("llama3.2-1b", "granite-moe-3b-a800m", "qwen2-7b",
+            "phi3-medium-14b", "moonshot-v1-16b-a3b", "chameleon-34b")
 LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_NEW = 8, 512, 16, 32
+# the time limit's cut: the four configurations past 5 B parameters serve
+# one wave of 8 requests, and one request through the one-slot engine
+LM_BIG, LM_BIG_REQUESTS, LM_BIG_ONE_SLOT = 5e9, 8, 1
 LM_CUT = 2                 # layers of the card-vs-CPU depth cut
 LM_CUT_ATOL = 1e-3         # fp32 both sides, TF32 off: sums in other orders
 LM_BUCKET_ATOL = 0.125     # bf16 weights: a padded prefill's other shapes
@@ -1514,14 +1542,27 @@ def _lm_direct(T, params, cfg, prompt, bucket, n_new, dev):
     return toks, bool(torch.stack(finite).all())
 
 
+def host_free_gb() -> float:
+    """The host's available memory (GB), from /proc/meminfo."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
+
+
 def lm_serving(dev, smi: str) -> None:
     """Phase 17: the LM serving path (repro_torch.models,
-    repro_torch.serve.engine.Engine) at the full width of llama3.2-1b
-    (dense) and granite-moe-3b-a800m (MoE), random bf16 weights from a
-    seeded generator on the card, one model at a time.
+    repro_torch.serve.engine.Engine) at the full width of the six dense
+    and MoE configurations of LM_ARCHS (llama3.2-1b, granite-moe-3b-a800m,
+    qwen2-7b with its q/k/v biases, phi3-medium-14b, moonshot-v1-16b-a3b
+    with 64 experts top-6, chameleon-34b with QK-norm), random bf16
+    weights from a seeded generator on the card (the leaves past 2 GiB in
+    fp32 drawn layer block by layer block; the draw's peak printed), one
+    model at a time, each freed before the next.
 
     1. An Engine of 8 slots and a 512-position fp32 cache (the reference's
-       ServeConfig) serves 16 requests (prompts of 16-256 tokens from a
+       ServeConfig) serves 16 requests (8 for the models past LM_BIG
+       parameters: the time limit's cut) (prompts of 16-256 tokens from a
        numpy seed, 32 new tokens each) after a one-request warm-up: wall
        time, tokens/s, prefill ms by power-of-two length bucket, the
        decode step's ms at 8 live slots beside its bytes bound (every
@@ -1529,7 +1570,8 @@ def lm_serving(dev, smi: str) -> None:
        KV cache read once, over the H100's 3.35 TB/s),
        and the peak memory; 4 more decode steps at 8 live slots under
        torch.profiler (the device's busy share, its largest items).
-    2. Two of the requests through a one-slot engine == a direct prefill
+    2. Two of the requests (one past LM_BIG) through a one-slot engine
+       == a direct prefill
        (the engine's bucket) and decode_step loop, token for token; for
        the dense model the bucketed prefill's first token == the
        exact-length prefill's, the logits within LM_BUCKET_ATOL (a first
@@ -1537,14 +1579,16 @@ def lm_serving(dev, smi: str) -> None:
        twice the measured difference of each other: a tie at bf16).
     3. The first LM_CUT layers at full width, the same weights in fp32 on
        the card (TF32 off) and on the CPU: the teacher-forced logits of
-       ``forward`` within LM_CUT_ATOL.
+       ``forward`` within LM_CUT_ATOL (the rest of the model freed first;
+       the host's free memory printed before the copy).
     Every request done, every token in [0, vocab), every logit finite, no
     kernel launch and no plain call (the LM path has no Pallas kernel)."""
     from repro_torch import configs
     from repro_torch.analysis.resources import H100
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
-    from repro_torch.models.params import tree_leaves, tree_map, tree_size
+    from repro_torch.models.params import (DRAW_LIMIT, tree_leaves, tree_map,
+                                           tree_size)
     from repro_torch.serve.engine import Engine, Request, ServeConfig
 
     ops.reset_counts()
@@ -1554,23 +1598,41 @@ def lm_serving(dev, smi: str) -> None:
               f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, "
               f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}"
               + (f", {cfg.n_experts} experts top-{cfg.top_k}"
-                 if cfg.family == "moe" else "") + ")", flush=True)
+                 if cfg.family == "moe" else "") + ")"
+              + (f"; cut for time: {LM_BIG_REQUESTS} requests, "
+                 f"{LM_BIG_ONE_SLOT} through the one-slot engine"
+                 if cfg.param_count() > LM_BIG else ""), flush=True)
         torch.cuda.empty_cache()
         held = torch.cuda.memory_allocated()    # earlier phases' tensors
+        torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         params = T.init_params(
             cfg, torch.Generator(device=dev).manual_seed(17), device=dev)
         torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t
         n = tree_size(params)
         wbytes = sum(w.numel() * w.element_size()
                      for _, w in tree_leaves(params))
+        sliced = [path for path, leaf in tree_leaves(T.model_schema(cfg))
+                  if leaf.init == "normal"
+                  and 4 * math.prod(leaf.shape) > DRAW_LIMIT]
+        draw_peak = (torch.cuda.max_memory_allocated() - held) / 1e9
         print(f"   {name}: {n:,} parameters (the schema's leaves; "
               f"param_count() {cfg.param_count():,}), {wbytes / 1e9:.3f} GB "
-              f"in {cfg.dtype}, drawn in {time.perf_counter() - t:.2f} s")
+              f"in {cfg.dtype}, drawn in {draw_s:.2f} s; the draw's peak "
+              f"{draw_peak:.3f} GB over the {held / 1e9:.3f} GB held before "
+              f"it (the weights {wbytes / 1e9:.3f} GB); drawn in blocks of "
+              f"layers: {sliced or 'none'} [{smi}]")
+        # the caching allocator rounds each block up to 2 MiB
+        slack = 2 ** 21 * (len(tree_leaves(params)) + 1)
+        check(draw_peak * 1e9 <= wbytes + DRAW_LIMIT + slack,
+              f"{name}: the draw's peak passes the weights and one block")
         check(n == tree_size(T.model_schema(cfg)), f"{name}: parameters")
 
         rng = np.random.default_rng(17)
-        lengths = rng.integers(16, 257, LM_REQUESTS)
+        big = cfg.param_count() > LM_BIG
+        n_req = LM_BIG_REQUESTS if big else LM_REQUESTS
+        lengths = rng.integers(16, 257, n_req)
         prompts = [rng.integers(0, cfg.vocab_size, s).astype(np.int32)
                    for s in lengths]
         scfg = ServeConfig(slots=LM_SLOTS, max_len=LM_MAX_LEN)
@@ -1599,7 +1661,7 @@ def lm_serving(dev, smi: str) -> None:
         step_w = (wbytes - emb.numel() * emb.element_size()
                   + LM_SLOTS * emb.shape[1] * emb.element_size())
         bound_ms = 1e3 * (step_w + cache) / H100.peak_bytes
-        print(f"   {name} engine: {LM_REQUESTS} requests, {tokens} tokens in "
+        print(f"   {name} engine: {n_req} requests, {tokens} tokens in "
               f"{run['wall']:.3f} s = {tokens / run['wall']:.1f} tokens/s; "
               f"decode step {med:.2f} ms (median of {len(dms)} steps at "
               f"{LM_SLOTS} live slots; min {dms[0]:.2f}, max {dms[-1]:.2f}); "
@@ -1632,7 +1694,7 @@ def lm_serving(dev, smi: str) -> None:
         del eng
 
         # 2. two requests: a one-slot engine == the direct loop
-        for i in (0, 1):
+        for i in range(LM_BIG_ONE_SLOT if big else 2):
             one = Engine(cfg, params, ServeConfig(slots=1, max_len=LM_MAX_LEN),
                          device=dev)
             req = Request(prompt=prompts[i], max_new_tokens=LM_NEW)
@@ -1679,11 +1741,18 @@ def lm_serving(dev, smi: str) -> None:
                       f"{name}: bucketed first token differs off a tie")
             del eng
 
-        # 3. the depth cut, card vs CPU in fp32
+        # 3. the depth cut, card vs CPU in fp32 (the other layers freed)
         cut = dataclasses.replace(cfg, n_layers=LM_CUT)
-        cut_params = dict(params, layers=tree_map(lambda a: a[:LM_CUT],
-                                                  params["layers"]))
+        cut_params = dict(params, layers=tree_map(
+            lambda a: a[:LM_CUT].clone(), params["layers"]))
+        del params
+        torch.cuda.empty_cache()
         card = tree_map(lambda a: a.float(), cut_params)
+        del cut_params
+        cut_bytes = sum(a.numel() * a.element_size()
+                        for _, a in tree_leaves(card))
+        print(f"   {name}: the cut's fp32 weights {cut_bytes / 1e9:.3f} GB "
+              f"to the host, {host_free_gb():.1f} GB free there")
         cpu = tree_map(lambda a: a.cpu(), card)
         toks = rng.integers(0, cfg.vocab_size, (2, 64))
         lc, _ = T.forward(card, cut, torch.tensor(toks, device=dev))
@@ -1694,7 +1763,10 @@ def lm_serving(dev, smi: str) -> None:
               f"max |logit| {float(lh.abs().max()):.3f}")
         check(bool(torch.isfinite(lc).all()), f"{name}: non-finite logits")
         check(d <= LM_CUT_ATOL, f"{name}: card vs CPU on the depth cut")
-        del params, cut_params, card, cpu, lc, lh
+        del card, cpu, lc, lh, run, reqs
+        torch.cuda.empty_cache()
+        print(f"   {name} freed: {torch.cuda.memory_allocated() / 1e9:.3f} "
+              f"GB held")
     launches, plain = path_counts()
     print(f"   LM path: kernel launches {launches or 'none'}; plain calls "
           f"{plain}")
@@ -1751,33 +1823,80 @@ def _trainer(cfg, tcfg, dev, batch=(8, 256), **kw):
     return Trainer(cfg, tcfg, pipe, device=dev, **kw)
 
 
-def _train_rates(label, cfg, hist, held, smi, batch=(8, 256)) -> float:
+def _train_rates(label, cfg, hist, held, smi, batch=(8, 256),
+                 flops: float | None = None) -> float:
     """Print a run's step time (median after TRAIN_WARM warm-up steps; a
     step ends in the host read of its metrics), tokens/s, model TFLOP/s
-    (6 N tokens / step time, N = ``param_count()``) and peak memory
-    beyond what earlier phases hold; returns the step ms."""
+    (``flops`` a step where given, the dry run's meter's count of a plain
+    step; else 6 N tokens, N = ``param_count()``) and peak memory beyond
+    what earlier phases hold; returns the step ms."""
     secs = sorted(h["seconds"] for h in hist[TRAIN_WARM:])
     ms = 1e3 * secs[len(secs) // 2]
     tokens = batch[0] * batch[1]
     n = cfg.param_count()
+    six = 6 * n * tokens
     peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    count = (f"{flops:.6g} FLOPs a plain step by the dry run's meter; "
+             f"6 N D {six:.6g}" if flops else f"6 x {n:,} x {tokens} / step")
     print(f"   {label}: step {ms:.2f} ms (median of {len(secs)} after "
           f"{TRAIN_WARM} warm-up; min {1e3 * secs[0]:.2f}, max "
           f"{1e3 * secs[-1]:.2f}), {tokens / (ms / 1e3):,.0f} tokens/s, "
-          f"model {6 * n * tokens / (ms / 1e3) / 1e12:.2f} TFLOP/s "
-          f"(6 x {n:,} x {tokens} / step); peak memory {peak:.3f} GB "
-          f"[{smi}]")
+          f"model {(flops or six) / (ms / 1e3) / 1e12:.2f} TFLOP/s "
+          f"({count}); peak memory {peak:.3f} GB [{smi}]")
     return ms
 
 
-def _loss_falls(label, hist) -> None:
+def _loss_falls(label, hist, every: bool = False) -> None:
     losses = [h["loss"] for h in hist]
     first, last = np.mean(losses[:4]), np.mean(losses[-4:])
     print(f"   {label}: loss {losses[0]:.4f} -> {losses[-1]:.4f}; mean of "
           f"the first 4 {first:.4f}, of the last 4 {last:.4f}; lr "
-          f"{hist[0]['lr']:.2e} .. {hist[-1]['lr']:.2e}")
+          f"{hist[0]['lr']:.2e} .. {hist[-1]['lr']:.2e}"
+          + (f"; losses {np.round(losses, 4).tolist()}" if every else ""))
     check(all(np.isfinite(losses)), f"{label}: a non-finite loss")
     check(last < first, f"{label}: the loss did not fall")
+
+
+def _bitwise_resume(label: str, make) -> None:
+    """2 x TRAIN_RESUME steps straight == TRAIN_RESUME steps,
+    ``save(async_=False)``, a fresh Trainer's ``try_resume``, TRAIN_RESUME
+    steps: the losses, parameters and Q factors equal to the bit.
+    ``make(ckpt_dir)`` builds a rank-TRAIN_RANK Trainer checkpointing
+    there."""
+    import os
+    from repro_torch.models.params import tree_leaves
+    with tempfile.TemporaryDirectory() as d:
+        full = make(os.path.join(d, "a"))
+        full.run(2 * TRAIN_RESUME, log_every=0)
+        part = make(os.path.join(d, "b"))
+        part.run(TRAIN_RESUME, log_every=0)
+        t = time.perf_counter()
+        part.save(async_=False)
+        save_s = time.perf_counter() - t
+        first = [h["loss"] for h in part.history]
+        del part
+        res = make(os.path.join(d, "b"))
+        t = time.perf_counter()
+        check(res.try_resume() and res.state.step == TRAIN_RESUME,
+              f"{label} resume")
+        load_s = time.perf_counter() - t
+        res.run(TRAIN_RESUME, log_every=0)
+        size = sum(f.stat().st_size for f in Path(d, "b").rglob("*")
+                   if f.is_file())
+        same_loss = [h["loss"] for h in full.history] == \
+            first + [h["loss"] for h in res.history]
+        same_params = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            tree_leaves(full.state.params), tree_leaves(res.state.params)))
+        same_q = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            tree_leaves(full.state.comp_state.q),
+            tree_leaves(res.state.comp_state.q)) if a is not None)
+    print(f"   {label} bitwise resume, rank-{TRAIN_RANK} "
+          f"compressed: {2 * TRAIN_RESUME} steps straight vs "
+          f"{TRAIN_RESUME} + save ({size / 1e9:.3f} GB in {save_s:.2f} s) + "
+          f"a fresh Trainer's resume ({load_s:.2f} s) + {TRAIN_RESUME}: "
+          f"losses equal {same_loss}, parameters equal {same_params}, Q "
+          f"factors equal {same_q}")
+    check(same_loss and same_params and same_q, f"{label} bitwise resume")
 
 
 def _state_gaps(card, host) -> dict[str, dict]:
@@ -1792,11 +1911,12 @@ def _state_gaps(card, host) -> dict[str, dict]:
           "card vs CPU: the training states differ in their leaves or step")
     gaps = {}
     for part in TRAIN_STATE_PARTS:
-        g = dict(worst=0.0, over=0, size=0)
+        g = dict(worst=0.0, leaf="", over=0, size=0)
         for k in (k for k in host if k.startswith(part + ".")):
             scale = float(np.max(np.abs(host[k]))) or 1.0
             diff = np.abs(card[k].astype(np.float64) - host[k]) / scale
-            g["worst"] = max(g["worst"], float(diff.max()))
+            if diff.max() > g["worst"]:
+                g["worst"], g["leaf"] = float(diff.max()), k[len(part) + 1:]
             g["over"] += int(np.count_nonzero(diff > TRAIN_CUT_LEAF))
             g["size"] += diff.size
         gaps[part] = g
@@ -1855,8 +1975,8 @@ def _train_card_vs_cpu(dev) -> None:
         print(f"   {label}: final state card vs CPU, largest gap over each "
               f"leaf's largest magnitude (elements beyond "
               f"{TRAIN_CUT_LEAF} of all): " + ", ".join(
-                  f"{part} {g['worst']:.3e} ({g['over']} of {g['size']:,})"
-                  for part, g in gaps.items()))
+                  f"{part} {g['worst']:.3e} at {g['leaf']} ({g['over']} of "
+                  f"{g['size']:,})" for part, g in gaps.items()))
         pars = gaps.pop("params")
         check(all(g["over"] == 0 for g in gaps.values()) and
               pars["over"] <= TRAIN_CUT_SHARE * pars["size"],
@@ -1887,15 +2007,15 @@ def lm_training(dev, smi: str) -> None:
     2. Card vs CPU (:func:`_train_card_vs_cpu`).
     3. llama3.2-1b at full width and depth (bf16), TRAIN_BIG_STEPS steps
        with rank-4 compression.
+    4. The SSM, hybrid and encoder-decoder families
+       (:func:`family_training`).
     No kernel of the port launches (the training path has no Pallas
     kernel)."""
-    import os
     import torch.distributed as dist
     from repro_torch import configs
     from repro_torch.distributed import compression as GC
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import init_fleet_process_group
-    from repro_torch.models.params import tree_leaves
 
     ops.reset_counts()
     cfg = configs.get(TRAIN_ARCH)
@@ -1942,41 +2062,8 @@ def lm_training(dev, smi: str) -> None:
 
     # (c) bitwise resume
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as d:
-        mk = lambda sub: _trainer(cfg, _train_config(
-            TRAIN_STEPS, TRAIN_RANK, os.path.join(d, sub)), dev)
-        full = mk("a")
-        full.run(2 * TRAIN_RESUME, log_every=0)
-        part = mk("b")
-        part.run(TRAIN_RESUME, log_every=0)
-        t = time.perf_counter()
-        part.save(async_=False)
-        save_s = time.perf_counter() - t
-        first = [h["loss"] for h in part.history]
-        del part
-        res = mk("b")
-        t = time.perf_counter()
-        check(res.try_resume() and res.state.step == TRAIN_RESUME,
-              "(c) resume")
-        load_s = time.perf_counter() - t
-        res.run(TRAIN_RESUME, log_every=0)
-        size = sum(f.stat().st_size for f in Path(d, "b").rglob("*")
-                   if f.is_file())
-        same_loss = [h["loss"] for h in full.history] == \
-            first + [h["loss"] for h in res.history]
-        same_params = all(torch.equal(a, b) for (_, a), (_, b) in zip(
-            tree_leaves(full.state.params), tree_leaves(res.state.params)))
-        same_q = all(torch.equal(a, b) for (_, a), (_, b) in zip(
-            tree_leaves(full.state.comp_state.q),
-            tree_leaves(res.state.comp_state.q)) if a is not None)
-    print(f"   (c) bitwise resume, rank-{TRAIN_RANK} "
-          f"compressed: {2 * TRAIN_RESUME} steps straight vs "
-          f"{TRAIN_RESUME} + save ({size / 1e9:.3f} GB in {save_s:.2f} s) + "
-          f"a fresh Trainer's resume ({load_s:.2f} s) + {TRAIN_RESUME}: "
-          f"losses equal {same_loss}, parameters equal {same_params}, Q "
-          f"factors equal {same_q}")
-    check(same_loss and same_params and same_q, "(c) bitwise resume")
-    del full, res
+    _bitwise_resume("(c)", lambda ckpt: _trainer(cfg, _train_config(
+        TRAIN_STEPS, TRAIN_RANK, ckpt), dev))
 
     # 2. card vs CPU from the same numpy weights, Q factors and tokens
     _train_card_vs_cpu(dev)
@@ -2001,11 +2088,246 @@ def lm_training(dev, smi: str) -> None:
     _train_rates(TRAIN_BIG, big, hist, held, smi)
     del tr
     torch.cuda.empty_cache()
+
+    # 4. the SSM, hybrid and encoder-decoder families
+    family_training(dev, smi)
     launches, plain = path_counts()
     print(f"   LM training path: kernel launches {launches or 'none'}; "
           f"plain calls {plain}")
     check(plain == 0 and not launches, "the training path ran a kernel "
           "wrapper")
+
+
+# the SSM, hybrid and encoder-decoder families trained (phase 18, part 4)
+# at full width (configs/mamba2_2p7b.py, hymba_1p5b.py,
+# seamless_m4t_medium.py), batches of 8 x 256 tokens; mamba2's whole stack
+# (2.83 B parameters, ~82 GB at llama3.2-1b's 29 B a parameter) passes
+# the card, so it trains its first FAM_TRAIN_LAYERS layers
+FAM_TRAIN_ARCHS = ("mamba2-2.7b", "hymba-1.5b", "seamless-m4t-medium")
+FAM_TRAIN_LAYERS = {"mamba2-2.7b": 32}
+FAM_TRAIN_STEPS = 16
+FAM_ENC_FRAMES = 256       # seamless's encoder frames a row
+FAM_RESUME_ARCH, FAM_RESUME_LAYERS = "hymba-1.5b", 4    # global and
+# windowed layers (windows [0, 0, 1024, 0] at full width)
+FAM_TRAIN_CUTS = {         # arch: (layers, (rows, tokens)) of the card-vs-CPU cut
+    "mamba2-2.7b": (2, (2, 64)),
+    "hymba-1.5b": (2, (2, 128)),          # 128 meta tokens + 128: 2 chunks
+    "seamless-m4t-medium": (2, (2, 64)),  # 2 + 2 layers, 64 frames
+}
+
+
+def _fam_batches(cfg, rows: int, length: int, frames: int, dev, seed=0):
+    """Batch i: TokenPipeline(seed)'s tokens and, for encdec, ``frames``
+    encoder frames a row (numpy normals seeded by i) in the weights'
+    dtype."""
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models.transformer import torch_dtype
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=length,
+                         global_batch=rows, seed=seed)
+
+    def batch(i):
+        out = {"tokens": torch.from_numpy(pipe.batch_at(i)).to(dev)}
+        if cfg.family == "encdec":
+            enc = np.random.default_rng((seed, i)).standard_normal(
+                (rows, frames, cfg.d_model), dtype=np.float32)
+            out["enc_input"] = torch.from_numpy(enc).to(
+                dev, torch_dtype(cfg.dtype))
+        return out
+    return batch
+
+
+def _fam_steps(cfg, tcfg, state, batch, n: int) -> list[dict]:
+    """``n`` steps of ``make_train_step(cfg, tcfg)`` on ``state`` (a
+    TrainState, updated) over ``batch(i)``; each step's metrics (one host
+    read, which waits for the step) and seconds."""
+    from repro_torch.train.trainer import _to_host, make_train_step
+    step = make_train_step(cfg, tcfg)
+    hist = []
+    for _ in range(n):
+        t = time.perf_counter()
+        (state.params, state.opt_state, state.comp_state, m) = step(
+            state.params, state.opt_state, state.comp_state,
+            batch(state.step), state.step)
+        state.step += 1
+        rec = _to_host(m)
+        rec["seconds"] = time.perf_counter() - t
+        hist.append(rec)
+    return hist
+
+
+def _meter_flops(cfg, tcfg, state, batch) -> float:
+    """The dry run's meter (launch/dryrun.py) over one more real step of
+    ``state`` (updated): that step's FLOPs."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.train.trainer import make_train_step
+    step = make_train_step(cfg, tcfg)
+    b = batch(state.step)
+    real = D.measure(lambda p, o, c: step(p, o, c, b, state.step),
+                     (state.params, state.opt_state, state.comp_state))
+    state.params, state.opt_state, state.comp_state, _ = real.result
+    state.step += 1
+    del real.result
+    torch.cuda.synchronize()
+    return real.flops
+
+
+def _fam_train_cut(cfg, dev) -> None:
+    """2 rank-4 PowerSGD steps of an fp32 depth cut (FAM_TRAIN_CUTS) at
+    full width, no warm-up, on the card and on the CPU from the same
+    weights and Q factors (drawn on the card, carried as numpy) and
+    batches (encdec's with its encoder frames): both losses within
+    TRAIN_CUT_RTOL, and the state after the first step as
+    :func:`_train_card_vs_cpu` holds lm100m's final state (its error
+    buffers and moments carry that step's gradients).  Later states are
+    not held: at these widths the few weights AdamW moves by +-lr on a
+    gradient at roundoff (hundreds to thousands, within TRAIN_CUT_SHARE)
+    change the next gradients near them, and PowerSGD's products spread
+    that over whole Q factors and error buffers (after 3 steps up to
+    1.4e-3 of a leaf's largest magnitude, the first step's gradients
+    within 2e-5 of it; measured on the H100)."""
+    from repro_torch.convert import (lm_params_from_numpy,
+                                     lm_params_to_numpy,
+                                     train_state_to_numpy)
+    from repro_torch.distributed import compression as GC
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.trainer import TrainState
+    n_layers, (rows, length) = FAM_TRAIN_CUTS[cfg.name]
+    cut = dataclasses.replace(
+        cfg, n_layers=n_layers, dtype="float32",
+        enc_layers=n_layers if cfg.family == "encdec" else 0)
+    tcfg = dataclasses.replace(_train_config(2, TRAIN_RANK), warmup_steps=0)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    drawn = T.init_params(cut, gen, device=dev)
+    weights = lm_params_to_numpy(drawn)
+    comp = GC.init_compressor(drawn, TRAIN_RANK, gen)
+    q = {k: v.cpu().numpy() for k, v in tree_leaves(comp.q)
+         if v is not None}
+    del drawn, comp
+    frames = 64 if cfg.family == "encdec" else 0
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        t = time.perf_counter()
+        state = TrainState.create(cut, tcfg, device=d, q=q,
+                                  params=lm_params_from_numpy(cut, weights,
+                                                              d))
+        batch = _fam_batches(cut, rows, length, frames, d)
+        hist = _fam_steps(cut, tcfg, state, batch, 1)
+        first = {k: np.array(v) for k, v in
+                 train_state_to_numpy(state).items()}
+        hist += _fam_steps(cut, tcfg, state, batch, 1)
+        runs[d.type] = (np.array([h["loss"] for h in hist]), first,
+                        time.perf_counter() - t)
+        del state
+    (lc, card, tc), (lh, host, th) = runs[dev.type], runs["cpu"]
+    gap = float(np.max(np.abs(lc - lh) / np.abs(lh)))
+    gaps = _state_gaps(card, host)
+    print(f"   {cfg.name} {n_layers}-layer fp32 cut"
+          + (f" (+ {n_layers} encoder layers, {frames} frames)"
+             if frames else "")
+          + f": 2 rank-{TRAIN_RANK} steps at {rows} x {length}, card vs CPU "
+          f"losses {lc.round(6).tolist()} vs {lh.round(6).tolist()}: max "
+          f"relative gap {gap:.3e} (tolerance {TRAIN_CUT_RTOL}); the state "
+          f"after step 1, largest gap over each leaf's largest magnitude "
+          f"(elements beyond {TRAIN_CUT_LEAF} of all): " + ", ".join(
+              f"{part} {g['worst']:.3e} at {g['leaf']} ({g['over']} of "
+              f"{g['size']:,})" for part, g in gaps.items())
+          + f"; card {tc:.2f} s, CPU {th:.1f} s")
+    check(np.all(np.isfinite(lc)) and gap <= TRAIN_CUT_RTOL,
+          f"{cfg.name}: card vs CPU training losses")
+    pars = gaps.pop("params")
+    check(all(g["over"] == 0 for g in gaps.values()) and
+          pars["over"] <= TRAIN_CUT_SHARE * pars["size"],
+          f"{cfg.name}: card vs CPU training state after a step")
+
+
+def _fam_resume(cfg, dev) -> None:
+    """:func:`_bitwise_resume` on a FAM_RESUME_LAYERS-layer cut of ``cfg``
+    at full width (bf16, through Trainer)."""
+    from repro_torch.models import transformer as T
+    cut = dataclasses.replace(cfg, n_layers=FAM_RESUME_LAYERS)
+    torch.cuda.empty_cache()
+    _bitwise_resume(
+        f"{cfg.name} {FAM_RESUME_LAYERS}-layer cut (windows "
+        f"{[int(w) for w in T.layer_windows(cut)]})",
+        lambda ckpt: _trainer(cut, _train_config(FAM_TRAIN_STEPS, TRAIN_RANK,
+                                                 ckpt), dev))
+
+
+def family_training(dev, smi: str) -> None:
+    """Phase 18, part 4: the SSM, hybrid and encoder-decoder families
+    trained on the card at full width (random bf16 weights, fp32
+    moments), batches of 8 x 256 TokenPipeline(seed=0) tokens, seamless's
+    beside 8 x FAM_ENC_FRAMES encoder frames of d_model (numpy draws; no
+    Trainer passes them, as in the reference, so seamless runs through
+    ``make_train_step`` alone), examples/train_lm.py's TrainConfig:
+    FAM_TRAIN_STEPS steps plain and FAM_TRAIN_STEPS with rank-4
+    PowerSGD, through Trainer for mamba2
+    (its first FAM_TRAIN_LAYERS layers) and hymba; in each run the mean
+    loss of the last 4 steps below that of the first 4; step ms, tokens/s,
+    model TFLOP/s (the dry run's meter over one more plain step), peak
+    memory and 2 plain steps profiled.  Then each family's fp32 depth cut card
+    vs CPU (:func:`_fam_train_cut`) and hymba's bitwise resume
+    (:func:`_fam_resume`)."""
+    from repro_torch import configs
+    from repro_torch.train.trainer import TrainState
+    for name in FAM_TRAIN_ARCHS:
+        cfg = configs.get(name)
+        if name in FAM_TRAIN_LAYERS:
+            cfg = dataclasses.replace(cfg, n_layers=FAM_TRAIN_LAYERS[name])
+        print(f"   -- {name} training ({cfg.family}: {cfg.n_layers} layers"
+              + (f" of {configs.get(name).n_layers} (cut)"
+                 if name in FAM_TRAIN_LAYERS else "")
+              + (f" + {cfg.enc_layers} encoder layers"
+                 if cfg.family == "encdec" else "")
+              + f", d_model {cfg.d_model}, vocab {cfg.vocab_size}; "
+              f"{cfg.param_count():,} parameters in {cfg.dtype}), batch "
+              f"8 x 256" + (f" + 8 x {FAM_ENC_FRAMES} frames"
+                            if cfg.family == "encdec" else ""), flush=True)
+        batch = _fam_batches(cfg, 8, 256, FAM_ENC_FRAMES, dev)
+        for rank in (0, TRAIN_RANK):
+            label = f"{name} " + (f"rank-{rank} PowerSGD" if rank
+                                  else "plain")
+            tcfg = _train_config(FAM_TRAIN_STEPS, rank)
+            torch.cuda.empty_cache()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            if cfg.family == "encdec":
+                state = TrainState.create(
+                    cfg, tcfg, torch.Generator(device=dev).manual_seed(0),
+                    device=dev)
+                hist = _fam_steps(cfg, tcfg, state, batch, FAM_TRAIN_STEPS)
+            else:
+                tr = _trainer(cfg, tcfg, dev)
+                hist = tr.run(FAM_TRAIN_STEPS, log_every=0)
+                state = tr.state
+            print(f"   {label}: {FAM_TRAIN_STEPS} steps in "
+                  f"{time.perf_counter() - t:.2f} s (state made and run)")
+            _loss_falls(label, hist, every=True)
+            if not rank:
+                # one more plain step under the meter (its FLOPs serve the
+                # compressed run too: PowerSGD's products add ~0.2%)
+                t = time.perf_counter()
+                flops = _meter_flops(cfg, tcfg, state, batch)
+                print(f"   {label}: one more step under the dry run's "
+                      f"meter in {time.perf_counter() - t:.2f} s")
+            _train_rates(label, cfg, hist, held, smi, flops=flops)
+            if not rank:
+                print(f"   {label}: 2 more steps, profiled:")
+                profile_breakdown(lambda: _fam_steps(cfg, tcfg, state,
+                                                     batch, 2), top=6)
+            del state, hist
+            if cfg.family != "encdec":
+                del tr
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        _fam_train_cut(configs.get(name), dev)
+        print(f"   {name} cut: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    _fam_resume(configs.get(FAM_RESUME_ARCH), dev)
+    print(f"   {FAM_RESUME_ARCH} resume: {time.perf_counter() - t:.1f} s")
+    torch.cuda.empty_cache()
 
 
 # the SSM, hybrid and encoder-decoder families (phase 19): the three
@@ -2476,6 +2798,108 @@ def dryrun_on_card(record, dev, smi: str) -> None:
           "card's")
     check(abs(gap) <= 0.10, f"the planned peak is {100 * gap:+.1f}% off "
           f"the card's")
+
+
+# the pipeline schedule (phase 21): llama3.2-1b's full-width layer stack
+# (configs/llama3p2_1b.py) as one stage over 8 x 256 embedded tokens
+PIPE_ARCH, PIPE_BATCH, PIPE_MICRO, PIPE_REPS = "llama3.2-1b", (8, 256), 4, 2
+
+
+def pipeline_on_card(dev, smi: str) -> None:
+    """Phase 21: ``repro_torch.distributed.pipeline.pipeline_apply`` on a
+    one-rank NCCL group.  Its one stage is llama3.2-1b's 16 layers at full
+    width (random bf16 weights from a seed), applied by the transformer's
+    own layer function (``_layer_fwd`` over the stacked layers), to 8 x
+    256 embedded tokens in bf16 in PIPE_MICRO microbatches: the output and
+    the gradients of every stage parameter and of x (backpropagating a
+    seeded fp32 cotangent) equal, bit for bit, the same layer function
+    applied microbatch by microbatch without the pipeline, at the same
+    shapes; no point-to-point call (one stage hands nothing on).  The time
+    of the forward and backward beside the plain loop's (2 x PIPE_REPS
+    each, in turns), and the bubble fraction."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.distributed import pipeline as PP
+    from repro_torch.launch.mesh import init_fleet_process_group
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import tree_leaves, unflatten
+
+    cfg = configs.get(PIPE_ARCH)
+    B, S = PIPE_BATCH
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(21)
+    params = T.init_params(cfg, gen, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, PIPE_BATCH, device=dev,
+                         generator=gen)
+    with torch.no_grad():
+        x0 = T._embed(params, cfg, toks)
+    cot = torch.randn(x0.shape, device=dev, generator=gen)
+    flat = [(k, v.detach()) for k, v in tree_leaves(params["layers"])]
+    del params
+    pos = torch.arange(S, device=dev)
+
+    def layer_fn(p, h):
+        for lp in T._unstack(p, cfg.n_layers):
+            h, _ = T._layer_fwd(cfg, h, lp, pos, 0)
+        return h
+
+    sends = []
+    real = dist.batch_isend_irecv
+
+    def counted(ops):
+        sends.append(len(ops))
+        return real(ops)
+
+    def run(piped: bool):
+        leaves = [v.requires_grad_(True) for _, v in flat]
+        p = unflatten({k: v for (k, _), v in zip(flat, leaves)})
+        x = x0.detach().requires_grad_(True)
+        if piped:
+            y = PP.pipeline_apply(layer_fn, p, x,
+                                  n_microbatches=PIPE_MICRO,
+                                  group=dist.group.WORLD)
+        else:
+            y = torch.cat([layer_fn(p, m) for m in x.chunk(PIPE_MICRO)])
+        grads = torch.autograd.grad((y.float() * cot).sum(), [x, *leaves])
+        return [y.detach(), *grads]
+
+    with tempfile.TemporaryDirectory() as store:
+        init_fleet_process_group(0, 1, store, device=dev, timeout_s=180)
+        try:
+            dist.batch_isend_irecv = counted
+            piped = run(True)
+            plain = run(False)
+            same = [bool(torch.equal(a, b)) for a, b in zip(piped, plain)]
+            del piped, plain
+            times = {True: [], False: []}
+            for piped_ in (True, False, False, True) * PIPE_REPS:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                run(piped_)
+                torch.cuda.synchronize()
+                times[piped_].append(1e3 * (time.perf_counter() - t))
+        finally:
+            dist.batch_isend_irecv = real
+            dist.destroy_process_group()
+    tp, tl = (float(np.median(times[k])) for k in (True, False))
+    names = ["output", "x"] + [k for k, _ in flat]
+    print(f"   one stage ({cfg.n_layers} layers of {PIPE_ARCH}, d_model "
+          f"{cfg.d_model}, bf16) over {B} x {S} embedded tokens in "
+          f"{PIPE_MICRO} microbatches on a one-rank NCCL group: output and "
+          f"gradients equal to the microbatch loop's bit for bit: "
+          f"{sum(same)} of {len(same)}"
+          + ("" if all(same) else f" (differ: {[n for n, ok in zip(names, same) if not ok]})")
+          + f"; point-to-point calls {sum(sends)}")
+    print(f"   forward + backward: pipeline {tp:.2f} ms, microbatch loop "
+          f"{tl:.2f} ms (medians of {len(times[True])} and "
+          f"{len(times[False])}, in turns; {tp / tl:.3f}x); bubble "
+          f"fraction at 1 stage, {PIPE_MICRO} microbatches "
+          f"{PP.bubble_fraction(1, PIPE_MICRO):.3f} (at 4 stages "
+          f"{PP.bubble_fraction(4, PIPE_MICRO):.3f}) [{smi}]")
+    check(all(same), "the pipeline differs from the microbatch loop")
+    check(not sends, "a one-stage pipeline issued point-to-point calls")
+    del flat, x0, cot
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -3307,6 +3731,12 @@ def main() -> int:
     t20 = time.perf_counter()
     dryrun_on_card(record, dev, smi)
     print(f"   phase 20: {time.perf_counter() - t20:.1f} s")
+
+    phase("21 the pipeline schedule (repro_torch.distributed.pipeline) "
+          "on a one-rank NCCL group")
+    t21 = time.perf_counter()
+    pipeline_on_card(dev, smi)
+    print(f"   phase 21: {time.perf_counter() - t21:.1f} s")
 
     print(f"   total {time.perf_counter() - t_start:.1f} s")
     for rec in record.values():

@@ -53,8 +53,21 @@ def tree_map(fn: Callable, tree: Any) -> Any:
     return fn(tree)
 
 
+# a normal leaf whose fp32 draw would pass this many bytes is drawn block
+# by block along its first axis (see _materialize)
+DRAW_LIMIT = 2 * 2 ** 30
+
+
 def _materialize(leaf: P, gen: torch.Generator, dtype: torch.dtype,
                  device: torch.device) -> torch.Tensor:
+    """One leaf by its law: fp32 normal draws times ``scale / sqrt(fan_in)``
+    (the whole leaf's fan-in), cast to ``dtype``.  A leaf whose fp32 draw
+    would pass :data:`DRAW_LIMIT` is allocated once in ``dtype`` and drawn
+    in blocks of its first (layer) axis, each block the most slices whose
+    fp32 draw stays within the limit (one slice at least): the draw's peak
+    is then one block, not the whole stack in fp32 beside its cast.  On
+    the card such a leaf's values are other draws of the same law than a
+    whole draw's, and the generator ends elsewhere."""
     if leaf.init == "zeros":
         return torch.zeros(leaf.shape, dtype=dtype, device=device)
     if leaf.init == "ones":
@@ -63,19 +76,29 @@ def _materialize(leaf: P, gen: torch.Generator, dtype: torch.dtype,
     for ax in leaf.fan_in_axes:
         fan_in *= leaf.shape[ax]
     std = leaf.scale / math.sqrt(max(fan_in, 1))
-    w = torch.randn(leaf.shape, generator=gen, dtype=torch.float32,
-                    device=device)
-    return w.mul_(std).to(dtype)
+    if 4 * math.prod(leaf.shape) <= DRAW_LIMIT:
+        w = torch.randn(leaf.shape, generator=gen, dtype=torch.float32,
+                        device=device)
+        return w.mul_(std).to(dtype)
+    out = torch.empty(leaf.shape, dtype=dtype, device=device)
+    per = max(1, DRAW_LIMIT // (4 * math.prod(leaf.shape[1:])))
+    for i in range(0, leaf.shape[0], per):
+        block = out[i:i + per]
+        block.copy_(torch.randn(block.shape, generator=gen,
+                                dtype=torch.float32, device=device).mul_(std))
+    return out
 
 
 def init_params(schema: dict, gen: torch.Generator,
                 dtype: torch.dtype = torch.float32,
                 device: str | torch.device | None = None) -> dict:
     """Materialize a schema into tensors on ``device`` (default: the
-    generator's device, which it must be): fp32 normal draws times ``scale / sqrt(fan_in)`` cast to
-    ``dtype``, as the reference's law; leaves drawn in sorted path order
-    from ``gen``.  The draws are not ``jax.random``'s: a test that wants
-    the reference's weights carries them across
+    generator's device, which it must be): fp32 normal draws times
+    ``scale / sqrt(fan_in)`` cast to ``dtype``, as the reference's law
+    (a leaf past :data:`DRAW_LIMIT` in blocks, :func:`_materialize`);
+    leaves drawn in sorted path order from ``gen``.  The draws are not
+    ``jax.random``'s: a test that wants the reference's weights carries
+    them across
     (:func:`repro_torch.convert.lm_params_from_numpy`)."""
     dev = gen.device if device is None else torch.device(device)
     return unflatten({path: _materialize(leaf, gen, dtype, dev)

@@ -1381,3 +1381,140 @@ class TestCudaLaunch:
             assert rec["max_rel_err"] <= D.SMOKE_RTOL, shape
             assert rec["launches"] == launches, (shape, rec["launches"])
             assert rec["plain_calls"] == {}, shape
+
+
+@pytest.mark.cuda
+class TestCudaLMPort:
+    """The pipeline schedule, a family's training step and the parameter
+    draw on the card: ``pipeline_apply`` on a one-rank NCCL group equal,
+    bit for bit, to the layer function applied microbatch by microbatch
+    (llama3.2-1b's smoke layers, bf16, forward and every gradient); one
+    rank-4 PowerSGD training step of the SSM, hybrid and encoder-decoder
+    smoke configs (fp32, TF32 off; encdec's batch with encoder frames)
+    card vs CPU as ``test_compressed_train_step_on_card_matches_cpu``
+    holds granite's; and ``init_params`` of a schema whose stacked leaf
+    passes the draw limit (patched low) peaks under the leaf in bf16 plus
+    one fp32 slice, beside what is held before it."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card: the models run on it")
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        yield
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    def test_one_rank_pipeline_bit_for_bit(self, tmp_path):
+        import torch.distributed as dist
+        from repro_torch import configs
+        from repro_torch.distributed.pipeline import pipeline_apply
+        from repro_torch.launch.mesh import init_fleet_process_group
+        from repro_torch.models import transformer as T
+        from repro_torch.models.params import tree_leaves, unflatten
+        cfg = dataclasses.replace(configs.get("llama3.2-1b").smoke(),
+                                  n_layers=3, dtype="bfloat16")
+        flat = [(k, v) for k, v in tree_leaves(T.init_params(
+            cfg, 4, device="cuda")["layers"])]
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        x0 = torch.randn((8, 16, cfg.d_model), device="cuda",
+                         generator=gen).to(torch.bfloat16)
+        cot = torch.randn(x0.shape, device="cuda", generator=gen)
+        pos = torch.arange(16, device="cuda")
+
+        def layer(p, h):
+            for lp in T._unstack(p, cfg.n_layers):
+                h, _ = T._layer_fwd(cfg, h, lp, pos, 0)
+            return h
+
+        def run(piped):
+            leaves = [v.detach().requires_grad_(True) for _, v in flat]
+            p = unflatten({k: v for (k, _), v in zip(flat, leaves)})
+            x = x0.clone().requires_grad_(True)
+            y = (pipeline_apply(layer, p, x, n_microbatches=4,
+                                group=dist.group.WORLD) if piped
+                 else torch.cat([layer(p, m) for m in x.chunk(4)]))
+            return [y.detach(), *torch.autograd.grad(
+                (y.float() * cot).sum(), [x, *leaves])]
+
+        init_fleet_process_group(0, 1, tmp_path, device="cuda",
+                                 timeout_s=120)
+        try:
+            piped, plain = run(True), run(False)
+        finally:
+            dist.destroy_process_group()
+        for a, b in zip(piped, plain):
+            assert torch.equal(a, b)
+
+    @pytest.mark.parametrize("arch", ["mamba2-2.7b", "hymba-1.5b",
+                                      "seamless-m4t-medium"])
+    def test_family_train_step_on_card_matches_cpu(self, arch):
+        from repro_torch import configs
+        from repro_torch.convert import (lm_params_from_numpy,
+                                         lm_params_to_numpy,
+                                         train_state_to_numpy)
+        from repro_torch.distributed.compression import init_compressor
+        from repro_torch.models import transformer as T
+        from repro_torch.models.params import tree_leaves
+        from repro_torch.train.optimizer import AdamWConfig
+        from repro_torch.train.trainer import (TrainConfig, TrainState,
+                                               make_train_step)
+        cfg = configs.get(arch).smoke()
+        host = T.init_params(cfg, 5, device="cpu")
+        weights = lm_params_to_numpy(host)
+        q = {k: v.numpy() for k, v in tree_leaves(
+            init_compressor(host, 4, torch.Generator().manual_seed(6)).q)
+            if v is not None}
+        tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3), warmup_steps=0,
+                           total_steps=10, compress_rank=4, remat=True)
+        rng = np.random.default_rng(6)
+        batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab_size,
+                                                     (4, 24)))}
+        if cfg.family == "encdec":
+            batch["enc_input"] = torch.tensor(
+                rng.normal(size=(4, 10, cfg.d_model)), dtype=torch.float32)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            state = TrainState.create(cfg, tcfg, device=dev, q=q,
+                                      params=lm_params_from_numpy(
+                                          cfg, weights, dev))
+            (state.params, state.opt_state, state.comp_state,
+             m) = make_train_step(cfg, tcfg)(
+                state.params, state.opt_state, state.comp_state,
+                {k: v.to(dev) for k, v in batch.items()}, 0)
+            state.step += 1
+            out[dev] = (float(m["loss"]), state)
+        (lc, sc), (lh, sh) = out["cuda"], out["cpu"]
+        assert lc == pytest.approx(lh, rel=1e-5)
+        sc, sh = train_state_to_numpy(sc), train_state_to_numpy(sh)
+        assert sorted(sc) == sorted(sh)
+        beyond = size = 0
+        for k, v in sh.items():
+            gap = np.abs(sc[k] - v) / (np.abs(v).max() or 1.0)
+            if k.startswith("params."):
+                beyond += int(np.count_nonzero(gap > 1e-4))
+                size += v.size
+            else:
+                np.testing.assert_array_less(gap, 1e-4, err_msg=k)
+        assert beyond <= 3e-5 * size, (beyond, size)
+
+    def test_large_leaf_draw_peak(self, monkeypatch):
+        from repro_torch.models import params as PM
+        shape = (8, 1024, 2048)
+        slice_fp32 = 4 * 1024 * 2048
+        monkeypatch.setattr(PM, "DRAW_LIMIT", slice_fp32 - 1)
+        schema = {"stack": PM.P(shape, ("layers", None, None),
+                                fan_in_axes=(1,))}
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = PM.init_params(schema, torch.Generator(device="cuda")
+                             .manual_seed(0), torch.bfloat16)
+        torch.cuda.synchronize()
+        leaf = out["stack"]
+        assert leaf.dtype == torch.bfloat16 and leaf.shape == shape
+        peak = torch.cuda.max_memory_allocated() - held
+        assert peak <= 2 * leaf.numel() + slice_fp32, peak
+        std = float(leaf.double().std())
+        assert abs(std * 32 - 1) < 0.01        # 1 / sqrt(1024)

@@ -7,9 +7,11 @@ so the reference engine runs once in a child process
 llama3.2-1b (dense, 3 slots, a 32-slot cache, eight prompts of 2 to 27
 tokens over the 8/16/32 buckets, the longest running into the cache's
 end), granite-moe-3b-a800m (MoE), mamba2-2.7b (SSM, a one-token prompt
-among them) and hymba-1.5b (hybrid: 8 meta tokens ahead of each prompt,
-a 16-position window on layer 1), the last three at exact prompt
-lengths, from the reference's ``init_params(cfg, PRNGKey(0))``, with
+among them), hymba-1.5b (hybrid: 8 meta tokens ahead of each prompt,
+a 16-position window on layer 1), qwen2-7b (dense, the q/k/v biases),
+chameleon-34b (dense, QK-norm) and moonshot-v1-16b-a3b at 8 experts,
+top-6 on both sides (``.smoke()`` caps MoE at top-2 of 4), the MoE, SSM
+and hybrid ones at exact prompt lengths, from the reference's ``init_params(cfg, PRNGKey(0))``, with
 random ``max_new_tokens`` and an ``eos_id`` on every third request.  The
 port's engine serves the same requests from the same weights, and every
 request's tokens must be equal: greedy tokens are integers, and the
@@ -25,6 +27,9 @@ exact-length prefill's (logits rtol/atol 1e-5: the same weights and
 tokens, only the pad suffix differs).
 """
 
+import dataclasses
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -37,7 +42,7 @@ from repro_torch.serve.engine import Engine, Request, ServeConfig
 
 from torch_parity import run_reference
 
-SCENARIOS = ("dense", "moe", "ssm", "hybrid")
+SCENARIOS = ("dense", "moe", "ssm", "hybrid", "qkv_bias", "qk_norm", "top6")
 
 
 @pytest.fixture(scope="module")
@@ -47,7 +52,8 @@ def ref(tmp_path_factory):
 
 
 def _setup(ref, name):
-    cfg = configs.get(str(ref[f"{name}/arch"])).smoke()
+    cfg = dataclasses.replace(configs.get(str(ref[f"{name}/arch"])).smoke(),
+                              **json.loads(str(ref[f"{name}/replace"])))
     pre = f"{name}/params."
     params = lm_params_from_numpy(
         cfg, {k[len(pre):]: v for k, v in ref.items() if k.startswith(pre)},

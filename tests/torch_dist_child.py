@@ -22,7 +22,9 @@ it holds ``lm/`` inputs (tests/test_torch_lm_mesh.py) it runs the LM
 families at their smoke widths with DTensor parameters on a (2, 2)
 (data, model) mesh (:func:`lm_mesh_scenarios`), and with ``moe/`` inputs
 the expert-parallel ``moe_apply`` on each case's mesh
-(:func:`moe_ep_scenarios`).
+(:func:`moe_ep_scenarios`); with ``pipe/`` inputs
+(tests/test_torch_pipeline.py) ``pipeline_apply`` on groups of 1, 2 and
+4 stages with its gradients (:func:`pipe_scenarios`).
 Imports no JAX.
 """
 
@@ -256,6 +258,68 @@ def moe_ep_scenarios(data, rank, world):
     return out
 
 
+def _pipe_layer(fn_name):
+    """The layer function of a ``pipe/`` case: ``tanh`` is tanh(h @ W_s);
+    ``dense`` runs the stage's stacked llama3.2-1b smoke layers through
+    the transformer's own layer function."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import tree_map
+    if fn_name == "tanh":
+        return lambda p, h: torch.tanh(h @ p[0])
+    cfg = dataclasses.replace(configs.get("llama3.2-1b").smoke(), n_layers=4)
+
+    def dense(p, h):
+        pos = torch.arange(h.shape[1])
+        for i in range(p["ln1"].shape[0]):
+            h, _ = T._layer_fwd(cfg, h, tree_map(lambda a: a[i], p), pos, 0)
+        return h
+    return dense
+
+
+def pipe_scenarios(data, rank, world):
+    """``pipeline_apply`` on groups of 1, 2 and 4 stages of the default
+    group's four ranks (every rank alone; {0, 1} and {2, 3}; all four):
+    this rank holds stage s = its index in the group, the s-th slice of
+    the stacked parameters, and backpropagates sum(output x cot).  Writes
+    the output, the gradient of its stage's parameters and of x
+    (``pipe/{fn}/{S}/{M}/{out,gx,gp[.path]}``)."""
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.models.params import tree_map
+    groups = {}
+    for S in json.loads(str(data["pipe/stages"])):
+        for first in range(0, world, S):
+            g = dist.new_group(list(range(first, first + S)))
+            if first <= rank < first + S:
+                groups[S] = (g, rank - first)
+    out = {}
+    for fn_name in json.loads(str(data["pipe/fns"])):
+        pre = f"pipe/{fn_name}/p"
+        flat = {k[len(pre) + 1:]: torch.from_numpy(data[k]) for k in data
+                if k.startswith(pre + ".")}
+        params = unflatten(flat) if flat else torch.from_numpy(data[pre])
+        x0 = torch.from_numpy(data[f"pipe/{fn_name}/x"])
+        cot = torch.from_numpy(data[f"pipe/{fn_name}/cot"])
+        layer = _pipe_layer(fn_name)
+        for S, (group, stage) in groups.items():
+            mine = tree_map(lambda a: a[stage:stage + 1].clone()
+                            .requires_grad_(True), params)
+            for M in json.loads(str(data["pipe/micro"])):
+                x = x0.clone().requires_grad_(True)
+                y = pipeline_apply(layer, mine, x, n_microbatches=M,
+                                   group=group)
+                gp = torch.autograd.grad(
+                    (y * cot).sum(), [x] + [a for _, a in tree_leaves(mine)])
+                key = f"pipe/{fn_name}/{S}/{M}"
+                out[f"{key}/out"] = y.detach().numpy()
+                out[f"{key}/gx"] = gp[0].numpy()
+                for (path, _), g in zip(tree_leaves(mine), gp[1:]):
+                    out[f"{key}/gp" + (f".{path}" if path else "")] = \
+                        g.numpy()
+    return out
+
+
 def main(rank, world, store_dir, path_in, path_out):
     data = dict(np.load(path_in))
     names = sorted({k.split("/")[0] for k in data
@@ -272,6 +336,8 @@ def main(rank, world, store_dir, path_in, path_out):
             out.update(lm_mesh_scenarios(data, rank, world))
         if "moe/cases" in data:
             out.update(moe_ep_scenarios(data, rank, world))
+        if "pipe/fns" in data:
+            out.update(pipe_scenarios(data, rank, world))
         regions = make_fleet_mesh()                    # (WORLD, 1)
         networks = make_fleet_mesh(region=1, data=world)
         for name in names:

@@ -2,10 +2,10 @@
 
 Run as ``python tests/torch_ref_child.py MODE OUT.npz`` (MODE one of
 streaming, rounds, engine, hierarchy, streaming_pca, faulty_fleet,
-compression_fleet, event_fleet, lm_engine) with ``JAX_PLATFORMS=cpu`` and ``src`` on
+compression_fleet, event_fleet, lm_engine, pipeline) with ``JAX_PLATFORMS=cpu`` and ``src`` on
 ``PYTHONPATH`` (and, for
 ``hierarchy``, ``XLA_FLAGS=--xla_force_host_platform_device_count=2``: its
-runs shard over a two-device mesh).  The installed jax
+runs shard over a two-device mesh; for ``pipeline``, ``=4``).  The installed jax
 moved ``ClosedJaxpr``, ``Jaxpr`` and ``Literal`` from ``jax.core`` to
 ``jax.extend.core``; ``repro.analysis`` (imported at the bottom of
 ``repro.streaming.driver`` and ``repro.serve.engine``) still reads them from
@@ -32,14 +32,17 @@ bf16 tile mode's under ``bf16/``.  The hierarchy run writes ``merge/*``
 (``merge_fleet`` and ``fleet_basis_dense`` on energy tables with ties),
 and for each two-level or sharded scenario its inputs, initial states
 (``{name}/init.*``), final states, metrics and merge.  The ``lm_engine``
-run serves the LM ``Engine`` at four smoke configurations (``dense``:
+run serves the LM ``Engine`` at seven smoke configurations (``dense``:
 llama3.2-1b's, with prompt buckets; ``moe``: granite-moe-3b-a800m's;
-``ssm``: mamba2-2.7b's; ``hybrid``: hymba-1.5b's) and
-writes, under ``{name}/``, the configuration's name, slots and cache
-length, the parameters of ``repro.models.transformer.init_params(cfg,
+``ssm``: mamba2-2.7b's; ``hybrid``: hymba-1.5b's; ``qkv_bias``:
+qwen2-7b's; ``qk_norm``: chameleon-34b's; ``top6``: moonshot-v1-16b-a3b's
+with 8 experts, top-6) and
+writes, under ``{name}/``, the configuration's name and the fields
+replaced in its ``.smoke()`` (JSON), slots and cache length, the parameters of ``repro.models.transformer.init_params(cfg,
 PRNGKey(0))`` keyed by dotted path (``params.layers.attn.wq``, ...), and
 each request's prompt, ``max_new_tokens``, ``eos_id`` and output tokens
-(``req{i}/...``).
+(``req{i}/...``).  The ``pipeline`` run writes the reference pipeline's
+output and gradients on 1, 2 and 4 stages (``pipe/*``, :func:`pipeline`).
 """
 
 from __future__ import annotations
@@ -106,6 +109,15 @@ def flatten(node, prefix):
         return out
     out[prefix] = np.asarray(node)
     return out
+
+
+def _flat_tree(tree, prefix):
+    """A dict of arrays (nested) by ``prefix.dotted.path``; an array by
+    ``prefix``."""
+    if not isinstance(tree, dict):
+        return {prefix: np.asarray(tree)}
+    return {f"{prefix}." + ".".join(k.key for k in path): np.asarray(leaf)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
 def cfg_json(cfg):
@@ -570,6 +582,13 @@ LM_SCENARIOS = {
     # 8 meta tokens ahead of every prompt; layer 1's window of 16 cuts
     # the longer ones
     "hybrid": ("hymba-1.5b", 3, 32, (2, 5, 9, 14, 21, 3, 26, 12)),
+    # the q/k/v biases
+    "qkv_bias": ("qwen2-7b", 3, 32, (4, 2, 7, 13, 9, 19, 5, 24)),
+    # the per-head RMS norm of q and k
+    "qk_norm": ("chameleon-34b", 3, 32, (6, 3, 11, 2, 17, 8, 25, 10)),
+    # top-6 routing over 8 experts (.smoke() caps them at top-2 of 4)
+    "top6": ("moonshot-v1-16b-a3b", 3, 32, (3, 9, 5, 12, 7, 16, 4),
+             {"n_experts": 8, "top_k": 6}),
 }
 
 
@@ -577,15 +596,16 @@ def lm_engine(out):
     from repro import configs
     from repro.models import transformer as T
     from repro.serve.engine import Engine, Request, ServeConfig
-    for name, (arch, slots, max_len, lengths) in LM_SCENARIOS.items():
-        cfg = configs.get(arch).smoke()
+    for name, (arch, slots, max_len, lengths, *extra) in \
+            LM_SCENARIOS.items():
+        replace = extra[0] if extra else {}
+        cfg = dataclasses.replace(configs.get(arch).smoke(), **replace)
         params = T.init_params(cfg, jax.random.PRNGKey(0))
         out[f"{name}/arch"] = np.asarray(arch)
+        out[f"{name}/replace"] = np.asarray(json.dumps(replace))
         out[f"{name}/slots"] = np.asarray(slots)
         out[f"{name}/max_len"] = np.asarray(max_len)
-        for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
-            key = ".".join(k.key for k in path)
-            out[f"{name}/params.{key}"] = np.asarray(leaf)
+        out.update(_flat_tree(params, f"{name}/params"))
         rng = np.random.default_rng(11)
         eng = Engine(cfg, params, ServeConfig(slots=slots, max_len=max_len))
         reqs = []
@@ -606,6 +626,80 @@ def lm_engine(out):
             out[f"{name}/req{i}/output"] = np.asarray(req.output, np.int32)
 
 
+# the pipeline scenarios: (stages, microbatches) over a batch of
+# PIPE_BATCH rows, for each layer function (``tanh``: tanh(h @ W_s) at
+# width PIPE_WIDTH; ``dense``: llama3.2-1b's smoke layer, one a stage, over
+# PIPE_SEQ positions)
+PIPE_STAGES = (1, 2, 4)
+PIPE_MICRO = (1, 3, 4, 8)
+PIPE_BATCH, PIPE_WIDTH, PIPE_SEQ = 24, 8, 8
+
+
+def pipeline(out):
+    """``repro.distributed.pipeline.pipeline_apply`` under shard_map on S
+    of the 4 forced host devices: the last stage's output and, under
+    ``jax.set_mesh``, ``jax.grad`` of sum(output x cot) for the stacked
+    stage parameters and x (``pipe/{fn}/{S}/{M}/out``, ``/gx``,
+    ``/gp`` or ``/gp.{path}``), with the inputs (``pipe/{fn}/x``,
+    ``/cot``, ``/p`` or ``/p.{path}``: four stages' parameters, stage s
+    the s-th slice)."""
+    from jax.experimental.shard_map import shard_map
+    from jax.sharding import PartitionSpec as PS
+    from repro import configs
+    from repro.distributed.pipeline import pipeline_apply
+    from repro.models import transformer as T
+    rng = np.random.default_rng(29)
+    cfg = dataclasses.replace(configs.get("llama3.2-1b").smoke(), n_layers=4)
+    positions = jnp.arange(PIPE_SEQ)
+
+    def dense_layer(p, h):
+        for i in range(p["ln1"].shape[0]):
+            h, _ = T._layer_fwd(cfg, h, jax.tree.map(lambda a: a[i], p),
+                                positions, 0)
+        return h
+
+    cases = {
+        "tanh": (lambda p, h: jnp.tanh(h @ p[0]),
+                 jnp.asarray(rng.normal(size=(4, PIPE_WIDTH, PIPE_WIDTH))
+                             .astype(np.float32) / np.sqrt(PIPE_WIDTH)),
+                 (PIPE_BATCH, PIPE_WIDTH)),
+        "dense": (dense_layer,
+                  T.init_params(cfg, jax.random.PRNGKey(0))["layers"],
+                  (PIPE_BATCH, PIPE_SEQ, cfg.d_model)),
+    }
+    for fn_name, (layer_fn, params, shape) in cases.items():
+        x = jnp.asarray(rng.normal(size=shape).astype(np.float32))
+        cot = jnp.asarray(rng.normal(size=shape).astype(np.float32))
+        out[f"pipe/{fn_name}/x"] = np.asarray(x)
+        out[f"pipe/{fn_name}/cot"] = np.asarray(cot)
+        out.update(_flat_tree(params, f"pipe/{fn_name}/p"))
+        for S in PIPE_STAGES:
+            mesh = jax.make_mesh((S,), ("pipe",), devices=jax.devices()[:S])
+            sp = jax.tree.map(lambda a: a[:S], params)
+            for M in PIPE_MICRO:
+                def run(p, h, M=M):
+                    # zeros but on the last stage: the sum is its output
+                    return jax.lax.psum(pipeline_apply(
+                        layer_fn, p, h, n_microbatches=M, axis_name="pipe"),
+                        "pipe")
+
+                fm = shard_map(run, mesh=mesh,
+                               in_specs=(PS("pipe"), PS()),
+                               out_specs=PS(), check_rep=False)
+
+                def loss(p, h, fm=fm):
+                    y = fm(p, h)
+                    return jnp.sum(y * cot), y
+
+                with jax.set_mesh(mesh):
+                    (_, y), (gp, gx) = jax.jit(jax.value_and_grad(
+                        loss, argnums=(0, 1), has_aux=True))(sp, x)
+                key = f"pipe/{fn_name}/{S}/{M}"
+                out[f"{key}/out"] = np.asarray(y)
+                out[f"{key}/gx"] = np.asarray(gx)
+                out.update(_flat_tree(gp, f"{key}/gp"))
+
+
 if __name__ == "__main__":
     mode, path = sys.argv[1], sys.argv[2]
     results: dict = {}
@@ -615,5 +709,5 @@ if __name__ == "__main__":
      "faulty_fleet": example_faulty_fleet,
      "compression_fleet": example_compression_fleet,
      "event_fleet": example_event_fleet,
-     "lm_engine": lm_engine}[mode](results)
+     "lm_engine": lm_engine, "pipeline": pipeline}[mode](results)
     np.savez(path, **results)
