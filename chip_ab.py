@@ -2,6 +2,7 @@
 """Run chip_smoke.py in two source trees, alternated, and tabulate the rates.
 
     python3 chip_ab.py BASE_TREE [--change TREE] [--order bccb] [--out DIR]
+    python3 chip_ab.py BASE_TREE --fold [--order bccb] [--out DIR]
 
 BASE_TREE is an unpacked checkout of the commit to compare against (for
 example ``git archive <commit> | tar -x -C build/base``; put it under a
@@ -20,6 +21,17 @@ kept their SASS (``cuobjdump -sass`` of each tree's build,
 ``build/repro_torch/``, function by function), and writes the same to
 ``summary.json`` there.  It exits non-zero if any run
 did.
+
+With ``--fold`` each run is instead the band folds' probe of its tree
+(:func:`fold_probe`, a few seconds after the build, in a process of its
+own): kernels 1 (fp32 and bf16 tiles), 2, 3, 6, 7 and 7 with a dropout
+mask at the serving slice, and kernel 6 at the paper pipeline's two
+one-slot batches (the Berkeley fit's and wsn-1m's), on inputs drawn from
+one seed on the card.  The table gives each call's ms (CUDA events) and
+device ms (torch.profiler), and whether every output of a call has the
+same bits in every run of both trees (a SHA-256 of its bytes), beside
+torch.bmm's dense product at the Berkeley batch; each run's JSON also
+holds the device microseconds a call of each kernel it launched.
 """
 
 from __future__ import annotations
@@ -107,6 +119,134 @@ def compare_sass(trees: dict[str, Path]) -> dict[str, str]:
     return verdict
 
 
+def _digest(out) -> str:
+    import hashlib
+    import torch
+    h = hashlib.sha256()
+    for t in out if isinstance(out, (tuple, list)) else (out,):
+        if isinstance(t, torch.Tensor):
+            h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def fold_probe(tree: Path) -> dict:
+    """The band folds of ``tree``'s port at the shapes their paths give
+    them: ``{call: {ms, device_ms, digest}}``.  Uses only the wrappers'
+    public arguments, so any tree of the port runs it."""
+    import torch
+    sys.path.insert(0, str(tree / "src"))
+    from repro_torch.kernels import ops
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(0)
+    rnd = lambda *s: torch.randn(s, device=dev, generator=g)
+    live = lambda *s: (torch.rand(s, device=dev, generator=g) > 0.05).float()
+    S, K, n, p, h, q = 256, 8, 32, 1024, 128, 32
+    x, m = rnd(S, K, n, p), live(S, K, p)
+    w = torch.rand((S, K), device=dev, generator=g) * 0.5 + 0.5
+    basis = torch.linalg.qr(rnd(S, p, q))[0]
+    mean, il = 0.1 * rnd(S, p), torch.rand((S, q), device=dev,
+                                           generator=g) + 0.5
+    xr, lr, dr = rnd(S, n, p), live(S, p), live(S, n, p)
+    xb, bb = ops.fused_tiles(x, "bf16"), ops.fused_tiles(basis, "bf16")
+    xk, xw = rnd(1, 1440, 52), rnd(1, 256, 1 << 20)
+    stages = dict(halfwidth=h, epsilon=2.5, with_compress=True,
+                  with_monitor=True, mask=m)
+    calls = {
+        "1 fp32": (lambda: ops.fused_stream_update(
+            x, w, basis, mean, il, **stages), 10),
+        "1 bf16": (lambda: ops.fused_stream_update(
+            xb, w, bb, mean, il, precision="bf16", **stages), 10),
+        "2": (lambda: ops.cov_band_update_chunk_batched(x, w, h), 20),
+        "3": (lambda: ops.cov_band_update_chunk_batched(x, w, h, mask=m),
+              20),
+        "6": (lambda: ops.cov_band_update_batched(xr, h), 50),
+        "7": (lambda: ops.cov_band_update_batched(xr, h, mask=lr), 50),
+        "7 drop": (lambda: ops.cov_band_update_batched(xr, h, mask=dr), 50),
+        "6 Berkeley": (lambda: ops.cov_band_update_batched(xk, 15), 200),
+        "bmm Berkeley": (lambda: torch.bmm(xk.transpose(1, 2), xk), 200),
+        "6 wsn-1m": (lambda: ops.cov_band_update_batched(xw, h), 10),
+    }
+    out = {}
+    for name, (fn, iters) in calls.items():
+        digest = _digest(fn())
+        torch.cuda.synchronize()
+        for _ in range(2):
+            fn()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(min(iters, 50)):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type != DeviceType.CPU
+                and getattr(e, "self_device_time_total", 0) > 0]
+        caught = max((e.count for e in rows), default=min(iters, 50))
+        out[name] = dict(ms=a.elapsed_time(b) / iters, device_ms=sum(
+            e.self_device_time_total for e in rows) / 1e3 / caught,
+            digest=digest, kernels_us={
+                e.key[:60]: e.self_device_time_total / e.count for e in rows})
+        print(f"   {name}: {out[name]}", flush=True)
+    return out
+
+
+def fold_table(runs: list) -> dict:
+    """``{call: row}`` over the probe's runs ``[(side, {call: {ms,
+    device_ms, digest}})]``: each side's ms and device ms in run order,
+    whether the call's output had the same bits in every run of both
+    trees, and in every run of the change."""
+    table = {}
+    for call in dict.fromkeys(k for _, r in runs for k in r):
+        row = {f"{name} {key}": [r[call][key] for side, r in runs
+                                 if side == name and call in r]
+               for name in ("base", "change") for key in ("ms", "device_ms")}
+        row["same bits"] = len({r[call]["digest"] for _, r in runs
+                                if call in r}) == 1
+        row["change repeats its bits"] = len({
+            r[call]["digest"] for side, r in runs
+            if side == "change" and call in r}) == 1
+        table[call] = row
+    return table
+
+
+def fold_main(args, trees, names, out_dir) -> int:
+    runs, failed = [], False
+    for i, side in enumerate(args.order, 1):
+        save = out_dir / f"{i}_{names[side]}.json"
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "chip_ab.py"), str(trees[side]),
+             "--fold-probe", str(save)], capture_output=True, text=True,
+            timeout=args.timeout)
+        (out_dir / f"{i}_{names[side]}.log").write_text(proc.stdout
+                                                        + proc.stderr)
+        print(f"== run {i} {names[side]} ({trees[side]}): exit "
+              f"{proc.returncode}", flush=True)
+        if proc.returncode != 0:
+            print(proc.stderr[-3000:])
+            failed = True
+            continue
+        runs.append((names[side], json.loads(save.read_text())))
+    table = fold_table(runs)
+    for call, row in table.items():
+        print(f"{call}: " + "; ".join(
+            f"{k} " + (" / ".join(f"{v:.4f}" for v in vals)
+                       if isinstance(vals, list) else str(vals))
+            for k, vals in row.items()))
+    (out_dir / "summary.json").write_text(json.dumps(
+        {"order": args.order, "base": str(trees["b"]),
+         "change": str(trees["c"]), "fold": table}, indent=1))
+    return 1 if failed else 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("base", type=Path)
@@ -114,7 +254,16 @@ def main() -> int:
     ap.add_argument("--order", default="bccb")
     ap.add_argument("--timeout", type=float, default=600.0)
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "ab")
+    ap.add_argument("--fold", action="store_true",
+                    help="run the band folds' probe in each tree instead "
+                         "of chip_smoke.py")
+    ap.add_argument("--fold-probe", type=Path, default=None,
+                    help=argparse.SUPPRESS)   # one run of the probe
     args = ap.parse_args()
+    if args.fold_probe is not None:
+        res = fold_probe(args.base.resolve())
+        args.fold_probe.write_text(json.dumps(res))
+        return 0
     trees = {"b": args.base.resolve(), "c": args.change.resolve()}
     if set(args.order) - set(trees):
         ap.error("--order takes only the letters b and c")
@@ -124,6 +273,8 @@ def main() -> int:
     out_dir = args.out.resolve()
     out_dir.mkdir(parents=True, exist_ok=True)
     names = {"b": "base", "c": "change"}
+    if args.fold:
+        return fold_main(args, trees, names, out_dir)
     runs, failed = [], False
     for i, side in enumerate(args.order, 1):
         proc = subprocess.run([sys.executable, "chip_smoke.py"],

@@ -969,7 +969,8 @@ def one_slot_fold(name, x, h, iters, plain_iters) -> dict:
     bits at K = 1, w = 1; its time beside the plain version's, its bound
     and, where the (p, p) product fits in ``DENSE_MAX_BYTES``, torch.bmm's
     dense product, else torch.sparse.sampled_addmm on the band's pattern
-    (3 calls: cuSPARSE's SDDMM is slow)."""
+    (3 calls: cuSPARSE's SDDMM is slow); the segments of its order of sums
+    and the shape and grid the launch took (``ops.band_round_plan``)."""
     from repro_torch.kernels import ops, ref
     n, p = x.shape
     run = lambda: ops.cov_band_update(x, h)
@@ -1011,9 +1012,14 @@ def one_slot_fold(name, x, h, iters, plain_iters) -> dict:
               f"{rec['library_ms']:.3f} ms (the dense ({p}, {p}) product "
               f"would take {4.0 * p * p / 1e9:,.0f} GB)")
         del pattern, valid
+    plan = ops.band_round_plan(1, n, p, h, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
+    rec.update(shape=plan.shape, segments=plan.segments, blocks=plan.blocks)
     print(f"   {name} n={n} p={p} h={h}: kernel {ms:.4f} ms ({iters} "
           f"calls), plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
-          f"{nbytes / 1e9:.4f} GB)")
+          f"{nbytes / 1e9:.4f} GB); {plan.segments} segments of "
+          f"{ops.SEGMENT_ROWS} rows, shape {plan.shape}, grid {plan.blocks} "
+          f"blocks (workspace {plan.workspace_bytes} B)")
     return rec
 
 

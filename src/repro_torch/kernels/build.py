@@ -42,8 +42,10 @@ SOURCES: dict[str, dict[str, list]] = {
     "band_fold": {
         "band_fold_f32": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
         "band_fold_masked_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
-        "band_round_f32": [_P, _I, _I, _I, _I, _P, _P],
-        "band_round_masked_f32": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
+        # (x, S, n, p, h, ws, band, stream) and (x, m, S, n, per_reading,
+        # p, h, ws, band, stream): ws the split fold's workspace or null
+        "band_round_f32": [_P, _I, _I, _I, _I, _P, _P, _P],
+        "band_round_masked_f32": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     },
     "banded": {
         "banded_matmul_f32": [_P, _P, _I, _I, _I, _I, _P, _P],

@@ -17,12 +17,32 @@
 //
 // All four are one banded SYRK (band_syrk.cuh): register-tiled 64 x 64
 // tiles of the upper band, x staged through shared memory by cp.async,
-// half the band computed and mirrored, in a per-round order of sums that
-// is symmetric in (i, j), so the mirror, kernel 1's fold blocks and, at
+// half the band computed and mirrored, in an order of sums (segments of
+// kSegRows rows a round, combined in order) that is symmetric in (i, j)
+// and depends on n alone, so the mirror, kernel 1's fold blocks and, at
 // K = 1 and w = 1, kernels 6 and 7 all give the same bits.  Kernels 6 and
-// 7 are the tile at K = 1 with unit weight, in the round's shape
-// (band_syrk.cuh, ROUND: one accumulator set, 16-row stages, a leaner
-// epilogue), on the same grid as kernels 2 and 3.
+// 7 take one of three shapes, by the round's rows and the launch's size:
+//
+//  * n <= kLongRound (the serving paths' 32-row rounds): the tile at K = 1
+//    with unit weight, in the round's shape (band_syrk.cuh, ROUND: one
+//    accumulator set, 16-row stages, a leaner epilogue), on the same grid
+//    as kernels 2 and 3;
+//  * longer rounds on a grid that fills the card (wsn-1m's 256-row
+//    production batch, 49,152 tiles): kernel 2's tile at K = 1 with unit
+//    weight (UNIT), whose second accumulator set holds the round across
+//    its segments.  A tile built for the FMA rate (8 x 8 a thread, a block
+//    a row tile, 32-row stages) ran this batch slower on the H100: its
+//    write-out and its exposed loads cost more than its inner loop saved
+//    (PERF.md);
+//  * longer rounds on a grid too small to fill it, of a small band (the
+//    Berkeley fit: S = 1, n = 1,440, p = 52, h = 15, one tile), when the
+//    wrapper hands a workspace: the split fold (band_pair_kernel below),
+//    one block a segment, which folds the segment pair by pair into the
+//    workspace, then a kernel that folds each entry's partials in segment
+//    order, acc = fma(f, c_g, acc) — the order the other shapes keep in
+//    registers.  Two kernels, one call: one count in ops.LAUNCHES.
+//
+// A dropout mask is applied to the rows as they are staged, in all three.
 //
 // Bound at the slice shape (p=1024, h=128, R=K*n=256 rows), per slot per
 // step: the band is symmetric (band[h-d, i] = band[h+d, i-d]), so the
@@ -40,7 +60,11 @@
 // kernel exists.  On the card a round is held by its instructions instead
 // (the arithmetic and the epilogue's stores, band_syrk.cuh): a band kept
 // in L2 makes it barely faster, so kernels 6 and 7 take the tile's round
-// shape.
+// shape.  At wsn-1m's batch (n = 256, p = 1,048,576) the round is bound by
+// operations (69.3 GFLOP against 2.15 GB: 1.03 ms against 0.64 ms); at the
+// Berkeley fit's (n = 1,440, p = 52) by a launch's latency, the arithmetic
+// being 2.1 MFLOP: what bounds it is the chain of rows one block sums in
+// order, which the split cuts to a segment.
 #include "band_syrk.cuh"
 
 namespace repro_torch {
@@ -61,15 +85,14 @@ band_syrk_kernel(const float* __restrict__ x, const float* __restrict__ w,
       K, n, p, h, vec, blockIdx.x, band + s * (2 * h + 1) * p, syrk_smem);
 }
 
-// Kernels 6 and 7: the same tile over one round, in the round's shape
-// (ROUND: K = 1, unit weight; the weight and K arguments, which
-// launch_syrk passes to either kernel, are unread).  Five blocks an SM at
-// most 102 registers a thread (the round keeps one accumulator set).
+// Kernels 6 and 7 at n <= kLongRound: the same tile over one round, in
+// the round's shape (ROUND: K = 1, unit weight, one segment).  Five blocks
+// an SM at most 102 registers a thread (the round keeps one accumulator
+// set).
 template <bool HAS_MASK, bool PER_READING>
 __global__ void __launch_bounds__(kSyrkThreads, 5)
-band_round_kernel(const float* __restrict__ x, const float* __restrict__,
-                  const float* __restrict__ m, int, int n, int p, int h,
-                  bool vec, float* __restrict__ band) {
+band_round_kernel(const float* __restrict__ x, const float* __restrict__ m,
+                  int n, int p, int h, bool vec, float* __restrict__ band) {
   extern __shared__ __align__(16) float syrk_smem[];
   const size_t s = blockIdx.y;
   const size_t m_rows = PER_READING ? (size_t)n : 1;
@@ -78,31 +101,234 @@ band_round_kernel(const float* __restrict__ x, const float* __restrict__,
       p, h, vec, blockIdx.x, band + s * (2 * h + 1) * p, syrk_smem);
 }
 
+// Kernels 6 and 7 at n > kLongRound on a full grid: kernel 2's tile (two
+// accumulator sets: the segment's and the round's) at K = 1 with unit
+// weight (UNIT: no weight read), on its grid.
+template <bool HAS_MASK, bool PER_READING>
+__global__ void __launch_bounds__(kSyrkThreads, 4)
+band_long_kernel(const float* __restrict__ x, const float* __restrict__ m,
+                 int n, int p, int h, bool vec, float* __restrict__ band) {
+  extern __shared__ __align__(16) float syrk_smem[];
+  const size_t s = blockIdx.y;
+  const size_t m_rows = PER_READING ? (size_t)n : 1;
+  band_syrk_tile<HAS_MASK, PER_READING, /*ROUND=*/false, float, false,
+                 /*UNIT=*/true>(
+      x + s * n * p, nullptr, HAS_MASK ? m + s * m_rows * p : nullptr, 1, n,
+      p, h, vec, blockIdx.x, band + s * (2 * h + 1) * p, syrk_smem);
+}
+
+// The split fold of a small band (kernels 6 and 7 at n > kLongRound on a
+// grid too small to fill the card, with p <= kPairMaxP and p ceil((h'+1) /
+// kPairDiags) <= kPairThreads, h' = min(h, p-1): the Berkeley fit's batch,
+// n = 1,440, p = 52, h = 15, 712 unique pairs), two kernels.  The first:
+// one block a segment g = blockIdx.x of slot s = blockIdx.y, which stages
+// the segment's rows (a dropout mask applied); thread t takes column i =
+// t % p and the diagonals d = kPairDiags (t / p) + q, q < kPairDiags, so a
+// row costs it 1 + kPairDiags shared loads for kPairDiags pairs, and sums
+// each pair (i, i + d) over the rows in order, c_g = fma(mx_i, mx_j, c_g)
+// from 0 — the tiles' chain of the segment, pair by pair — into ws (S, G,
+// U) at k = d p - d (d - 1) / 2 + i.  The second: one thread an entry of
+// the band, which folds its pair's partials in segment order, acc =
+// fma(f, c_g, acc) from 0 with f = m_i m_j (a liveness row) or 1, and
+// writes it (0 outside the matrix).  No atomics.
+constexpr int kPairThreads = 512;   // threads a block
+constexpr int kPairDiags = 4;       // diagonals a thread
+constexpr int kPairMaxP = 128;      // columns
+// a segment's rows and a dropout mask: 64 KB
+constexpr int kPairSmemFloats = 2 * kSegRows * kPairMaxP;
+
+// Unique pairs of a (2h+1, p) band: (h'+1) p - h'(h'+1)/2, h' = min(h, p-1).
+__host__ __device__ inline int band_pairs(int p, int h) {
+  const int d = h < p - 1 ? h : p - 1;
+  return (d + 1) * p - d * (d + 1) / 2;
+}
+
+// Threads the first kernel needs: p ceil((h'+1) / kPairDiags).
+__host__ __device__ inline int pair_threads(int p, int h) {
+  const int d = h < p - 1 ? h : p - 1;
+  return p * ((d + kPairDiags) / kPairDiags);
+}
+
+template <bool DROP>
+__global__ void __launch_bounds__(kPairThreads)
+band_pair_kernel(const float* __restrict__ x, const float* __restrict__ m,
+                 int n, int p, int h, bool vec, float* __restrict__ ws) {
+  extern __shared__ __align__(16) float pair_smem[];
+  const int tid = threadIdx.x, g = blockIdx.x, G = gridDim.x;
+  const size_t s = blockIdx.y;
+  const int hd = min(h, p - 1), U = band_pairs(p, h);
+  const int r0 = g * kSegRows, rows = min(kSegRows, n - r0);
+  const float* xs = x + (s * n + r0) * p;
+  const float* ms = DROP ? m + (s * n + r0) * p : nullptr;
+  // the segment's rows, (rows, p) row-major, and a dropout mask after them
+  const int EV = vec ? 4 : 1, chunks = rows * p / EV;
+  for (int c = tid; c < chunks; c += kPairThreads) {
+    if (vec) {
+      cp_async16(pair_smem + EV * c, xs + EV * c, 16);
+      if (DROP) cp_async16(pair_smem + rows * p + EV * c, ms + EV * c, 16);
+    } else {
+      cp_async4(pair_smem + c, xs + c, 4);
+      if (DROP) cp_async4(pair_smem + rows * p + c, ms + c, 4);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  if (DROP) {
+    for (int c = tid; c < rows * p; c += kPairThreads)
+      pair_smem[c] = __fmul_rn(pair_smem[c], pair_smem[rows * p + c]);
+    __syncthreads();
+  }
+  if (tid >= pair_threads(p, h)) return;
+  // column i, diagonals d0 .. d0 + kPairDiags - 1 (those past h' or past
+  // the matrix read column i and are not written)
+  const int i = tid % p, d0 = kPairDiags * (tid / p);
+  int jq[kPairDiags];
+  float acc[kPairDiags];
+#pragma unroll
+  for (int q = 0; q < kPairDiags; ++q) {
+    const int j = i + d0 + q;
+    jq[q] = d0 + q <= hd && j < p ? j : i;
+    acc[q] = 0.0f;
+  }
+  auto row = [&](int r) {
+    const float* xr = pair_smem + r * p;
+    const float xi = xr[i];
+#pragma unroll
+    for (int q = 0; q < kPairDiags; ++q)
+      acc[q] = __fmaf_rn(xi, xr[jq[q]], acc[q]);
+  };
+  int r = 0;
+  for (; r + 4 <= rows; r += 4) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) row(r + q);
+  }
+  for (; r < rows; ++r) row(r);
+  float* part = ws + (s * G + g) * U;
+#pragma unroll
+  for (int q = 0; q < kPairDiags; ++q) {
+    const int d = d0 + q;
+    if (d <= hd && i + d < p) part[d * p - d * (d - 1) / 2 + i] = acc[q];
+  }
+}
+
+// The second kernel's partials a pass: each thread copies its entry's
+// next kCombineSegs partials into shared memory by cp.async, all in flight
+// at once, before its chain reads them.
+constexpr int kCombineThreads = 256, kCombineSegs = 32;
+
+template <bool LIVE>
+__global__ void __launch_bounds__(kCombineThreads)
+band_pair_combine_kernel(const float* __restrict__ ws,
+                         const float* __restrict__ m, int G, int p, int h,
+                         float* __restrict__ band) {
+  __shared__ float parts[kCombineSegs * kCombineThreads];
+  const int E = (2 * h + 1) * p, U = band_pairs(p, h), tid = threadIdx.x;
+  const int e = blockIdx.x * kCombineThreads + tid;
+  if (e >= E) return;
+  const size_t s = blockIdx.y;
+  const int i = e % p, d = e / p - h, j = i + d;
+  float* out = band + s * E + e;
+  if (j < 0 || j >= p) {
+    *out = 0.0f;
+    return;
+  }
+  const int ad = d < 0 ? -d : d, lo = d < 0 ? j : i;
+  const float f = LIVE ? __fmul_rn(__ldg(m + s * p + i), __ldg(m + s * p + j))
+                       : 1.0f;
+  const float* c = ws + s * G * U + ad * p - ad * (ad - 1) / 2 + lo;
+  float acc = 0.0f;
+  for (int g0 = 0; g0 < G; g0 += kCombineSegs) {
+    const int nseg = min(kCombineSegs, G - g0);
+    for (int q = 0; q < nseg; ++q)
+      cp_async4(parts + q * kCombineThreads + tid, c + (size_t)(g0 + q) * U,
+                4);
+    cp_async_commit();
+    cp_async_wait<0>();   // this thread's own copies: no barrier
+    for (int q = 0; q < nseg; ++q)
+      acc = __fmaf_rn(f, parts[q * kCombineThreads + tid], acc);
+  }
+  *out = acc;
+}
+
 static bool aligned16(const void* ptr) {
   return (reinterpret_cast<size_t>(ptr) & 15) == 0;
 }
 
-// Kernels 2 and 3 (a chunk of K rounds, one weight each), or with ROUND
-// kernels 6 and 7 (one round: K = 1, w unread).
-template <bool HAS_MASK, bool PER_READING, bool ROUND>
+static cudaError_t smem_attr(const void* kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// Kernels 2 and 3: a chunk of K rounds, one weight each.
+template <bool HAS_MASK, bool PER_READING>
 static int launch_syrk(const float* x, const float* w, const float* m,
                        int S, int K, int n, int p, int h, float* band,
                        void* stream) {
   constexpr size_t smem =
-      sizeof(float) * syrk_smem_floats<HAS_MASK && PER_READING, ROUND>();
+      sizeof(float) * syrk_smem_floats<HAS_MASK && PER_READING>();
   if (S < 1 || K < 1 || n < 1 || p < 1 || h < 0)
     return (int)cudaErrorInvalidValue;
-  auto kernel = ROUND ? band_round_kernel<HAS_MASK, PER_READING>
-                      : band_syrk_kernel<HAS_MASK, PER_READING>;
-  if (smem > 48 * 1024) {   // the chunk's dropout mask stages: 64 KB
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  auto kernel = band_syrk_kernel<HAS_MASK, PER_READING>;
+  // the chunk's dropout mask stages: 64 KB
+  cudaError_t err = smem_attr((const void*)kernel, smem);
+  if (err != cudaSuccess) return (int)err;
   const bool vec = p % 4 == 0 && aligned16(x) && (!HAS_MASK || aligned16(m));
   dim3 grid((p + kSyrkT - 1) / kSyrkT * syrk_offsets(p, h), S);
   kernel<<<grid, kSyrkThreads, smem, (cudaStream_t)stream>>>(
       x, w, m, K, n, p, h, vec, band);
+  return (int)cudaGetLastError();
+}
+
+// Kernels 6 and 7: one round of n rows a slot, in the shape its n and the
+// workspace choose (above).  ws: (S, ceil(n / kSegRows), band_pairs(p, h))
+// floats for the split fold of a round of n > kLongRound rows, or null.
+template <bool HAS_MASK, bool PER_READING>
+static int launch_round(const float* x, const float* m, int S, int n, int p,
+                        int h, float* ws, float* band, void* stream) {
+  if (S < 1 || n < 1 || p < 1 || h < 0) return (int)cudaErrorInvalidValue;
+  const bool vec = p % 4 == 0 && aligned16(x) && (!HAS_MASK || aligned16(m));
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err;
+  const int tiles = (p + kSyrkT - 1) / kSyrkT * syrk_offsets(p, h);
+  if (n <= kLongRound) {
+    constexpr size_t smem = sizeof(float) *
+        syrk_smem_floats<HAS_MASK && PER_READING, /*ROUND=*/true>();
+    auto kernel = band_round_kernel<HAS_MASK, PER_READING>;
+    if ((err = smem_attr((const void*)kernel, smem)) != cudaSuccess)
+      return (int)err;
+    kernel<<<dim3(tiles, S), kSyrkThreads, smem, st>>>(x, m, n, p, h, vec,
+                                                      band);
+    return (int)cudaGetLastError();
+  }
+  if (ws == nullptr) {
+    constexpr size_t smem =
+        sizeof(float) * syrk_smem_floats<HAS_MASK && PER_READING>();
+    auto kernel = band_long_kernel<HAS_MASK, PER_READING>;
+    if ((err = smem_attr((const void*)kernel, smem)) != cudaSuccess)
+      return (int)err;
+    kernel<<<dim3(tiles, S), kSyrkThreads, smem, st>>>(x, m, n, p, h, vec,
+                                                      band);
+    return (int)cudaGetLastError();
+  }
+  const int G = (n + kSegRows - 1) / kSegRows;
+  if (pair_threads(p, h) > kPairThreads || p > kPairMaxP)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * kPairSmemFloats;
+  auto part = band_pair_kernel<HAS_MASK && PER_READING>;
+  if ((err = smem_attr((const void*)part, smem)) != cudaSuccess)
+    return (int)err;
+  part<<<dim3(G, S), kPairThreads, smem, st>>>(x, m, n, p, h, vec, ws);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  // a thread an entry of the band (at most (2h+1) kPairMaxP: h < p here
+  // or the band is zero past p)
+  const long long entries = (long long)(2 * h + 1) * p;
+  if (entries > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  auto combine = band_pair_combine_kernel<HAS_MASK && !PER_READING>;
+  combine<<<dim3((unsigned)((entries + kCombineThreads - 1) /
+                             kCombineThreads), S),
+            kCombineThreads, 0, st>>>(ws, m, G, p, h, band);
   return (int)cudaGetLastError();
 }
 
@@ -113,8 +339,8 @@ extern "C" {
 // x (S, K*n, p), w (S, K), band (S, 2h+1, p); all fp32, contiguous.
 int band_fold_f32(const float* x, const float* w, int S, int K, int n,
                   int p, int h, float* band, void* stream) {
-  return repro_torch::launch_syrk<false, false, false>(x, w, nullptr, S, K, n,
-                                                      p, h, band, stream);
+  return repro_torch::launch_syrk<false, false>(x, w, nullptr, S, K, n, p, h,
+                                                band, stream);
 }
 
 // As band_fold_f32 with a 0/1 mask: (S, K, p) per-round liveness, or
@@ -123,30 +349,33 @@ int band_fold_masked_f32(const float* x, const float* w, const float* m,
                          int S, int K, int n, int per_reading, int p, int h,
                          float* band, void* stream) {
   if (per_reading)
-    return repro_torch::launch_syrk<true, true, false>(x, w, m, S, K, n, p, h,
-                                                      band, stream);
-  return repro_torch::launch_syrk<true, false, false>(x, w, m, S, K, n, p, h,
-                                                     band, stream);
+    return repro_torch::launch_syrk<true, true>(x, w, m, S, K, n, p, h, band,
+                                                stream);
+  return repro_torch::launch_syrk<true, false>(x, w, m, S, K, n, p, h, band,
+                                               stream);
 }
 
 // Kernel 6: x (S, n, p) one round per slot, band (S, 2h+1, p);
-// band[s, k, i] = sum_r x[s, r, i] x[s, r, i + k - h].
-int band_round_f32(const float* x, int S, int n, int p, int h, float* band,
-                   void* stream) {
-  return repro_torch::launch_syrk<false, false, true>(
-      x, nullptr, nullptr, S, 1, n, p, h, band, stream);
+// band[s, k, i] = sum_r x[s, r, i] x[s, r, i + k - h].  ws: the split
+// fold's workspace, (S, ceil(n / 64), U) floats for U = band_pairs(p, h)
+// unique pairs, or null (the round's shape up to 64 rows, kernel 2's tile
+// at unit weight beyond).
+int band_round_f32(const float* x, int S, int n, int p, int h, float* ws,
+                   float* band, void* stream) {
+  return repro_torch::launch_round<false, false>(x, nullptr, S, n, p, h, ws,
+                                                 band, stream);
 }
 
 // Kernel 7: as band_round_f32 with a 0/1 mask: (S, p) liveness, or
 // (S, n, p) per-reading dropout when per_reading is set.
 int band_round_masked_f32(const float* x, const float* m, int S, int n,
-                          int per_reading, int p, int h, float* band,
-                          void* stream) {
+                          int per_reading, int p, int h, float* ws,
+                          float* band, void* stream) {
   if (per_reading)
-    return repro_torch::launch_syrk<true, true, true>(x, nullptr, m, S, 1, n,
-                                                       p, h, band, stream);
-  return repro_torch::launch_syrk<true, false, true>(x, nullptr, m, S, 1, n,
-                                                      p, h, band, stream);
+    return repro_torch::launch_round<true, true>(x, m, S, n, p, h, ws, band,
+                                                 stream);
+  return repro_torch::launch_round<true, false>(x, m, S, n, p, h, ws, band,
+                                                stream);
 }
 
 }  // extern "C"

@@ -8,21 +8,29 @@
 // (K, p) per-round liveness or, with PER_READING, (R, p) per-reading
 // dropout.  Out-of-range entries (i + k - h outside [0, p)) are 0.
 //
-// The order of sums (the bits contract).  Every pair (i, j) is summed as
-//   s_t = 0;  s_t = fma(mx_i, mx_j, s_t) for e = 0 .. n-1;
-//   acc = fma(w_t, s_t, acc) for t = 0 .. K-1,
-// with explicit __fmaf_rn / __fmul_rn, so no contraction can differ between
-// files.  A product inside an fma commutes exactly, so the order is
-// symmetric in (i, j): the mirrored entry band[h - d, i + d] :=
-// band[h + d, i] carries the bits a direct computation of it gives.
-// Kernel 1's fold blocks (fused_stream.cu) are this tile too, in both of its
-// tile modes.  At K = 1 and w = 1, acc = fma(1, s_0, 0) = s_0:
-// the chain of kernels 6 and 7, which sum one round (ROUND: K = 1, no
-// weight read, w_t = 1, and s_0 is scaled in place, s_0 = fma(f, s_0, 0),
-// the bits of acc = fma(f, s_0, acc) from acc = 0).  A 0/1 liveness mask
-// enters at the round's end, acc = fma((w_t m_ti) m_tj, s_t, acc) over the
-// unmasked s_t: a live pair gives the masked chain's bits (x 1 = x), a
-// dead one adds exactly 0, as the masked chain's s_t = +0 does.
+// The order of sums (the bits contract).  A round's rows are cut into
+// segments of kSegRows consecutive rows (the last may be shorter), and
+// every pair (i, j) is summed as
+//   c_tg = 0;  c_tg = fma(mx_i, mx_j, c_tg) over segment g's rows;
+//   acc = fma(w_t, c_tg, acc) for g = 0, 1, ..., for t = 0 .. K-1,
+// from acc = 0, with explicit __fmaf_rn / __fmul_rn, so no contraction can
+// differ between files.  The segments depend on n alone, never on S, p, h
+// or the block that holds a segment, so a slot's band has the same bits
+// however a launch divides its rows.  A product inside an fma commutes
+// exactly, so the order is symmetric in (i, j): the mirrored entry
+// band[h - d, i + d] := band[h + d, i] carries the bits a direct
+// computation of it gives.  Kernel 1's fold blocks (fused_stream.cu) are
+// this tile too, in both of its tile modes.  At K = 1 and w = 1 the order
+// is that of kernels 6 and 7, which sum one round with unit weight: in the
+// round's shape here (ROUND: n <= kSegRows, one segment, s_0 scaled in
+// place, s_0 = fma(f, s_0, 0), the bits of acc = fma(f, s_0, acc) from
+// acc = 0), and for longer rounds in the chunk's shape at unit weight
+// (UNIT) or with the segments on blocks of their own (band_fold.cu).  A 0/1
+// liveness mask enters at each segment's end, acc = fma((w_t m_ti) m_tj,
+// c_tg, acc) over the unmasked c_tg: a live pair gives the masked chain's
+// bits (x 1 = x), a dead one adds exactly 0, as the masked chain's +0
+// does.  A round of n <= kSegRows rows is one segment: the order before
+// segments existed, so every path of 32-row rounds keeps its bits.
 //
 // Design.  The p x p matrix is cut into T x T tiles (I, J), J >= I, and a
 // block computes one tile that meets the band 0 <= j - i <= h: at p = 1024,
@@ -31,24 +39,24 @@
 // pair of the band (below the diagonal of a diagonal tile, past h in the
 // last) skips the arithmetic, so about 1.24x the unique pairs are computed
 // (the dense product does 8.5x).  A thread owns 8 rows x 4 columns, two
-// accumulator sets (s for the round, acc across rounds).  The chunk's rows
-// stream through shared memory in stages of kSyrkRows rows, kSyrkStages in
-// flight by cp.async: x at the tile's I columns and at its J columns (one
-// copy for a diagonal tile), 16 bytes a copy where p % 4 == 0 and the rows
-// are aligned, 4 bytes otherwise, zero past column p; with a dropout mask,
-// its rows too, then each thread multiplies the chunks it copied (mx = x m)
-// before the stage's barrier; a liveness mask is read once a round, 12
-// values a thread, as the round's last stage starts.  Per row a thread
-// loads 8 + 4 operands (three 16-byte shared loads; a warp's lanes share
-// them: 8 lanes a row group, 4 a column group) for 32 fused multiply-adds.
-// A round boundary follows the row index, not the staging, so n need not
-// divide the stage.  At the end the tile's sums go to shared memory and
-// out along wrapped diagonals (entry (ii, (ii + delta) mod T)): a warp
-// stores two consecutive runs of band[h + d, i] and of their mirrors
-// band[h - d, i + d].  The diagonal tiles also write the out-of-range
-// zeros of their rows, so every entry of the band is written once (no
-// memset).  No atomics, no split of a slot's rows across blocks: two
-// launches give equal bits.
+// accumulator sets (s for the segment, acc across segments and rounds).
+// The chunk's rows stream through shared memory in stages of kSyrkRows
+// rows, kSyrkStages in flight by cp.async: x at the tile's I columns and at
+// its J columns (one copy for a diagonal tile), 16 bytes a copy where p %
+// 4 == 0 and the rows are aligned, 4 bytes otherwise, zero past column p;
+// with a dropout mask, its rows too, then each thread multiplies the
+// chunks it copied (mx = x m) before the stage's barrier; a liveness mask
+// is read at each segment's end, 12 values a thread, as the segment's
+// last stage starts.  Per row a thread loads 8 + 4 operands (three 16-byte
+// shared loads; a warp's lanes share them: 8 lanes a row group, 4 a column
+// group) for 32 fused multiply-adds.  A segment boundary follows the row
+// index, not the staging, so n need not divide the stage.  At the end the
+// tile's sums go to shared memory and out along wrapped diagonals (entry
+// (ii, (ii + delta) mod T)): a warp stores two consecutive runs of
+// band[h + d, i] and of their mirrors band[h - d, i + d].  The diagonal
+// tiles also write the out-of-range zeros of their rows, so every entry of
+// the band is written once (no memset).  No atomics: two launches give
+// equal bits.
 //
 // bf16 rows (T = __nv_bfloat16: kernel 1's bf16 tile mode, the chunk fold
 // with a liveness mask or none).  Where p % 8 == 0 and the rows are
@@ -59,18 +67,19 @@
 // and widens it as it stores it (cp.async has no 2-byte form).  Widening
 // is exact, so the band is the fp32 fold's of the widened rows, bit for bit.
 //
-// A round (ROUND) is bound by its launch's instructions, not by the band's
-// writeback: at n = 32 rows a block does 32 rows of fused multiply-adds
-// and then writes up to 8,192 entries, so the epilogue weighs as much as
-// the arithmetic.  Its shape: one accumulator set (the round's s, which
-// frees 32 registers: five blocks an SM instead of four), stages of
-// kRoundRows rows (two in flight over a 32-row round, so the second half's
-// copy overlaps the first half's arithmetic), and an epilogue whose loop
-// keeps per thread the row ii, the range of jj inside the band and the
-// two base offsets, so an entry costs one range test, a shared load and
-// its stores.  It writes the same entries in the same order as the chunk's.
-// The chunk keeps its own loop: on the round's, kernel 3 ran 2-3% slower
-// on the H100 (0.836 / 0.842 ms against 0.817 / 0.817 at the slice).
+// A round (ROUND, n <= kSegRows) is bound by its launch's instructions, not
+// by the band's writeback: at n = 32 rows a block does 32 rows of fused
+// multiply-adds and then writes up to 8,192 entries, so the epilogue weighs
+// as much as the arithmetic.  Its shape: one accumulator set (the round's
+// s, which frees 32 registers: five blocks an SM instead of four), stages
+// of kRoundRows rows (two in flight over a 32-row round, so the second
+// half's copy overlaps the first half's arithmetic), and an epilogue whose
+// loop keeps per thread the row ii, the range of jj inside the band and
+// the two base offsets, so an entry costs one range test, a shared load
+// and its stores.  It writes the same entries in the same order as the
+// chunk's.  The chunk keeps its own loop: on the round's, kernel 3 ran
+// 2-3% slower on the H100 (0.836 / 0.842 ms against 0.817 / 0.817 at the
+// slice).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -90,6 +99,15 @@ constexpr int kSyrkRows = 32;       // rows of x a stage
 constexpr int kSyrkStages = 2;      // stages in flight
 constexpr int kRoundRows = 16;      // the same for a round (ROUND)
 constexpr int kRoundStages = 2;
+// the order of sums: a round's rows in segments of kSegRows (above)
+constexpr int kSegRows = 64;
+// rounds of more rows than this take the chunk's shape at unit weight or
+// the split fold (band_fold.cu); the round's shape holds one segment
+constexpr int kLongRound = 64;
+static_assert(kLongRound <= kSegRows, "ROUND sums one segment");
+static_assert(kSegRows % kSyrkRows == 0 && kSegRows % kRoundRows == 0 &&
+                  kSegRows >= 32,
+              "segments end at stage ends; a 32-row round is one segment");
 // a warp's 4 x 8 lanes cover (4 RM) x (8 CM) of the tile: 32 x 32, a quarter
 constexpr int kSyrkWR = 4 * kSyrkRM, kSyrkWC = 8 * kSyrkCM;
 constexpr int kSyrkThreads = 32 * (kSyrkT / kSyrkWR) * (kSyrkT / kSyrkWC);
@@ -120,7 +138,8 @@ static_assert(kSyrkT % kSyrkWR == 0 && kSyrkT % kSyrkWC == 0 &&
               "warps of 4 x 8 lanes tile the tile; float4 operands");
 
 // One tile (blockIdx-free: ``tile`` = I * syrk_offsets(p, h) + (J - I)) of
-// one slot: x (R, p), w (K) (unread with ROUND, which takes K = 1), m
+// one slot: x (R, p), w (K) (unread with ROUND, which takes K = 1 and
+// n <= kSegRows), m
 // (K, p), or (R, p) with PER_READING, or null, band (2h+1, p).  vec: x and
 // m may be copied 16 bytes at a time (p a multiple of 16 bytes' worth of
 // T, both aligned).  smem: syrk_smem_floats<HAS_MASK && PER_READING,
@@ -130,8 +149,10 @@ static_assert(kSyrkT % kSyrkWR == 0 && kSyrkT % kSyrkWC == 0 &&
 // ends instead of as its last stage starts: 12 registers fewer through the
 // stage's multiply-adds, for a tile that is a called function (whose
 // calling convention leaves it fewer registers than a kernel's own body).
+// UNIT (kernels 6 and 7 past one segment: K = 1, unit weight, w unread)
+// keeps the chunk's shape; ROUND implies it.
 template <bool HAS_MASK, bool PER_READING, bool ROUND = false,
-          typename T = float, bool MASK_AT_FLUSH = false>
+          typename T = float, bool MASK_AT_FLUSH = false, bool UNIT = ROUND>
 __device__ __forceinline__ void band_syrk_tile(
     const T* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ m, int K, int n, int p, int h, bool vec,
@@ -267,8 +288,11 @@ __device__ __forceinline__ void band_syrk_tile(
   for (int a = 0; a < RM; ++a)
 #pragma unroll
     for (int b = 0; b < CM; ++b) s[a][b] = acc[a][b] = 0.0f;
-  int t = 0, round_end = n;   // the round of the next row, its last row + 1
-  float wt = ROUND ? 1.0f : __ldg(w);
+  // the round of the next row, and the row after the segment that holds
+  // it (the next flush); round t ends at row (t + 1) n
+  int t = 0, flush_end = min(n, kSegRows);
+  static_assert(UNIT || !ROUND, "a round has unit weight");
+  float wt = UNIT ? 1.0f : __ldg(w);
   // round t's liveness at the thread's rows and columns (1 without a mask),
   // loaded ahead of the round's last rows where the stage allows
   float mi[RM], mj[CM];
@@ -287,10 +311,11 @@ __device__ __forceinline__ void band_syrk_tile(
         mj[b] = j0 + cj + b < p ? __ldg(mt + j0 + cj + b) : 0.0f;
     }
   };
-  // end of round t: acc = fma(w_t, s_t, acc), or with a liveness mask
-  // acc = fma((w_t m_ti) m_tj, s_t, acc); the next round's weight is
-  // loaded here, ahead of its rows.  A ROUND ends once, from acc = 0: s
-  // takes acc's value in place, and acc is never used
+  // end of a segment of round t: acc = fma(w_t, s, acc), or with a
+  // liveness mask acc = fma((w_t m_ti) m_tj, s, acc); at the round's end
+  // the next round's weight is loaded here, ahead of its rows.  A ROUND
+  // ends once, from acc = 0: s takes acc's value in place, and acc is
+  // never used
   auto flush = [&]() {
 #pragma unroll
     for (int a = 0; a < RM; ++a) {
@@ -306,9 +331,11 @@ __device__ __forceinline__ void band_syrk_tile(
         }
       }
     }
-    ++t;
-    if constexpr (!ROUND) wt = t < K ? __ldg(w + t) : 0.0f;
-    round_end += n;
+    // at a round's end t moves on; the weight is (re)loaded either way,
+    // without a branch (an unchanged t loads the same weight)
+    t += flush_end == (t + 1) * n;
+    if constexpr (!UNIT) wt = t < K ? __ldg(w + t) : 0.0f;
+    flush_end = min((t + 1) * n, flush_end + kSegRows);
   };
   // one row: the thread's RM values at I and CM at J (float4 loads),
   // RM x CM fused multiply-adds
@@ -349,8 +376,8 @@ __device__ __forceinline__ void band_syrk_tile(
     const float* ar = smem + (st % ST) * STAGE + ri;
     const float* br = smem + (st % ST) * STAGE + (diag ? 0 : BUF) + cj;
     const int r0 = st * RB, rows = min(RB, R - r0);
-    if (rows == RB && round_end - r0 >= RB) {   // a whole stage, one round
-      const bool ends = round_end == r0 + RB;
+    if (rows == RB && flush_end - r0 >= RB) {   // a whole stage, one segment
+      const bool ends = flush_end == r0 + RB;
       if (ends && !MASK_AT_FLUSH) load_mask();
 #pragma unroll
       for (int q = 0; q < RB; ++q) row(ar + q * TT, br + q * TT);
@@ -360,9 +387,9 @@ __device__ __forceinline__ void band_syrk_tile(
       }
     } else {
       for (int q = 0; q < rows;) {
-        const int seg = min(rows, round_end - r0);
+        const int seg = min(rows, flush_end - r0);
         for (; q < seg; ++q) row(ar + q * TT, br + q * TT);
-        if (q == round_end - r0) {
+        if (q == flush_end - r0) {
           load_mask();
           flush();
         }

@@ -22,6 +22,7 @@ kernel's shape.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 
@@ -32,6 +33,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.build import load_library
 
 __all__ = ["LAUNCHES", "PLAIN_CALLS", "PLANNED", "reset_counts",
+           "SEGMENT_ROWS", "LONG_ROUND_ROWS", "RoundPlan", "band_pairs",
+           "band_round_plan",
            "cov_band_update", "cov_band_update_batched",
            "cov_band_update_chunk", "cov_band_update_chunk_batched",
            "fused_tiles", "fused_stream_update",
@@ -102,6 +105,12 @@ def _cuda_checks(S, R):
 
 
 @functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    """The card's SM count, queried once."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
 def _max_q(library: str, entry: str, *args: int) -> int:
     """The largest q a C entry (``*_max_q``) reports for a device (and
     mode), queried once: a device attribute does not change."""
@@ -131,6 +140,69 @@ def _mask_rows(mask: torch.Tensor, B: int, K: int, n: int, p: int,
         return mask.reshape(B, K * n, p), 1
     raise ValueError(f"mask shape {tuple(mask.shape)} is neither "
                      f"{(B, K, p)} nor {(B, K, n, p)}")
+
+
+# The band folds' order of sums (csrc/band_syrk.cuh): a round's rows in
+# segments of SEGMENT_ROWS (kSegRows), folded in order; kernels 6 and 7
+# take the round's shape up to LONG_ROUND_ROWS (kLongRound) rows.
+SEGMENT_ROWS = 64
+LONG_ROUND_ROWS = 64
+_TILE_COLS = 64                 # the SYRK tile's T (kSyrkT)
+# the split fold (band_fold.cu's band_pair_kernel) takes bands whose
+# columns times diagonal groups of SPLIT_DIAGS (kPairDiags) fit a block of
+# SPLIT_MAX_THREADS (kPairThreads), and p up to SPLIT_MAX_P (kPairMaxP),
+# on launches whose tile grid is smaller than the card's SM count
+SPLIT_MAX_THREADS = 512
+SPLIT_DIAGS = 4
+SPLIT_MAX_P = 128
+H100_SMS = 132
+
+
+@dataclasses.dataclass(frozen=True)
+class RoundPlan:
+    """How kernels 6 and 7 fold one launch of S rounds of n rows (p, h):
+    ``segments`` of the order of sums (n alone fixes them), ``shape``
+    ("round", "long" or "split"), the ``blocks`` a slot's launch has (the
+    split fold's first kernel: one a segment), and the split fold's
+    ``workspace_bytes`` (0 otherwise)."""
+    segments: int
+    shape: str
+    blocks: int
+    workspace_bytes: int
+
+
+def band_pairs(p: int, h: int) -> int:
+    """Unique pairs (i, j), i <= j <= i + h, j < p, of a (2h+1, p) band."""
+    d = min(h, p - 1)
+    return (d + 1) * p - d * (d + 1) // 2
+
+
+def _split_threads(p: int, h: int) -> int:
+    """Threads of the split fold's first kernel: a column times each group
+    of SPLIT_DIAGS diagonals (``pair_threads`` in csrc/band_fold.cu)."""
+    return p * -(-(min(h, p - 1) + 1) // SPLIT_DIAGS)
+
+
+def band_round_plan(S: int, n: int, p: int, h: int,
+                    sms: int = H100_SMS) -> RoundPlan:
+    """The shape ``csrc/band_fold.cu`` gives a launch (its ``launch_round``,
+    with the wrapper's choice of a workspace): the round's shape up to
+    LONG_ROUND_ROWS rows; beyond, kernel 2's tile at unit weight ("long",
+    on the same grid of tiles), unless that grid (S x tiles) is smaller
+    than the card's ``sms`` and the band is small (SPLIT_MAX_P columns, a
+    block of SPLIT_MAX_THREADS), where each segment gets a block of its own
+    (the split fold) and the partials, one float a pair and segment, a
+    workspace."""
+    segments = -(-n // SEGMENT_ROWS)
+    tiles = -(-p // _TILE_COLS)
+    blocks = tiles * (min(-(-h // _TILE_COLS), tiles - 1) + 1)
+    if n <= LONG_ROUND_ROWS:
+        return RoundPlan(segments, "round", blocks, 0)
+    if (S * blocks < sms and p <= SPLIT_MAX_P
+            and _split_threads(p, h) <= SPLIT_MAX_THREADS):
+        return RoundPlan(segments, "split", segments,
+                         4 * S * segments * band_pairs(p, h))
+    return RoundPlan(segments, "long", blocks, 0)
 
 
 def cov_band_update_batched(x: torch.Tensor, halfwidth: int, *,
@@ -168,14 +240,17 @@ def cov_band_update_batched(x: torch.Tensor, halfwidth: int, *,
     dev = x.device
     xx = _cuda_operand(x, dev)
     band = torch.empty((B, 2 * h + 1, p), device=dev, dtype=torch.float32)
+    plan = band_round_plan(B, n, p, h, _sms(dev))
+    ws = (torch.empty(plan.workspace_bytes // 4, device=dev,
+                      dtype=torch.float32) if plan.shape == "split" else None)
     lib = load_library("band_fold")
     if mask is None:
-        ret = lib.band_round_f32(xx.data_ptr(), B, n, p, h, band.data_ptr(),
-                                 _stream())
+        ret = lib.band_round_f32(xx.data_ptr(), B, n, p, h, _ptr(ws),
+                                 band.data_ptr(), _stream())
     else:
         m = _cuda_operand(mask, dev)
         ret = lib.band_round_masked_f32(xx.data_ptr(), m.data_ptr(), B, n,
-                                        int(m.dim() == 3), p, h,
+                                        int(m.dim() == 3), p, h, _ptr(ws),
                                         band.data_ptr(), _stream())
     _check(ret, kernel)
     LAUNCHES[kernel] += 1

@@ -724,6 +724,48 @@ def test_bf16_engine_on_card_matches_cpu():
         assert a.compression_max_err <= 1.0 + 2.0 ** -8 * np.abs(d).max()
 
 
+# (n, p, h) of test_round_fold_matches_plain: every n at every p and h, and
+# the Berkeley fit's batch
+_ROUND_SHAPES = [(n, p, h) for n in (13, 32, 33, 64, 65, 70, 129)
+                 for p in (37, 64, 65, 1021, 1024)
+                 for h in (0, 3, 128, "p+7")] + [(1440, 52, 15)]
+
+
+def _round_operands(S, n, p, mask_kind, seed):
+    """A round x (S, n, p) and a (S, p) liveness row, a (S, n, p) dropout
+    mask or None, on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((S, n, p), generator=g)
+    m = {None: None,
+         "live": (torch.rand((S, p), generator=g) > 0.2).float(),
+         "drop": (torch.rand((S, n, p), generator=g) > 0.2).float(),
+         }[mask_kind]
+    return x, m
+
+
+def _round_fold(x, h, m):
+    """Kernel 6 or 7 on card tensors, launched twice: one count a call, no
+    plain call, equal bits, an exactly symmetric band."""
+    ops.reset_counts()
+    band = ops.cov_band_update_batched(x, h, mask=m)
+    again = ops.cov_band_update_batched(x, h, mask=m)
+    torch.cuda.synchronize()
+    kernel = ("band_round" if m is None else "band_round_masked"
+              if m.dim() == 2 else "band_round_masked_drop")
+    assert ops.LAUNCHES[kernel] == 2 and sum(ops.LAUNCHES.values()) == 2
+    assert sum(ops.PLAIN_CALLS.values()) == 0
+    assert torch.equal(band, again)
+    _assert_mirrored(band, h)
+    return band
+
+
+def _chunk_at_k1(x, h, m):
+    """Kernel 2 or 3 on the same round as a one-round chunk of weight 1."""
+    return ops.cov_band_update_chunk_batched(
+        x[:, None], torch.ones((x.shape[0], 1), device=x.device), h,
+        mask=None if m is None else m[:, None])
+
+
 @pytest.mark.cuda
 class TestCudaRoundAndBandedKernels:
     """Kernels 6, 7, 10 and 11 against their plain versions, on the card."""
@@ -735,44 +777,109 @@ class TestCudaRoundAndBandedKernels:
 
     @pytest.mark.parametrize("mask_kind", [None, "live", "drop"])
     @pytest.mark.parametrize("S", [1, 3])
-    @pytest.mark.parametrize("h", [0, 3, 128, "p+7"])
-    @pytest.mark.parametrize("p", [37, 64, 65, 1021, 1024])
-    @pytest.mark.parametrize("n", [13, 32, 33, 70])
+    @pytest.mark.parametrize("n,p,h", _ROUND_SHAPES)
     def test_round_fold_matches_plain(self, n, p, h, S, mask_kind):
-        """Kernels 6 and 7 (the tile of ``csrc/band_syrk.cuh`` in its round
-        shape, 16-row stages) at the tile's edges: one stage, exactly two,
-        and rounds that straddle stages (n = 13, 32, 33, 70); odd p (4-byte
-        copies), p below, at and across the 64-column tile; h from 0 past
-        both ends of the band; one slot and three.  Against the plain
-        version on the CPU (``TOL`` up to 32 rows, 1e-4 beyond, as the
-        chunk folds), with an exactly symmetric band, equal bits on a
-        second launch, and kernel 2's or 3's bits at K = 1, w = 1."""
+        """Kernels 6 and 7 at the tiles' edges, in each of their shapes
+        (``ops.band_round_plan``): the round's shape up to 64 rows (one
+        stage, exactly two, rounds that straddle stages: n = 13, 32, 33,
+        64), and past it (n = 65, 70, 129: two or three segments of 64
+        rows, the last partial) kernel 2's tile at unit weight, or the
+        split fold for small bands on small grids (p = 37 with h = 0 or 3
+        here, and the Berkeley fit's batch, n = 1,440 at p = 52, h = 15);
+        odd p (4-byte copies), p below, at and across the 64-column tile;
+        h from 0 past both ends of the band; one slot and three.  Against
+        the plain version on the CPU (``TOL`` up to 32 rows, 1e-4 beyond,
+        as the chunk folds), with an exactly symmetric band, equal bits on
+        a second launch, one count a call, and kernel 2's or 3's bits at
+        K = 1, w = 1."""
         h = _halfwidth(h, p)
-        g = torch.Generator().manual_seed(p * 131 + h * 7 + n * 3 + S)
-        x = torch.randn((S, n, p), generator=g)
-        m = {None: None,
-             "live": (torch.rand((S, p), generator=g) > 0.2).float(),
-             "drop": (torch.rand((S, n, p), generator=g) > 0.2).float(),
-             }[mask_kind]
+        x, m = _round_operands(S, n, p, mask_kind,
+                               p * 131 + h * 7 + n * 3 + S)
         cpu = ops.cov_band_update_batched(x, h, mask=m)
         xc, mc = x.cuda(), None if m is None else m.cuda()
-        ops.reset_counts()
-        gpu = ops.cov_band_update_batched(xc, h, mask=mc)
-        again = ops.cov_band_update_batched(xc, h, mask=mc)
-        torch.cuda.synchronize()
-        kernel = {None: "band_round", "live": "band_round_masked",
-                  "drop": "band_round_masked_drop"}[mask_kind]
-        assert ops.LAUNCHES[kernel] == 2 and sum(ops.LAUNCHES.values()) == 2
-        assert sum(ops.PLAIN_CALLS.values()) == 0
-        assert torch.equal(gpu, again)
-        _assert_mirrored(gpu, h)
+        gpu = _round_fold(xc, h, mc)
         tol = TOL if n <= 32 else dict(rtol=1e-4, atol=1e-4)
         torch.testing.assert_close(gpu.cpu(), cpu, **tol)
         # kernel 6/7 is kernel 2/3 at K = 1 with unit weight: same bits
-        chunk = ops.cov_band_update_chunk_batched(
-            xc[:, None], torch.ones((S, 1), device="cuda"), h,
-            mask=None if mc is None else mc[:, None])
-        assert torch.equal(gpu, chunk)
+        assert torch.equal(gpu, _chunk_at_k1(xc, h, mc))
+
+    @pytest.mark.parametrize("fleet", [64, 160])
+    @pytest.mark.parametrize("mask_kind", [None, "live", "drop"])
+    @pytest.mark.parametrize("n,p,h", [(1440, 52, 15), (256, 1024, 128),
+                                       (70, 1024, 128), (32, 1024, 128),
+                                       (129, 37, 44)])
+    def test_one_slot_bits_inside_a_fleet(self, n, p, h, mask_kind, fleet):
+        """One slot's band is bit for bit the same alone (S = 1) and as
+        each slot of a fleet of copies of it: the grid differs (and at
+        n = 1,440 and 129 with 160 slots the shape too: split alone,
+        kernel 2's tile in the fleet), the order of sums may not."""
+        x, m = _round_operands(1, n, p, mask_kind, n + p + h)
+        xc, mc = x.cuda(), None if m is None else m.cuda()
+        copies = lambda t: None if t is None else \
+            t.expand(fleet, *t.shape[1:]).contiguous()
+        one = _round_fold(xc, h, mc)
+        many = _round_fold(copies(xc), h, copies(mc))
+        assert all(torch.equal(one[0], many[s]) for s in range(fleet))
+
+    @pytest.mark.parametrize("mask_kind", [None, "live", "drop"])
+    @pytest.mark.parametrize("S,n,p,h,shape", [
+        (1, 1440, 52, 15, "split"), (2, 65, 37, 44, "split"),
+        (4, 129, 65, 0, "split"), (1, 300, 96, 6, "split"),
+        (3, 129, 1024, 128, "long"), (160, 129, 52, 15, "long"),
+        (200, 65, 130, 0, "long"), (2, 200, 1021, 130, "long"),
+        (1, 256, 16384, 128, "long")])
+    def test_shapes_give_the_chunk_folds_bits(self, S, n, p, h, shape,
+                                              mask_kind):
+        """Past 64 rows, in the split fold (small bands on grids smaller
+        than the card) and in kernel 2's tile at unit weight (everything
+        else), kernels 6 and 7 give kernels 2 and 3's bits at K = 1,
+        w = 1: the segments are summed in one order whatever the shape."""
+        assert ops.band_round_plan(S, n, p, h).shape == shape
+        x, m = _round_operands(S, n, p, mask_kind, S + n + p + h)
+        xc, mc = x.cuda(), None if m is None else m.cuda()
+        band = _round_fold(xc, h, mc)
+        assert torch.equal(band, _chunk_at_k1(xc, h, mc))
+        torch.testing.assert_close(
+            band, ref.cov_band_update(xc, h, mc), rtol=1e-4, atol=1e-4)
+
+    @pytest.mark.parametrize("precision", ["fp32", "bf16"])
+    @pytest.mark.parametrize("masked", [False, True])
+    @pytest.mark.parametrize("K,n", [(1, 100), (2, 129), (3, 70)])
+    def test_fused_fold_equals_chunk_fold_past_a_segment(self, K, n, masked,
+                                                         precision):
+        """Kernel 1's fold blocks flush at segment ends as kernels 2 and 3
+        do: its band equals theirs bit for bit on rounds of more than 64
+        rows (two and three segments, the last partial), and at K = 1 it
+        is kernel 6's or 7's."""
+        S, p, h, q = 3, 130, 64, 4
+        x, w, m = _fold_operands(S, K, n, p, "live" if masked else None, n)
+        g = torch.Generator().manual_seed(n + K)
+        basis = torch.linalg.qr(torch.randn((S, p, q), generator=g)).Q.cuda()
+        out = ops.fused_stream_update(x, w, basis, halfwidth=h, epsilon=0.5,
+                                      with_compress=True, with_monitor=True,
+                                      mask=m, precision=precision)
+        xt = ops.fused_tiles(x, precision).float()
+        band = ops.cov_band_update_chunk_batched(xt, w, h, mask=m)
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], band)
+        if K == 1:
+            ones = torch.ones((S, 1), device="cuda")
+            out1 = ops.fused_stream_update(
+                xt, ones, basis, halfwidth=h, epsilon=0.5,
+                with_compress=True, with_monitor=True, mask=m)
+            assert torch.equal(out1[0], ops.cov_band_update_batched(
+                xt[:, 0], h, mask=None if m is None else m[:, 0]))
+
+    @pytest.mark.parametrize("S,n,p,h", [(1, 1440, 52, 15), (4, 32, 1024, 128),
+                                         (160, 129, 1024, 128),
+                                         (2, 65, 37, 44)])
+    def test_all_live_mask_gives_kernel_6(self, S, n, p, h):
+        """Kernel 7 with a liveness row of ones gives kernel 6's bits in
+        every shape (f = 1 x 1 = 1 at each segment's flush)."""
+        x, _ = _round_operands(S, n, p, None, S + n)
+        xc = x.cuda()
+        ones = torch.ones((S, p), device="cuda")
+        assert torch.equal(_round_fold(xc, h, ones), _round_fold(xc, h, None))
 
     @pytest.mark.parametrize("layout", ["contiguous", "transposed"])
     @pytest.mark.parametrize("q", [1, 3, 8, 32, 33, 40, 64])

@@ -473,6 +473,96 @@ class TestBandRoundPlainVsReference:
             ops.cov_band_update(torch.zeros((2, 4, 8)), 1)
 
 
+def _header_constants(*names: str) -> dict[str, int]:
+    """``constexpr int NAME = VALUE;`` of the band folds' headers."""
+    text = "".join((build.CSRC / f).read_text()
+                   for f in ("band_syrk.cuh", "band_fold.cu"))
+    out = {}
+    for name in names:
+        m = re.search(rf"constexpr int {name} = (\d+);", text)
+        assert m, name
+        out[name] = int(m.group(1))
+    return out
+
+
+class TestBandRoundPlan:
+    """``ops.band_round_plan``: the shape, segments, blocks and workspace
+    of a kernel 6/7 launch, as ``csrc/band_fold.cu`` takes them.  The
+    segments fix the order of sums, so they may depend on n alone."""
+
+    @pytest.mark.parametrize("n", [1, 13, 32, 64, 65, 128, 129, 256, 1440])
+    def test_segments_depend_on_n_only(self, n):
+        plans = [ops.band_round_plan(S, n, p, h, sms)
+                 for S, p, h, sms in [(1, 52, 15, 132), (256, 1024, 128, 132),
+                                      (1, 1 << 20, 128, 132), (3, 37, 44, 8),
+                                      (64, 52, 15, 132), (1, 52, 15, 1)]]
+        assert {pl.segments for pl in plans} == {-(-n // ops.SEGMENT_ROWS)}
+
+    @pytest.mark.parametrize("S,p,h", [(1, 52, 15), (256, 1024, 128),
+                                       (1, 1 << 20, 128), (3, 37, 44)])
+    @pytest.mark.parametrize("n", [1, 8, 32])
+    def test_short_rounds_are_one_segment_without_workspace(self, S, n, p,
+                                                            h):
+        plan = ops.band_round_plan(S, n, p, h)
+        assert (plan.segments, plan.shape, plan.workspace_bytes) == (
+            1, "round", 0)
+
+    @pytest.mark.parametrize("S", [1, 8, 64])
+    def test_berkeley_fit_splits_its_segments_over_blocks(self, S):
+        """The Berkeley fit's batch (n = 1,440, p = 52, h = 15: one tile)
+        puts each of its 23 segments on a block of its own, with a
+        workspace of the partial bands, also inside a small fleet."""
+        plan = ops.band_round_plan(S, 1440, 52, 15)
+        assert plan.shape == "split" and plan.segments == 23
+        assert plan.blocks == 23
+        assert ops.band_pairs(52, 15) == 712
+        assert plan.workspace_bytes == 4 * S * 23 * 712
+
+    @pytest.mark.parametrize("n", [65, 256, 1024])
+    def test_wsn1m_batch_keeps_its_segments_in_one_block(self, n):
+        """wsn-1m's production width fills the card with tiles: its
+        segments stay in one block (kernel 2's tile at unit weight), no
+        workspace (a segment's partials would be 1.08 GB)."""
+        plan = ops.band_round_plan(1, n, 1 << 20, 128)
+        assert plan.shape == "long" and plan.workspace_bytes == 0
+        assert plan.blocks == (1 << 20) // 64 * 3
+
+    @pytest.mark.parametrize("S,n,p,h", [(1, 70, 37, 44), (4, 129, 65, 0),
+                                         (2, 257, 52, 15), (1, 300, 96, 6)])
+    def test_split_only_below_the_card_and_for_small_bands(self, S, n, p,
+                                                           h):
+        """A small band (p <= SPLIT_MAX_P, a column a thread for each group
+        of SPLIT_DIAGS diagonals) on a grid smaller than the card splits,
+        one block a segment and a float a pair and segment; on a card of
+        fewer SMs it does not, nor does a wider band."""
+        small = ops.band_round_plan(S, n, p, h)
+        assert small.shape == "split" and small.blocks == small.segments
+        assert small.workspace_bytes == 4 * S * small.segments * \
+            ops.band_pairs(p, h)
+        assert p * -(-(min(h, p - 1) + 1) // ops.SPLIT_DIAGS) <= \
+            ops.SPLIT_MAX_THREADS
+        assert ops.band_round_plan(S, n, p, h, sms=1).shape == "long"
+        assert ops.band_round_plan(S, n, 4 * p, 4 * h + 40).shape == "long"
+
+    def test_header_constants_are_the_plan_constants(self):
+        """L (``kSegRows``), the long-round threshold (``kLongRound``), the
+        tile's columns and the split fold's limits, as the CUDA sources
+        define them, are the plan's."""
+        got = _header_constants("kSegRows", "kLongRound", "kSyrkT",
+                                "kSyrkRows", "kRoundRows", "kPairThreads",
+                                "kPairDiags", "kPairMaxP")
+        assert got["kSegRows"] == ops.SEGMENT_ROWS
+        assert got["kLongRound"] == ops.LONG_ROUND_ROWS
+        assert got["kSyrkT"] == ops._TILE_COLS
+        assert got["kPairThreads"] == ops.SPLIT_MAX_THREADS
+        assert got["kPairDiags"] == ops.SPLIT_DIAGS
+        assert got["kPairMaxP"] == ops.SPLIT_MAX_P
+        # a serving round (32 rows) is one segment; segments end at stages
+        assert ops.SEGMENT_ROWS >= 32
+        for stage in ("kSyrkRows", "kRoundRows"):
+            assert ops.SEGMENT_ROWS % got[stage] == 0, stage
+
+
 class TestBandedProduct:
     @pytest.mark.parametrize("p,h,q", [(64, 3, 4), (37, 3, 4), (16, 7, 2)])
     def test_dense_product_matches_reference_banded_matmul(self, p, h, q):
@@ -637,6 +727,27 @@ class TestChipAb:
             "profiled bf16 stages engine: ms a step": 250.0,
             "profiled bf16 stages engine: device idle %": 66.7,
             "kernel banded_matmul: ms": 0.5})
+
+    def test_fold_table_holds_times_and_bits_by_side(self):
+        """``--fold``'s table: each side's times in run order, and whether
+        a call's bits held across all runs and across the change's."""
+        import importlib.util
+        spec = importlib.util.spec_from_file_location("chip_ab",
+                                                      ROOT / "chip_ab.py")
+        chip_ab = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(chip_ab)
+        run = lambda ms, d6, dk: {
+            "6": dict(ms=ms, device_ms=ms - 0.01, digest=d6),
+            "6 Berkeley": dict(ms=ms / 4, device_ms=0.005, digest=dk)}
+        table = chip_ab.fold_table([("base", run(0.2, "a", "b")),
+                                    ("change", run(0.19, "a", "c")),
+                                    ("change", run(0.18, "a", "c")),
+                                    ("base", run(0.21, "a", "b"))])
+        assert table["6"]["base ms"] == [0.2, 0.21]
+        assert table["6"]["change device_ms"] == pytest.approx([0.18, 0.17])
+        assert table["6"]["same bits"] is True
+        assert table["6 Berkeley"]["same bits"] is False
+        assert table["6 Berkeley"]["change repeats its bits"] is True
 
     def test_parse_reads_lm_serving_lines(self):
         """Phase 17's engine lines give tokens/s and the median decode
