@@ -3,6 +3,7 @@
 
     python3 chip_ab.py BASE_TREE [--change TREE] [--order bccb] [--out DIR]
     python3 chip_ab.py BASE_TREE --fold [--order bccb] [--out DIR]
+    python3 chip_ab.py BASE_TREE --product [--order bccb] [--out DIR]
 
 BASE_TREE is an unpacked checkout of the commit to compare against (for
 example ``git archive <commit> | tar -x -C build/base``; put it under a
@@ -32,6 +33,11 @@ device ms (torch.profiler), and whether every output of a call has the
 same bits in every run of both trees (a SHA-256 of its bytes), beside
 torch.bmm's dense product at the Berkeley batch; each run's JSON also
 holds the device microseconds a call of each kernel it launched.
+
+With ``--product`` each run is kernel 11's probe (:func:`product_probe`)
+in the same way: the banded C v at its three rows (the Berkeley fit's
+one slot, wsn-1m's one slot, the refresh's 256-slot band), beside
+torch.bmm on the dense matrix at Berkeley's and the refresh's.
 """
 
 from __future__ import annotations
@@ -129,6 +135,44 @@ def _digest(out) -> str:
     return h.hexdigest()[:16]
 
 
+def time_calls(calls: dict) -> dict:
+    """``{call: {ms, device_ms, digest, kernels_us}}`` for ``{call: (fn,
+    iters)}``: the digest of the first call's output, then the events'
+    ms a call over ``iters`` calls and torch.profiler's device ms a call
+    over up to 50 (the device events' time over the calls it caught)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for name, (fn, iters) in calls.items():
+        digest = _digest(fn())
+        torch.cuda.synchronize()
+        for _ in range(2):
+            fn()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(min(iters, 50)):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type != DeviceType.CPU
+                and getattr(e, "self_device_time_total", 0) > 0]
+        caught = max((e.count for e in rows), default=min(iters, 50))
+        out[name] = dict(ms=a.elapsed_time(b) / iters, device_ms=sum(
+            e.self_device_time_total for e in rows) / 1e3 / caught,
+            digest=digest, kernels_us={
+                e.key[:60]: e.self_device_time_total / e.count for e in rows})
+        print(f"   {name}: {out[name]}", flush=True)
+    return out
+
+
 def fold_probe(tree: Path) -> dict:
     """The band folds of ``tree``'s port at the shapes their paths give
     them: ``{call: {ms, device_ms, digest}}``.  Uses only the wrappers'
@@ -136,8 +180,6 @@ def fold_probe(tree: Path) -> dict:
     import torch
     sys.path.insert(0, str(tree / "src"))
     from repro_torch.kernels import ops
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(0)
@@ -169,34 +211,44 @@ def fold_probe(tree: Path) -> dict:
         "bmm Berkeley": (lambda: torch.bmm(xk.transpose(1, 2), xk), 200),
         "6 wsn-1m": (lambda: ops.cov_band_update_batched(xw, h), 10),
     }
-    out = {}
-    for name, (fn, iters) in calls.items():
-        digest = _digest(fn())
-        torch.cuda.synchronize()
-        for _ in range(2):
-            fn()
-        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        torch.cuda.synchronize()
-        a.record()
-        for _ in range(iters):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(min(iters, 50)):
-                fn()
-            torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages()
-                if e.device_type != DeviceType.CPU
-                and getattr(e, "self_device_time_total", 0) > 0]
-        caught = max((e.count for e in rows), default=min(iters, 50))
-        out[name] = dict(ms=a.elapsed_time(b) / iters, device_ms=sum(
-            e.self_device_time_total for e in rows) / 1e3 / caught,
-            digest=digest, kernels_us={
-                e.key[:60]: e.self_device_time_total / e.count for e in rows})
-        print(f"   {name}: {out[name]}", flush=True)
-    return out
+    return time_calls(calls)
+
+
+# kernel 11's rows: (S, p, h, iters), its three paths' shapes
+PRODUCT_ROWS = {"11 Berkeley": (1, 52, 15, 200),
+                "11 wsn-1m": (1, 1 << 20, 128, 20),
+                "11 refresh": (256, 1024, 128, 50)}
+
+
+def product_probe(tree: Path) -> dict:
+    """Kernel 11 of ``tree``'s port at its three rows
+    (:data:`PRODUCT_ROWS`), on in-range bands and vectors drawn from one
+    seed on the card: ``{call: {ms, device_ms, digest}}``, torch.bmm on
+    the dense matrix beside it at Berkeley's and the refresh's."""
+    import torch
+    sys.path.insert(0, str(tree / "src"))
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(0)
+    calls = {}
+    for row, (S, p, h, iters) in PRODUCT_ROWS.items():
+        k = torch.arange(2 * h + 1, device=dev)[:, None]
+        j = torch.arange(p, device=dev)[None, :] + k - h
+        band = torch.randn((S, 2 * h + 1, p), device=dev, generator=g) \
+            * ((j >= 0) & (j < p))
+        v = torch.randn((S, p), device=dev, generator=g)
+        calls[row] = (lambda b=band, x=v: ops.banded_matvec(b, x), iters)
+        if p <= 4096:
+            dense = torch.zeros((S, p, p), device=dev)
+            i = torch.arange(p, device=dev)[None, :].expand_as(j)
+            inside = (j >= 0) & (j < p)
+            for s in range(S):
+                dense[s, i[inside], j[inside]] = band[s][inside]
+            calls[f"bmm {row[3:]}"] = (
+                lambda d=dense, x=v: torch.bmm(d, x[..., None]), iters)
+            del dense
+    return time_calls(calls)
 
 
 def fold_table(runs: list) -> dict:
@@ -218,13 +270,15 @@ def fold_table(runs: list) -> dict:
     return table
 
 
-def fold_main(args, trees, names, out_dir) -> int:
+def probe_main(args, trees, names, out_dir, kind) -> int:
+    """Each run of the order is ``kind``'s probe ("fold" or "product") of
+    its tree in a process of its own; the table of :func:`fold_table`."""
     runs, failed = [], False
     for i, side in enumerate(args.order, 1):
         save = out_dir / f"{i}_{names[side]}.json"
         proc = subprocess.run(
             [sys.executable, str(ROOT / "chip_ab.py"), str(trees[side]),
-             "--fold-probe", str(save)], capture_output=True, text=True,
+             f"--{kind}-probe", str(save)], capture_output=True, text=True,
             timeout=args.timeout)
         (out_dir / f"{i}_{names[side]}.log").write_text(proc.stdout
                                                         + proc.stderr)
@@ -243,7 +297,7 @@ def fold_main(args, trees, names, out_dir) -> int:
             for k, vals in row.items()))
     (out_dir / "summary.json").write_text(json.dumps(
         {"order": args.order, "base": str(trees["b"]),
-         "change": str(trees["c"]), "fold": table}, indent=1))
+         "change": str(trees["c"]), kind: table}, indent=1))
     return 1 if failed else 0
 
 
@@ -257,13 +311,18 @@ def main() -> int:
     ap.add_argument("--fold", action="store_true",
                     help="run the band folds' probe in each tree instead "
                          "of chip_smoke.py")
-    ap.add_argument("--fold-probe", type=Path, default=None,
-                    help=argparse.SUPPRESS)   # one run of the probe
+    ap.add_argument("--product", action="store_true",
+                    help="run kernel 11's probe in each tree instead of "
+                         "chip_smoke.py")
+    for kind in ("fold", "product"):      # one run of a probe
+        ap.add_argument(f"--{kind}-probe", type=Path, default=None,
+                        help=argparse.SUPPRESS)
     args = ap.parse_args()
-    if args.fold_probe is not None:
-        res = fold_probe(args.base.resolve())
-        args.fold_probe.write_text(json.dumps(res))
-        return 0
+    for kind, probe in (("fold", fold_probe), ("product", product_probe)):
+        save = getattr(args, f"{kind}_probe")
+        if save is not None:
+            save.write_text(json.dumps(probe(args.base.resolve())))
+            return 0
     trees = {"b": args.base.resolve(), "c": args.change.resolve()}
     if set(args.order) - set(trees):
         ap.error("--order takes only the letters b and c")
@@ -273,8 +332,9 @@ def main() -> int:
     out_dir = args.out.resolve()
     out_dir.mkdir(parents=True, exist_ok=True)
     names = {"b": "base", "c": "change"}
-    if args.fold:
-        return fold_main(args, trees, names, out_dir)
+    if args.fold or args.product:
+        return probe_main(args, trees, names, out_dir,
+                          "fold" if args.fold else "product")
     runs, failed = [], False
     for i, side in enumerate(args.order, 1):
         proc = subprocess.run([sys.executable, "chip_smoke.py"],

@@ -844,6 +844,11 @@ def round_and_banded_kernels(record, dev, g) -> None:
         err = compare(name, out, plain, 1e-5, 1e-5)
         same = bool(torch.equal(out, plain))
         print(f"   {name}: equal bits to the plain version: {same}")
+        check(same, f"{name}: bits differ from the plain version at the "
+              f"refresh's band")
+        if vec:
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            print(f"   {name}: plan {ops.banded_matvec_plan(S, P, H, sms)}")
         compare(f"{name} vs torch.bmm on the dense matrix", out,
                 lib().reshape(out.shape), 1e-4, 1e-4)
         iters = 10 if vec else 50
@@ -1040,6 +1045,10 @@ def one_slot_product(name, band, V, iters, plain_iters) -> dict:
     plain = plain_fn()
     nb, p = band.shape
     h, width = (nb - 1) // 2, 1 if vec else V.shape[1]
+    if vec:
+        sms = torch.cuda.get_device_properties(
+            band.device).multi_processor_count
+        print(f"   {name}: plan {ops.banded_matvec_plan(1, p, h, sms)}")
     err = compare(f"{name} p={p} h={h} q={width}", out, plain, 1e-5, 1e-5)
     windows(name, out, plain, 0)
     same = torch.equal(out, plain)
@@ -3386,7 +3395,7 @@ def main() -> int:
                                     "profiled bf16 stages engine"))
     del res
 
-    phase("11 device time of kernels 1 (fp32, bf16), 2-10 and the stage "
+    phase("11 device time of kernels 1 (fp32, bf16), 2-11 and the stage "
           "recompute (torch.profiler)")
     xb = torch.randn((SLOTS, K, N, P), device=dev, generator=g)
     wb = torch.rand((SLOTS, K), device=dev, generator=g)
@@ -3482,12 +3491,17 @@ def main() -> int:
     dense = band_to_dense(band)
     for name, b, v, d in (("banded_matmul", band, V, dense),
                           ("banded_matmul_s1", band[:1].contiguous(),
-                           V[:1].contiguous(), dense[:1])):
+                           V[:1].contiguous(), dense[:1]),
+                          ("banded_matvec", band, V[..., 0].contiguous(),
+                           dense)):
         rec = record[name]
+        vec = name == "banded_matvec"
         rec["device_ms"], names = device_ms(
-            lambda: ops.banded_matmul(b, v), 50)
+            (lambda: ops.banded_matvec(b, v)) if vec
+            else (lambda: ops.banded_matmul(b, v)), 50)
         rec["library_device_ms"], lib_names = device_ms(
-            lambda: torch.bmm(d, v), 50)
+            (lambda: torch.bmm(d, v[..., None])) if vec
+            else (lambda: torch.bmm(d, v)), 50)
         print(f"   {name}: device time a call over 50 calls: kernel "
               f"{rec['device_ms']:.4f} ms [{names}] (events "
               f"{rec['ms']:.4f}); torch.bmm on the dense matrix "

@@ -53,6 +53,8 @@ SOURCES: dict[str, dict[str, list]] = {
         # named (0 the choice of banded_matmul_f32, 1 rows64, 2 rows16)
         "banded_matmul_tile_f32": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
         "banded_matvec_f32": [_P, _P, _I, _I, _I, _P, _P],
+        # kernel 11's slot shape (ops.banded_matvec_plan)
+        "banded_matvec_slot_f32": [_P, _P, _I, _I, _I, _P, _P],
     },
     "fused_stream": {"fused_stream_f32": _FUSED, "fused_stream_bf16": _FUSED,
                      "fused_stream_max_q": [_I, _I]},

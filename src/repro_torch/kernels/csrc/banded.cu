@@ -17,8 +17,28 @@
 // i + k - h outside [0, p) adds nothing.  No atomics, no split of a sum
 // across threads or blocks: the engine's replay gives equal bits.
 //
-// The matvec (q = 1, kernel 11) keeps one thread per output with lanes
-// over i: both of its loads are coalesced.
+// The matvec (q = 1, kernel 11) has no column to tile: each output is one
+// chain of at most 2h+1 diagonals, and each in-range band entry is read
+// once for one multiply and one add, so bytes bound it at every shape.
+// ops.banded_matvec_plan picks one of two entry points from (S, p, h) and
+// the card's SM count:
+//  * "slot" (banded_matvec_slot_f32): where the diagonals that hold an
+//    in-range entry and v fit kMatvecSlotMaxBytes of shared memory and the
+//    grid, a block a slot, is smaller than the card (the Berkeley fit: 31
+//    x 52 floats and 52, one slot), a block copies its slot whole by
+//    cp.async (16 bytes a copy where the address allows, else 4), all in
+//    flight, one wait, one barrier; then each output's chain runs from
+//    shared memory.  One round trip to device memory in place of one for
+//    every few diagonals of a dependent loop.
+//  * "thread" (banded_matvec_f32): one output a thread in blocks of
+//    kBandedThreads, its diagonals in a loop with run-time bounds; both
+//    loads coalesce along i.  Every other shape: wsn-1m, the sharded
+//    step's padded width, the refresh's 256 slots.  A tile of four outputs
+//    a thread with float4 band loads was timed against it there and gained
+//    too little to keep (PERF.md, kernel 11).
+// Bound (3.35 TB/s): the refresh's band 2(S p) + S((2h+1)p - h(h+1))
+// floats, 254.6 MB, 0.0760 ms; wsn-1m 1.086 GB, 0.3243 ms; Berkeley 5.9 KB,
+// where a launch and one round trip set the time.
 //
 // The product (kernel 10) is register-tiled.  A block owns BM = R RG
 // consecutive rows i of one slot and CT columns (grid z tiles wider q); a
@@ -78,7 +98,11 @@
 
 namespace repro_torch {
 
-constexpr int kBandedThreads = 256;   // the matvec: one output a thread
+constexpr int kBandedThreads = 256;   // "thread": one output a thread
+// "slot": at most kMatvecSlotThreads a block, and the band's in-range
+// diagonals and v in at most kMatvecSlotMaxBytes (ops.py: MATVEC_*)
+constexpr int kMatvecSlotThreads = 256;
+constexpr int kMatvecSlotMaxBytes = 48 * 1024;
 
 __global__ void __launch_bounds__(kBandedThreads)
 banded_matvec_kernel(const float* __restrict__ band,
@@ -95,6 +119,48 @@ banded_matvec_kernel(const float* __restrict__ band,
   for (int k = klo; k <= khi; ++k)
     acc = __fadd_rn(acc, __fmul_rn(bs[(size_t)k * p + i], vs[i + k - h]));
   y[s * p + i] = acc;
+}
+
+// n floats from src into shared dst by cp.async: 16 bytes a copy where
+// both addresses are 16-byte aligned (dst always is), the last n % 4 (or
+// all, unaligned) 4 bytes a copy.
+__device__ __forceinline__ void stage_floats(float* dst, const float* src,
+                                             int n, int tid, int nt) {
+  int done = 0;
+  if ((reinterpret_cast<size_t>(src) & 15) == 0) {
+    done = n / 4 * 4;
+    for (int c = tid; c < n / 4; c += nt)
+      cp_async16(dst + 4 * c, src + 4 * c, 16);
+  }
+  for (int e = done + tid; e < n; e += nt) cp_async4(dst + e, src + e, 4);
+}
+
+// "slot": block (0, s) stages slot s's diagonals k0 .. k0 + kd - 1 and v
+// in shared memory, then runs each output's chain from there.
+__global__ void __launch_bounds__(kMatvecSlotThreads)
+banded_matvec_slot_kernel(const float* __restrict__ band,
+                          const float* __restrict__ v, int p, int h, int k0,
+                          int kd, float* __restrict__ y) {
+  extern __shared__ __align__(16) float matvec_smem[];
+  const size_t s = blockIdx.y;
+  const int nb = 2 * h + 1, tid = threadIdx.x, nt = blockDim.x;
+  float* sb = matvec_smem;                      // (kd, p)
+  float* sv = matvec_smem + (kd * p + 3) / 4 * 4;
+  stage_floats(sb, band + (s * nb + k0) * p, kd * p, tid, nt);
+  stage_floats(sv, v + s * p, p, tid, nt);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int i = tid; i < p; i += nt) {
+    const int klo = max(0, h - i), khi = min(nb - 1, p - 1 - i + h);
+    const float* b = sb + (klo - k0) * p + i;
+    const float* w = sv + i + klo - h;
+    float acc = 0.0f;
+#pragma unroll 8
+    for (int k = 0; k <= khi - klo; ++k)
+      acc = __fadd_rn(acc, __fmul_rn(b[k * p], w[k]));
+    y[s * p + i] = acc;
+  }
 }
 
 constexpr int pow2_at_least(int n) {
@@ -444,13 +510,33 @@ int banded_matmul_f32(const float* band, const float* V, int S, int p, int h,
   return banded_matmul_tile_f32(band, V, S, p, h, q, 0, Y, stream);
 }
 
-// Kernel 11: band (S, 2h+1, p), v (S, p), y (S, p).
+// Kernel 11, "thread": band (S, 2h+1, p), v (S, p), y (S, p); fp32,
+// contiguous.
 int banded_matvec_f32(const float* band, const float* v, int S, int p, int h,
                       float* y, void* stream) {
   using namespace repro_torch;
   dim3 grid((p + kBandedThreads - 1) / kBandedThreads, S);
   banded_matvec_kernel<<<grid, kBandedThreads, 0, (cudaStream_t)stream>>>(
       band, v, p, h, y);
+  return (int)cudaGetLastError();
+}
+
+// Kernel 11, "slot": as banded_matvec_f32, a block a slot; refused where
+// the diagonals that hold an in-range entry, |k - h| <= p - 1, and v (at a
+// 16-byte boundary) pass kMatvecSlotMaxBytes.
+int banded_matvec_slot_f32(const float* band, const float* v, int S, int p,
+                           int h, float* y, void* stream) {
+  using namespace repro_torch;
+  if (S < 1 || p < 1 || h < 0) return (int)cudaErrorInvalidValue;
+  const int k0 = h - p + 1 > 0 ? h - p + 1 : 0;
+  const int kd = (2 * h < h + p - 1 ? 2 * h : h + p - 1) - k0 + 1;
+  const long long bytes = 4 * (((long long)kd * p + 3) / 4 * 4 + p);
+  if (bytes > kMatvecSlotMaxBytes) return (int)cudaErrorInvalidValue;
+  const int t = (p + 31) / 32 * 32;
+  banded_matvec_slot_kernel<<<dim3(1, S),
+                              t < kMatvecSlotThreads ? t : kMatvecSlotThreads,
+                              (int)bytes, (cudaStream_t)stream>>>(
+      band, v, p, h, k0, kd, y);
   return (int)cudaGetLastError();
 }
 

@@ -34,7 +34,7 @@ from repro_torch.kernels.build import load_library
 
 __all__ = ["LAUNCHES", "PLAIN_CALLS", "PLANNED", "reset_counts",
            "SEGMENT_ROWS", "LONG_ROUND_ROWS", "RoundPlan", "band_pairs",
-           "band_round_plan",
+           "band_round_plan", "MatvecPlan", "banded_matvec_plan",
            "cov_band_update", "cov_band_update_batched",
            "cov_band_update_chunk", "cov_band_update_chunk_batched",
            "fused_tiles", "fused_stream_update",
@@ -203,6 +203,49 @@ def band_round_plan(S: int, n: int, p: int, h: int,
         return RoundPlan(segments, "split", segments,
                          4 * S * segments * band_pairs(p, h))
     return RoundPlan(segments, "long", blocks, 0)
+
+
+# Kernel 11's plan (csrc/banded.cu, constants kMatvec*, kBandedThreads):
+# "slot" (banded_matvec_slot_f32) stages a slot whole in a block of at
+# most MATVEC_SLOT_THREADS where its in-range diagonals and v fit
+# MATVEC_SLOT_MAX_BYTES and its grid, a block a slot, is smaller than the
+# card; else "thread" (banded_matvec_f32), one output a thread in blocks
+# of MATVEC_THREADS.
+MATVEC_SLOT_THREADS = 256
+MATVEC_SLOT_MAX_BYTES = 48 * 1024
+MATVEC_THREADS = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class MatvecPlan:
+    """How kernel 11 runs one launch: its ``shape`` ("slot" or "thread"),
+    ``threads`` a block, ``blocks`` a slot (grid x; the slots are grid y)
+    and ``smem_bytes`` of dynamic shared memory."""
+    shape: str
+    threads: int
+    blocks: int
+    smem_bytes: int
+
+
+def _matvec_slot_bytes(p: int, h: int) -> int:
+    """The slot shape's shared memory: the diagonals that hold an in-range
+    entry (|k - h| <= p - 1), p floats each, then v at a 16-byte
+    boundary."""
+    kd = min(2 * h, h + p - 1) - max(0, h - p + 1) + 1
+    return 4 * (-(-kd * p // 4) * 4 + p)
+
+
+def banded_matvec_plan(S: int, p: int, h: int,
+                       sms: int = H100_SMS) -> MatvecPlan:
+    """The shape and grid of a kernel-11 launch of S slots of a (2h+1, p)
+    band on a card of ``sms`` SMs: "slot" where the band's in-range
+    diagonals and v fit MATVEC_SLOT_MAX_BYTES and S < ``sms`` (one block a
+    slot; the shape was timed only on such grids), else "thread"."""
+    slot_bytes = _matvec_slot_bytes(p, h)
+    if slot_bytes <= MATVEC_SLOT_MAX_BYTES and S < sms:
+        return MatvecPlan("slot", min(-(-p // 32) * 32, MATVEC_SLOT_THREADS),
+                          1, slot_bytes)
+    return MatvecPlan("thread", MATVEC_THREADS, -(-p // MATVEC_THREADS), 0)
 
 
 def cov_band_update_batched(x: torch.Tensor, halfwidth: int, *,
@@ -664,8 +707,9 @@ def _banded(band: torch.Tensor, V: torch.Tensor, vec: bool) -> torch.Tensor:
     lib = load_library("banded")
     h = (nb - 1) // 2
     if vec:
-        ret = lib.banded_matvec_f32(bb.data_ptr(), vv.data_ptr(), B, p, h,
-                                    Y.data_ptr(), _stream())
+        slot = banded_matvec_plan(B, p, h, _sms(dev)).shape == "slot"
+        ret = (lib.banded_matvec_slot_f32 if slot else lib.banded_matvec_f32)(
+            bb.data_ptr(), vv.data_ptr(), B, p, h, Y.data_ptr(), _stream())
     else:
         ret = lib.banded_matmul_f32(bb.data_ptr(), vv.data_ptr(), B, p, h, q,
                                     Y.data_ptr(), _stream())
@@ -686,6 +730,7 @@ def banded_matmul(band: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
 
 def banded_matvec(band: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """``y = C v`` for every leading index in ONE launch (kernel 11,
-    ``csrc/banded.cu``): ``band`` (..., 2h+1, p), ``v`` (..., p) ->
-    (..., p) fp32."""
+    ``csrc/banded.cu``, in the shape :func:`banded_matvec_plan` gives):
+    ``band`` (..., 2h+1, p), ``v`` (..., p) -> (..., p) fp32, the
+    diagonals summed in order as :func:`banded_matmul` sums them."""
     return _banded(band, v, vec=True)

@@ -930,6 +930,128 @@ class TestCudaRoundAndBandedKernels:
         assert torch.equal(Y, ref.banded_matmul(band, V))
 
 
+def _matvec_shape(band, v, shape):
+    """Kernel 11 in ``shape``: "auto" through ``ops.banded_matvec`` (the
+    plan's choice), "slot" or "thread" through that shape's C entry point;
+    the output, or None where the entry refuses (a slot that does not fit
+    its shared memory)."""
+    if shape == "auto":
+        return ops.banded_matvec(band, v)
+    S, nb, p = band.shape
+    entry = {"slot": "banded_matvec_slot_f32",
+             "thread": "banded_matvec_f32"}[shape]
+    y = torch.full((S, p), float("nan"), device=band.device)
+    ret = getattr(build.load_library("banded"), entry)(
+        band.data_ptr(), v.data_ptr(), S, p, (nb - 1) // 2, y.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    return None if ret != 0 else y
+
+
+def _matvec_operands(S, p, h, offset, seed):
+    """A (S, 2h+1, p) band whose out-of-range corners hold NaN (the
+    kernel must never read them into a sum) and a (S, p) vector with one
+    infinite entry (it may reach only the outputs whose in-range
+    diagonals reach it), on the card; with ``offset`` each a view one
+    float into its storage, so neither starts on a 16-byte boundary."""
+    g = torch.Generator().manual_seed(seed)
+    nb = 2 * h + 1
+    band = torch.randn((S, nb, p), generator=g)
+    band = torch.where(band_valid(p, h, device="cpu").bool(), band,
+                       torch.tensor(float("nan")))
+    v = torch.randn((S, p), generator=g)
+    v[:, p // 3] = float("inf")
+    if not offset:
+        return band.cuda(), v.cuda()
+    bs = torch.empty(S * nb * p + 1, device="cuda")
+    vs = torch.empty(S * p + 1, device="cuda")
+    bs[1:] = band.reshape(-1).cuda()
+    vs[1:] = v.reshape(-1).cuda()
+    return bs[1:].view(S, nb, p), vs[1:].view(S, p)
+
+
+@pytest.mark.cuda
+class TestCudaBandedMatvecShapes:
+    """Kernel 11 in each shape of its plan (``ops.banded_matvec_plan``:
+    "slot", the first port's "thread") and as the plan chooses, bit for
+    bit with the plain version, one launch a call.  p = 1021 and 37 are
+    long and short bands whose p is no multiple of 4."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+
+    @pytest.mark.parametrize("offset", [False, True])
+    @pytest.mark.parametrize("S", [1, 3])
+    @pytest.mark.parametrize("p,h", [(52, 15), (52, 51), (37, 0), (37, 4),
+                                     (37, 128), (130, 4), (130, 128),
+                                     (1021, 128), (1024, 0), (1024, 128),
+                                     (4096, 8)])
+    @pytest.mark.parametrize("shape", ["auto", "slot", "thread"])
+    def test_each_shape_gives_the_plain_bits(self, shape, p, h, S, offset):
+        """p % 4 != 0 (37, 1021: 4-byte copies), h = 0, h >= p (every
+        output at an edge), one slot and three, band and v off 16-byte
+        alignment (4-byte copies), NaN in the band's corners and an
+        infinite v entry: equal bits to ``ref.banded_matvec``, which
+        never reads the corners; a slot past its shared memory is
+        refused."""
+        band, v = _matvec_operands(S, p, h, offset, S * p + h)
+        assert offset == (band.data_ptr() % 16 != 0)
+        y = _matvec_shape(band, v, shape)
+        if shape == "slot" and ops._matvec_slot_bytes(p, h) > \
+                ops.MATVEC_SLOT_MAX_BYTES:
+            assert y is None
+            return
+        assert torch.equal(y, ref.banded_matvec(band, v))
+
+    @pytest.mark.parametrize("offset", [False, True])
+    def test_wrapper_one_launch_off_alignment(self, offset):
+        """``ops.banded_matvec`` on views one float into their storage
+        (the wrapper copies nothing: they are contiguous): one launch,
+        no plain call, the plain bits."""
+        for S, p, h in ((1, 52, 15), (3, 1024, 128), (2, 37, 128)):
+            band, v = _matvec_operands(S, p, h, offset, p + h)
+            ops.reset_counts()
+            y = ops.banded_matvec(band, v)
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES["banded_matvec"] == 1
+            assert sum(ops.PLAIN_CALLS.values()) == 0
+            assert torch.equal(y, ref.banded_matvec(band, v))
+
+    @pytest.mark.parametrize("S,p,shape", [(32, 6144, "slot"),
+                                           (32, 6145, "thread"),
+                                           (131, 52, "slot"),
+                                           (132, 52, "thread")])
+    def test_boundary_between_slot_and_thread(self, S, p, shape):
+        """The slot shape holds up to p = 6,144 at h = 0 (49,152 bytes)
+        and grids of up to 131 slots on the card's 132 SMs; past either,
+        the first port's tile.  Both sides give the plain bits in every
+        shape that fits."""
+        h = 0 if p > 52 else 15
+        band, v = _matvec_operands(S, p, h, False, p)
+        want = ref.banded_matvec(band, v)
+        assert ops.banded_matvec_plan(S, p, h).shape == shape
+        for named in ("auto", "slot", "thread"):
+            y = _matvec_shape(band, v, named)
+            if named == "slot" and p == 6145:
+                assert y is None
+            else:
+                assert torch.equal(y, want), named
+
+    def test_refresh_band_bits(self):
+        """The refresh's band (256 slots, p = 1024, h = 128; the first
+        port's tile): the plain bits."""
+        g = torch.Generator(device="cuda").manual_seed(11)
+        band = torch.randn((256, 257, 1024), device="cuda", generator=g)
+        v = torch.randn((256, 1024), device="cuda", generator=g)
+        ops.reset_counts()
+        y = ops.banded_matvec(band, v)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["banded_matvec"] == 1
+        assert torch.equal(y, ref.banded_matvec(band, v))
+
+
 # the paper pipeline's one-slot shapes: the Berkeley deployment (p = 52,
 # p % 4 != 0; h its RCM bandwidth and one near p), WSNConfig.smoke()
 # (4096, 8) and wsn-1m (p = 1,048,576, h = 128: (2h+1) p and 256 p near

@@ -473,15 +473,16 @@ class TestBandRoundPlainVsReference:
             ops.cov_band_update(torch.zeros((2, 4, 8)), 1)
 
 
-def _header_constants(*names: str) -> dict[str, int]:
-    """``constexpr int NAME = VALUE;`` of the band folds' headers."""
-    text = "".join((build.CSRC / f).read_text()
-                   for f in ("band_syrk.cuh", "band_fold.cu"))
+def _header_constants(*names: str, files=("band_syrk.cuh", "band_fold.cu"),
+                      ) -> dict[str, int]:
+    """``constexpr int NAME = VALUE;`` of the band folds' headers (or of
+    ``files`` in ``csrc/``; a product of two integers is evaluated)."""
+    text = "".join((build.CSRC / f).read_text() for f in files)
     out = {}
     for name in names:
-        m = re.search(rf"constexpr int {name} = (\d+);", text)
+        m = re.search(rf"constexpr int {name} = (\d+)(?: \* (\d+))?;", text)
         assert m, name
-        out[name] = int(m.group(1))
+        out[name] = int(m.group(1)) * int(m.group(2) or 1)
     return out
 
 
@@ -561,6 +562,92 @@ class TestBandRoundPlan:
         assert ops.SEGMENT_ROWS >= 32
         for stage in ("kSyrkRows", "kRoundRows"):
             assert ops.SEGMENT_ROWS % got[stage] == 0, stage
+
+
+class TestBandedMatvecPlan:
+    """``ops.banded_matvec_plan``: the entry point and grid of a kernel-11
+    launch (``csrc/banded.cu``) at the paths' widths."""
+
+    @pytest.mark.parametrize("S,p,h,want", [
+        # the Berkeley fit (31 diagonals of 52 and v: 6.5 KB)
+        (1, 52, 15, ("slot", 64, 1, 4 * (31 * 52 + 52))),
+        # the examples' fleets and engines at p = 32, h = 4
+        (1, 32, 4, ("slot", 32, 1, 4 * (9 * 32 + 32))),
+        (64, 32, 4, ("slot", 32, 1, 4 * (9 * 32 + 32))),
+        # wsn-1m's production width and the sharded step's padded width
+        (1, 1 << 20, 128, ("thread", 256, 4096, 0)),
+        (1, (1 << 20) + 256, 128, ("thread", 256, 4097, 0)),
+        # the refresh's band and the checker's engine widths
+        (256, 1024, 128, ("thread", 256, 4, 0)),
+        (8, 1024, 128, ("thread", 256, 4, 0)),
+        # WSNConfig.smoke()'s one slot and the dry run's padded slice
+        (1, 4096, 8, ("thread", 256, 16, 0)),
+        (1, 4112, 8, ("thread", 256, 17, 0)),
+        # a fleet of small bands as wide as the card: never timed as slots
+        (256, 1024, 4, ("thread", 256, 4, 0)),
+        (132, 32, 4, ("thread", 256, 1, 0))])
+    def test_paths_widths(self, S, p, h, want):
+        plan = ops.banded_matvec_plan(S, p, h)
+        assert (plan.shape, plan.threads, plan.blocks,
+                plan.smem_bytes) == want
+
+    @pytest.mark.parametrize("p,h", [(52, 15), (52, 51), (1024, 4),
+                                     (37, 128), (6133, 0), (400, 14),
+                                     (1, 0), (1, 300)])
+    def test_slot_up_to_its_shared_memory(self, p, h):
+        """The slot shape where the in-range diagonals (at most 2p - 1)
+        and v, 16-byte aligned, fit MATVEC_SLOT_MAX_BYTES; past it the
+        first port's tile."""
+        kd = min(2 * h + 1, 2 * p - 1)
+        need = 4 * (-(-kd * p // 4) * 4 + p)
+        assert ops._matvec_slot_bytes(p, h) == need
+        plan = ops.banded_matvec_plan(1, p, h)
+        fits = need <= ops.MATVEC_SLOT_MAX_BYTES
+        assert plan.shape == ("slot" if fits else "thread")
+        assert plan.smem_bytes == (need if fits else 0)
+
+    def test_boundary_between_slot_and_thread(self):
+        """p = 6,144 at h = 0 (one diagonal and v: 49,152 bytes, the
+        limit) is the last slot, p = 6,145 the first port's tile; at 131
+        slots of the card's 132 SMs a slot shape, at 132 the first port's
+        tile."""
+        assert ops.MATVEC_SLOT_MAX_BYTES == 49_152
+        last = ops.banded_matvec_plan(32, 6144, 0)
+        assert (last.shape, last.threads, last.smem_bytes) == \
+            ("slot", 256, 49_152)
+        assert ops.banded_matvec_plan(32, 6145, 0).shape == "thread"
+        assert ops.banded_matvec_plan(131, 52, 15).shape == "slot"
+        assert ops.banded_matvec_plan(132, 52, 15).shape == "thread"
+        assert ops.banded_matvec_plan(3, 52, 15, sms=4).shape == "slot"
+        assert ops.banded_matvec_plan(4, 52, 15, sms=4).shape == "thread"
+        # the band grown until its rows of 400 overflow
+        h = max(h for h in range(200)
+                if ops.banded_matvec_plan(1, 400, h).shape == "slot")
+        assert ops._matvec_slot_bytes(400, h) <= 49_152 \
+            < ops._matvec_slot_bytes(400, h + 1)
+
+    @pytest.mark.parametrize("p,threads", [(1, 32), (32, 32), (33, 64),
+                                           (52, 64), (256, 256),
+                                           (6144, 256)])
+    def test_slot_block_covers_the_slot(self, p, threads):
+        """A slot block has p rounded up to whole warps, at most
+        MATVEC_SLOT_THREADS; its threads stride over p past that."""
+        plan = ops.banded_matvec_plan(1, p, 0)
+        assert (plan.shape, plan.threads, plan.blocks) == \
+            ("slot", threads, 1)
+
+    def test_header_constants_are_the_plan_constants(self):
+        """The plan's constants as ``csrc/banded.cu`` defines them, and
+        the entry point of each shape as ``build.SOURCES`` binds it."""
+        got = _header_constants(
+            "kBandedThreads", "kMatvecSlotThreads", "kMatvecSlotMaxBytes",
+            files=("banded.cu",))
+        assert got["kBandedThreads"] == ops.MATVEC_THREADS
+        assert got["kMatvecSlotThreads"] == ops.MATVEC_SLOT_THREADS
+        assert got["kMatvecSlotMaxBytes"] == ops.MATVEC_SLOT_MAX_BYTES
+        entries = build.SOURCES["banded"]
+        assert entries["banded_matvec_slot_f32"] == \
+            entries["banded_matvec_f32"]
 
 
 class TestBandedProduct:
