@@ -1,0 +1,9 @@
+"""The share of the traced window in which no operation ran on the card
+(the union of the device intervals, not their sum)."""
+
+
+def read(ctx):
+    tr = ctx.trace
+    if tr is None or tr.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - tr.busy_s / tr.window_s)
