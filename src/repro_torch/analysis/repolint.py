@@ -22,7 +22,9 @@ above it) exempts it — the reason is required.  The rules:
   ``cudaGetLastError()``, directly or through the launcher it returns;
 * ``no-try-around-kernel`` — no ``try`` around a kernel build or launch
   (``load_library``, ``build_all``, ``_check``);
-* ``no-jax`` — nothing imports ``jax``, ``jaxlib`` or ``repro``.
+* ``no-jax`` — nothing imports ``jax``, ``jaxlib`` or ``repro``;
+* ``span-gate`` — no ``record_function`` outside ``spans.py``, whose
+  ``span`` records only while the profiler runs.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ PKG = Path(__file__).resolve().parents[1]
 ROOT = PKG.parents[1]
 RULES = ("host-pull", "import-time-tensor", "unreferenced-cost-helper",
          "kernel-counts", "kernel-error-check", "no-try-around-kernel",
-         "no-jax")
+         "no-jax", "span-gate")
 _PULL_METHODS = {"item", "tolist", "cpu", "numpy"}
 _TENSOR_MAKERS = {"tensor", "as_tensor", "zeros", "ones", "empty", "full",
                   "arange", "linspace", "randn", "rand", "randint", "eye",
@@ -188,6 +190,18 @@ def lint_source(path: Path, text: str, rel: str | None = None,
             if hit:
                 add(node.lineno, "no-try-around-kernel",
                     f"try around {sorted(hit)}")
+    if path.parts[-2:] != ("repro_torch", "spans.py"):
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Attribute):
+                names = [node.attr]
+            elif isinstance(node, ast.Name):
+                names = [node.id]
+            elif isinstance(node, ast.ImportFrom):
+                names = [a.name for a in node.names]
+            if "record_function" in names:
+                add(node.lineno, "span-gate",
+                    "record_function outside spans.py (use spans.span)")
     if path.name == "ops.py" and path.parent.name == "kernels":
         for name, fn in _functions(tree):
             calls = {_dotted(c.func) for c in ast.walk(fn)

@@ -20,7 +20,10 @@ The reference's ``lax.while_loop`` is a host loop here: the loop test
 ``t < t_max and d > delta`` is decided on the device in the iterate's
 dtype and read by the host after every iteration but the last of
 ``t_max`` — the one host read of the loop, counted in :data:`HOST_READS`
-under the function's name.  The
+under the function's name.  Under ``torch.profiler`` each step of
+:func:`orthogonal_iteration` is the span ``repro_torch.ortho.step`` and
+each counted read the span ``repro_torch.stop_test``
+(:mod:`repro_torch.spans`).  The
 reference draws its initial vectors from ``jax.random``, which torch
 cannot reproduce: they are arguments here (``v0``), drawn from a seeded
 ``torch.Generator`` when not given.
@@ -33,6 +36,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.device import as_tensor, resolve_device
+from repro_torch.spans import span
 
 __all__ = [
     "PowerIterResult", "power_iteration", "eigenvalue_sign",
@@ -49,7 +53,10 @@ HOT_PATHS = ("_keep_going", "eigenvalue_sign", "power_iteration",
 
 Aggregate = Callable[[torch.Tensor], torch.Tensor]
 
-HOST_READS = {"power_iteration": 0, "orthogonal_iteration": 0}
+# host reads by where they happen: the loop tests of the two iterations,
+# and the scheduler's refresh (its eigh's check, one a decision)
+HOST_READS = {"power_iteration": 0, "orthogonal_iteration": 0,
+              "ortho_refresh_evals": 0}
 
 
 def reset_host_reads() -> None:
@@ -73,8 +80,10 @@ def _keep_going(t: int, t_max: int, d: torch.Tensor, delta: float,
     if t == 0:
         return True
     HOST_READS[name] += 1
-    # repolint: allow-host-pull the loop's one counted read a step
-    return bool(d > delta)
+    # the iteration's layer: the counted read alone
+    with span("repro_torch.stop_test"):
+        # repolint: allow-host-pull the loop's one counted read a step
+        return bool(d > delta)
 
 
 def _normal(shape, dtype, device, generator) -> torch.Tensor:
@@ -229,12 +238,14 @@ def orthogonal_iteration(matmul: Callable[[torch.Tensor], torch.Tensor],
     d = torch.full((), float("inf"), dtype=dtype, device=dev)
     t = 0
     while _keep_going(t, t_max, d, delta, "orthogonal_iteration"):
-        V_next = step(matmul(V))
-        # subspace distance proxy: per-column update norm after sign
-        # alignment (the sign from the local sums, as in the reference)
-        sign = torch.sign((V * V_next).sum(0))
-        d = torch.sqrt(aggregate(((V_next * sign - V) ** 2).sum()) / q)
-        V, t = V_next, t + 1
+        # the iteration's layer: one step, the stopping test apart
+        with span("repro_torch.ortho.step"):
+            V_next = step(matmul(V))
+            # subspace distance proxy: per-column update norm after sign
+            # alignment (the sign from the local sums, as in the reference)
+            sign = torch.sign((V * V_next).sum(0))
+            d = torch.sqrt(aggregate(((V_next * sign - V) ** 2).sum()) / q)
+            V, t = V_next, t + 1
 
     H = aggregate(V.T @ matmul(V))                  # (q, q) Rayleigh matrix
     # jnp.linalg.eigh symmetrizes its input; torch reads one triangle

@@ -37,6 +37,7 @@ from repro_torch.core import covariance as cov
 from repro_torch.core.aggregation import a_op, halo_exchange
 from repro_torch.core.power_iteration import orthonormalize
 from repro_torch.kernels import ops
+from repro_torch.spans import span
 
 __all__ = ["cov_update_step", "pim_block_step", "pim_deflated_step",
            "transform_step", "shard_band", "halo_matvec", "halo_matmul",
@@ -48,7 +49,9 @@ def cov_update_step(state: cov.BandedCovState,
                     x: torch.Tensor) -> cov.BandedCovState:
     """Fold an (n, p) epoch batch into the banded sufficient statistics
     (one launch of kernel 6)."""
-    return cov.banded_update(state, x)
+    # core production's fold: kernel 6, the band's add, the sums
+    with span("repro_torch.production.fold"):
+        return cov.banded_update(state, x)
 
 
 def pim_block_step(band: torch.Tensor, v: torch.Tensor, eps: float = 1e-8,

@@ -44,6 +44,14 @@ too); the statistics, the mean estimate and the books keep the fp32
 chunk.  Every other body — split, quantized, band-only, per round —
 ignores it and gives the bits it gives at fp32.
 
+Under ``torch.profiler`` a step is four sibling spans
+(:mod:`repro_torch.spans`): ``repro_torch.chunk.fold`` (the liveness and
+the fold), ``.decide`` (the scheduler's decision and the round bill),
+``.stages`` (the stages against the post-decision basis; once a stage on
+the split body, between book lines) and ``.books`` (the compressor's and
+the detector's books, the bills, the new state); a call's padding and
+the stack of its outputs are ``repro_torch.fleet.stack``.
+
 The drivers take per-round (…, rounds, p) liveness masks, as the
 reference's do; per-reading dropout masks are taken by
 :func:`repro_torch.streaming.online_cov.online_update` and
@@ -60,6 +68,7 @@ import torch
 from repro_torch.core.faults import expected_transmissions
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.spans import span
 from repro_torch.streaming.compressor import (CompressionConfig,
                                               RoundCompression,
                                               compress_round,
@@ -243,66 +252,73 @@ def fleet_chunk_step(cfg: StreamConfig, state: StreamState, x: torch.Tensor,
 
     Invalid rounds (stream tail padding, idle slots) contribute nothing to
     the fold, the stages, the books or the round counter."""
-    S, K, n, p = x.shape
-    dev = x.device
-    x = x.to(torch.float32)
-    if masks is not None:
-        if masks.shape != (S, K, p):
-            raise ValueError(
-                f"the chunk driver takes (slots, K, p) liveness masks, as "
-                f"the reference's does, got {tuple(masks.shape)}; "
-                "per-reading dropout masks go to online_update_chunk")
-        masks = masks.to(state.alive.dtype)
-    has_stage = cfg.compression is not None or cfg.detection is not None
-    if round_valid is None:
-        rv = None
-        live = torch.full((S,), float(K), device=dev)
-    else:
-        rv = round_valid.to(torch.float32)
-        live = rv.sum(-1)
-    if masks is None:
-        churn = torch.zeros((S,), dtype=torch.bool, device=dev)
-        alive = state.alive
-    else:
-        churn, alive = _churn(state.alive, masks, rv)
-    # the stages' per-round validity: liveness x round validity (a padded
-    # round is a dead round: no record, no flag); None = all live
-    stage_mask = None
-    if has_stage and (masks is not None or rv is not None):
-        stage_mask = (torch.ones((S, K, p), device=dev) if masks is None
-                      else masks)
-        if rv is not None:
-            stage_mask = stage_mask * rv[..., None]
+    # the driver's fold: the chunk's liveness and validity, the band fold
+    # (fused: with the stages against the pre-decision basis)
+    with span("repro_torch.chunk.fold"):
+        S, K, n, p = x.shape
+        dev = x.device
+        x = x.to(torch.float32)
+        if masks is not None:
+            if masks.shape != (S, K, p):
+                raise ValueError(
+                    f"the chunk driver takes (slots, K, p) liveness masks, "
+                    f"as the reference's does, got {tuple(masks.shape)}; "
+                    "per-reading dropout masks go to online_update_chunk")
+            masks = masks.to(state.alive.dtype)
+        has_stage = cfg.compression is not None or cfg.detection is not None
+        if round_valid is None:
+            rv = None
+            live = torch.full((S,), float(K), device=dev)
+        else:
+            rv = round_valid.to(torch.float32)
+            live = rv.sum(-1)
+        if masks is None:
+            churn = torch.zeros((S,), dtype=torch.bool, device=dev)
+            alive = state.alive
+        else:
+            churn, alive = _churn(state.alive, masks, rv)
+        # the stages' per-round validity: liveness x round validity (a
+        # padded round is a dead round: no record, no flag); None = all live
+        stage_mask = None
+        if has_stage and (masks is not None or rv is not None):
+            stage_mask = (torch.ones((S, K, p), device=dev) if masks is None
+                          else masks)
+            if rv is not None:
+                stage_mask = stage_mask * rv[..., None]
 
-    fused = mean_est = None
-    if cfg.use_fused:
-        with_c, with_m = cfg.compression is not None, cfg.detection is not None
-        w, beta_eff, delta_s, delta_tb = online_chunk_stats(
-            state.cov, x, forgetting=cfg.forgetting, masks=masks,
-            round_valid=rv)
-        s_new = beta_eff[..., None] * state.cov.s + delta_s
-        t_i_new = (beta_eff[..., None, None] * state.cov.t_band
-                   + delta_tb)[..., cfg.halfwidth, :]
-        mean_est = s_new / t_i_new.clamp(min=1.0)
-        il = (inv_lambda(state.sched.lam, cfg.detection) if with_m
-              else torch.ones((S, cfg.q), device=dev))
-        eps = cfg.compression.epsilon if with_c else 0.0
-        # the kernel's tile operand, rounded once for the kernel and the
-        # recompute (bf16 tile mode); the statistics keep the fp32 chunk
-        tiles = ops.fused_tiles(x, cfg.precision)
-        # ONE launch: band fold + stages against the pre-decision basis
-        band_delta, *outs = ops.fused_stream_update(
-            tiles, w, state.sched.W, mean_est, il, halfwidth=cfg.halfwidth,
-            epsilon=eps, with_compress=with_c, with_monitor=with_m,
-            mask=stage_mask, precision=cfg.precision)
-        cov = online_apply_chunk(state.cov, band_delta, w, beta_eff,
-                                 delta_s, delta_tb, n)
-        fused = (outs, il, eps, tiles)
-    else:
-        cov = online_update_chunk(state.cov, x, forgetting=cfg.forgetting,
-                                  masks=masks, round_valid=rv)
-        if has_stage:
-            mean_est = cov.s / cov.t_i.clamp(min=1.0)
+        fused = mean_est = None
+        if cfg.use_fused:
+            with_c = cfg.compression is not None
+            with_m = cfg.detection is not None
+            w, beta_eff, delta_s, delta_tb = online_chunk_stats(
+                state.cov, x, forgetting=cfg.forgetting, masks=masks,
+                round_valid=rv)
+            s_new = beta_eff[..., None] * state.cov.s + delta_s
+            t_i_new = (beta_eff[..., None, None] * state.cov.t_band
+                       + delta_tb)[..., cfg.halfwidth, :]
+            mean_est = s_new / t_i_new.clamp(min=1.0)
+            il = (inv_lambda(state.sched.lam, cfg.detection) if with_m
+                  else torch.ones((S, cfg.q), device=dev))
+            eps = cfg.compression.epsilon if with_c else 0.0
+            # the kernel's tile operand, rounded once for the kernel and
+            # the recompute (bf16 tile mode); the statistics keep the fp32
+            # chunk
+            tiles = ops.fused_tiles(x, cfg.precision)
+            # ONE launch: band fold + stages against the pre-decision basis
+            band_delta, *outs = ops.fused_stream_update(
+                tiles, w, state.sched.W, mean_est, il,
+                halfwidth=cfg.halfwidth, epsilon=eps, with_compress=with_c,
+                with_monitor=with_m, mask=stage_mask,
+                precision=cfg.precision)
+            cov = online_apply_chunk(state.cov, band_delta, w, beta_eff,
+                                     delta_s, delta_tb, n)
+            fused = (outs, il, eps, tiles)
+        else:
+            cov = online_update_chunk(state.cov, x,
+                                      forgetting=cfg.forgetting, masks=masks,
+                                      round_valid=rv)
+            if has_stage:
+                mean_est = cov.s / cov.t_i.clamp(min=1.0)
     return _decide_and_stage(cfg, state, cov, x, churn, alive, stage_mask,
                              live, mean_est, fused)
 
@@ -318,74 +334,108 @@ def _decide_and_stage(cfg, state, cov, x, churn, alive, stage_mask, live,
     S, K, n, p = x.shape
     dev = x.device
     with_c, with_m = cfg.compression is not None, cfg.detection is not None
-    live_i = live.to(torch.int32)
-    sched_cfg = cfg.scheduler()
-    # one decision at the boundary, indexed at the LAST folded round
-    sched, rho, fired = sched_cfg.step(state.sched, cov,
-                                       state.rounds + (live_i - 1), churn)
-    # step() booked one per-round record; book the chunk's other rounds
-    sched = sched._replace(comm_packets=sched.comm_packets
-                           + (live - 1) * sched_cfg.round_cost())
+    # the scheduler's layer: the drift probe, the refresh computed for every
+    # slot (its eigh, the post-refresh probe, the selects), the round bill
+    with span("repro_torch.chunk.decide"):
+        live_i = live.to(torch.int32)
+        sched_cfg = cfg.scheduler()
+        # one decision at the boundary, indexed at the LAST folded round
+        sched, rho, fired = sched_cfg.step(state.sched, cov,
+                                           state.rounds + (live_i - 1), churn)
+        # step() booked one per-round record; book the chunk's other rounds
+        sched = sched._replace(comm_packets=sched.comm_packets
+                               + (live - 1) * sched_cfg.round_cost())
     factor = expected_transmissions(cfg.link_loss, cfg.max_retries)
-    z = x_hat = flags = t2 = spe = None
+
+    def close(sched, compression, det_state, detection):
+        return (StreamState(cov=cov, sched=sched,
+                            rounds=state.rounds + live_i, alive=alive,
+                            det=det_state),
+                RoundMetrics(rho=rho, did_refresh=fired,
+                             refreshes=sched.refreshes,
+                             comm_packets=sched.comm_packets,
+                             compression=compression, detection=detection))
+
+    compression, det_state, detection = None, state.det, None
     if fused is not None:
-        (z, x_hat, flags, t2, spe), il, eps, tiles = fused
-        # where the decision fired the stages must see the rotated basis
-        # (and its λ̂): recompute for every slot, select per slot
-        il2 = inv_lambda(sched.lam, cfg.detection) if with_m else il
-        re = ops.fused_stream_stages_blocked(
-            tiles, sched.W, mean_est, il2, epsilon=eps, with_compress=with_c,
-            with_monitor=with_m, mask=stage_mask, precision=cfg.precision)
-        pick = lambda new, old: None if old is None else torch.where(
-            fired.reshape((S,) + (1,) * (old.dim() - 1)), new, old)
-        z, x_hat, flags, t2, spe = (pick(a, b) for a, b in
-                                    zip(re, (z, x_hat, flags, t2, spe)))
-    xv = x.reshape(S, K * n, p)
-    compression = None
+        # the driver's stages against the post-decision basis
+        with span("repro_torch.chunk.stages"):
+            (z, x_hat, flags, t2, spe), il, eps, tiles = fused
+            # where the decision fired the stages must see the rotated
+            # basis (and its λ̂): recompute for every slot, select per slot
+            il2 = inv_lambda(sched.lam, cfg.detection) if with_m else il
+            re = ops.fused_stream_stages_blocked(
+                tiles, sched.W, mean_est, il2, epsilon=eps,
+                with_compress=with_c, with_monitor=with_m, mask=stage_mask,
+                precision=cfg.precision)
+            pick = lambda new, old: None if old is None else torch.where(
+                fired.reshape((S,) + (1,) * (old.dim() - 1)), new, old)
+            z, x_hat, flags, t2, spe = (pick(a, b) for a, b in
+                                        zip(re, (z, x_hat, flags, t2, spe)))
+        # the compressor's and the detector's books, the bills, the state
+        with span("repro_torch.chunk.books"):
+            xv = x.reshape(S, K * n, p)
+            if with_c:
+                mask2d = (1.0 if stage_mask is None
+                          else row_mask(stage_mask, n))
+                compression = compression_books(xv, z, x_hat, flags, mask2d,
+                                                cfg.compression, cfg.q,
+                                                cfg.c_max)
+                sched, compression = _bill_compression(cfg, sched,
+                                                       compression, live,
+                                                       factor)
+            if with_m:
+                row_live = row_liveness(stage_mask, K, (S,), device=dev) \
+                    .repeat_interleave(n, dim=-1)
+                det_state, detection = detect_apply(t2, spe, row_live, cfg.q,
+                                                    state.det, cfg.detection,
+                                                    refreshed=fired)
+                sched = _bill_detection(cfg, sched, detection, live, factor)
+            return close(sched, compression, det_state, detection)
+    # the split body: each stage once, against the POST-decision basis,
+    # between the book lines
+    with span("repro_torch.chunk.books"):
+        xv = x.reshape(S, K * n, p)
     if with_c:
-        if fused is not None:
-            mask2d = 1.0 if stage_mask is None else row_mask(stage_mask, n)
-            compression = compression_books(xv, z, x_hat, flags, mask2d,
-                                            cfg.compression, cfg.q,
-                                            cfg.c_max)
-        else:
-            # the split body: against the POST-decision basis, once
+        with span("repro_torch.chunk.stages"):
             compression = compress_round(sched.W, mean_est, xv,
                                          cfg.compression, cfg.c_max,
                                          mask=stage_mask, n=n)
-        flagfree = compression_round_cost(cfg.q, cfg.c_max, cfg.compression)
-        bill = (flagfree * live + compression.extra_packets) * factor
-        sched = sched._replace(comm_packets=sched.comm_packets + bill)
-        # the fixed A/F record covers one epoch round: scale to the live
-        # rounds of the chunk, as the reference does
-        a_pk, f_pk = epoch_packet_split(cfg.q, cfg.c_max, cfg.compression)
-        compression = compression._replace(
-            score_packets=compression.score_packets * live,
-            feedback_packets=compression.feedback_packets * live,
-            bits_on_air=compression.bits_on_air
-            + (live - 1) * (a_pk + f_pk) * cfg.compression.word_bits)
-    det_state, detection = state.det, None
-    if with_m and fused is not None:
-        row_live = row_liveness(stage_mask, K, (S,), device=dev) \
-            .repeat_interleave(n, dim=-1)
-        det_state, detection = detect_apply(t2, spe, row_live, cfg.q,
-                                            state.det, cfg.detection,
-                                            refreshed=fired)
-    elif with_m:
-        det_state, detection = detect_round(
-            sched.W, mean_est, sched.lam, xv, state.det, cfg.detection,
-            refreshed=fired, mask=stage_mask, n=n)
+        with span("repro_torch.chunk.books"):
+            sched, compression = _bill_compression(cfg, sched, compression,
+                                                   live, factor)
     if with_m:
-        flagfree, per_alarm = detection_packet_split(cfg.q, cfg.c_max)
-        bill = (flagfree * live + detection.alarms * per_alarm) * factor
-        sched = sched._replace(comm_packets=sched.comm_packets + bill)
-    new = StreamState(cov=cov, sched=sched, rounds=state.rounds + live_i,
-                      alive=alive, det=det_state)
-    metrics = RoundMetrics(rho=rho, did_refresh=fired,
-                           refreshes=sched.refreshes,
-                           comm_packets=sched.comm_packets,
-                           compression=compression, detection=detection)
-    return new, metrics
+        with span("repro_torch.chunk.stages"):
+            det_state, detection = detect_round(
+                sched.W, mean_est, sched.lam, xv, state.det, cfg.detection,
+                refreshed=fired, mask=stage_mask, n=n)
+        with span("repro_torch.chunk.books"):
+            sched = _bill_detection(cfg, sched, detection, live, factor)
+    with span("repro_torch.chunk.books"):
+        return close(sched, compression, det_state, detection)
+
+
+def _bill_compression(cfg, sched, compression, live, factor):
+    """The compression stage's packets on the bill, and its fixed A/F
+    record (one epoch round) scaled to the ``live`` rounds of the chunk,
+    as the reference does."""
+    flagfree = compression_round_cost(cfg.q, cfg.c_max, cfg.compression)
+    bill = (flagfree * live + compression.extra_packets) * factor
+    sched = sched._replace(comm_packets=sched.comm_packets + bill)
+    a_pk, f_pk = epoch_packet_split(cfg.q, cfg.c_max, cfg.compression)
+    return sched, compression._replace(
+        score_packets=compression.score_packets * live,
+        feedback_packets=compression.feedback_packets * live,
+        bits_on_air=compression.bits_on_air
+        + (live - 1) * (a_pk + f_pk) * cfg.compression.word_bits)
+
+
+def _bill_detection(cfg, sched, detection, live, factor):
+    """The monitoring stage's packets on the bill: the flag-free record of
+    every live round and each alarm's packets."""
+    flagfree, per_alarm = detection_packet_split(cfg.q, cfg.c_max)
+    bill = (flagfree * live + detection.alarms * per_alarm) * factor
+    return sched._replace(comm_packets=sched.comm_packets + bill)
 
 
 def fleet_round_step(cfg: StreamConfig, state: StreamState, x: torch.Tensor,
@@ -404,25 +454,29 @@ def fleet_round_step(cfg: StreamConfig, state: StreamState, x: torch.Tensor,
     ``score_bits > 0``) and :func:`detect_round` (the monitoring kernel),
     with the per-epoch books.  Equal to :func:`fleet_chunk_step` on
     one-round chunks: the same statistics, decision, stages and books."""
-    S, n, p = x.shape
-    x = x.to(torch.float32)
-    stage_mask = None
-    if mask is None:
-        churn = torch.zeros((S,), dtype=torch.bool, device=x.device)
-        alive = state.alive
-    else:
-        if mask.shape != (S, p):
-            raise ValueError(f"the per-round driver takes (networks, p) "
-                             f"liveness masks, got {tuple(mask.shape)}")
-        mask = mask.to(state.alive.dtype)
-        churn = (mask != state.alive).any(-1)
-        alive = mask
-        stage_mask = mask[:, None, :]
-    cov = online_update(state.cov, x, forgetting=cfg.forgetting, mask=mask)
-    mean_est = cov.s / cov.t_i.clamp(min=1.0)
-    live = torch.ones((S,), device=x.device)
-    return _decide_and_stage(cfg, state, cov, x[:, None], churn, alive,
-                             stage_mask, live, mean_est, None)
+    # the driver's fold: the round's liveness and its band fold
+    with span("repro_torch.chunk.fold"):
+        S, n, p = x.shape
+        x = x.to(torch.float32)
+        stage_mask = None
+        if mask is None:
+            churn = torch.zeros((S,), dtype=torch.bool, device=x.device)
+            alive = state.alive
+        else:
+            if mask.shape != (S, p):
+                raise ValueError(f"the per-round driver takes (networks, p) "
+                                 f"liveness masks, got {tuple(mask.shape)}")
+            mask = mask.to(state.alive.dtype)
+            churn = (mask != state.alive).any(-1)
+            alive = mask
+            stage_mask = mask[:, None, :]
+        cov = online_update(state.cov, x, forgetting=cfg.forgetting,
+                            mask=mask)
+        mean_est = cov.s / cov.t_i.clamp(min=1.0)
+        live = torch.ones((S,), device=x.device)
+        x = x[:, None]
+    return _decide_and_stage(cfg, state, cov, x, churn, alive, stage_mask,
+                             live, mean_est, None)
 
 
 def stream_step(cfg: StreamConfig, state: StreamState, x_round: torch.Tensor,
@@ -460,7 +514,10 @@ def _fleet_round_run(cfg, states, xs, masks):
         states, m = fleet_round_step(cfg, states, xs[:, r],
                                      None if masks is None else masks[:, r])
         rows.append(m)
-    return states, tree_map(lambda t: t.movedim(0, 1), _tree_stack(rows))
+    # the call's outputs, stacked (the driver's call loop)
+    with span("repro_torch.fleet.stack"):
+        return states, tree_map(lambda t: t.movedim(0, 1),
+                                _tree_stack(rows))
 
 
 def _fleet_chunked_run(cfg, states, xs, masks, chunk, probe_every):
@@ -480,13 +537,15 @@ def _fleet_chunked_run(cfg, states, xs, masks, chunk, probe_every):
     pad = n_steps * S - R
     rv = None
     if pad:
-        zeros = lambda a: a.new_zeros((N, pad) + a.shape[2:])
-        xs = torch.cat([xs, zeros(xs)], 1)
-        if masks is not None:
-            masks = torch.cat([masks, zeros(masks)], 1)
-        rv = torch.cat([torch.ones(R, device=xs.device),
-                        torch.zeros(pad, device=xs.device)])
-        rv = rv.expand(N, n_steps * S)
+        # the tail padded with invalid rounds (the driver's call loop)
+        with span("repro_torch.fleet.stack"):
+            zeros = lambda a: a.new_zeros((N, pad) + a.shape[2:])
+            xs = torch.cat([xs, zeros(xs)], 1)
+            if masks is not None:
+                masks = torch.cat([masks, zeros(masks)], 1)
+            rv = torch.cat([torch.ones(R, device=xs.device),
+                            torch.zeros(pad, device=xs.device)])
+            rv = rv.expand(N, n_steps * S)
     rows = []
     for i in range(n_steps):
         sl = slice(i * S, (i + 1) * S)
@@ -494,7 +553,10 @@ def _fleet_chunked_run(cfg, states, xs, masks, chunk, probe_every):
             cfg, states, xs[:, sl], None if masks is None else masks[:, sl],
             None if rv is None else rv[:, sl])
         rows.append(m)
-    return states, tree_map(lambda t: t.movedim(0, 1), _tree_stack(rows))
+    # the call's outputs, stacked (the driver's call loop)
+    with span("repro_torch.fleet.stack"):
+        return states, tree_map(lambda t: t.movedim(0, 1),
+                                _tree_stack(rows))
 
 
 def stream_run(cfg: StreamConfig, state: StreamState, xs: torch.Tensor,

@@ -31,7 +31,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import costs
-from repro_torch.core.power_iteration import orthonormalize
+from repro_torch.core.power_iteration import HOST_READS, orthonormalize
 from repro_torch.kernels import ops
 from repro_torch.streaming.online_cov import (OnlineCovariance,
                                               online_estimate,
@@ -68,7 +68,9 @@ def ortho_refresh_evals(band_est: torch.Tensor, W0: torch.Tensor,
         V = orthonormalize(CV, CV.mT @ CV, eps)
     H = V.transpose(-1, -2) @ ops.banded_matmul(band_est, V)
     # jnp.linalg.eigh symmetrizes its input; torch reads one triangle
-    # (eigh checks its result on the host: one sync a decision, the fleet's)
+    # (eigh checks its result on the host: one sync a decision, the fleet's,
+    # counted in HOST_READS under this function's name)
+    HOST_READS["ortho_refresh_evals"] += 1
     # repolint: allow-host-pull the refresh's one sync
     evals, U = torch.linalg.eigh(0.5 * (H + H.transpose(-1, -2)))
     # descending order (eigh returns ascending)

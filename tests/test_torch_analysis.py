@@ -318,6 +318,10 @@ FIXTURES = {
     "kernel-counts": (
         "kernels/ops.py", "def w(x):\n    LAUNCHES['k'] += 1\n"
         "    _check(0, 'k')\n    return ref.k(x)\n", 1),
+    "span-gate": (
+        "mod.py", "import torch\n\n\ndef f(x):\n"
+        "    with torch.autograd.profiler.record_function('f'):\n"
+        "        return x\n", 5),
 }
 
 
@@ -389,6 +393,25 @@ def test_repolint_unreferenced_cost_helper(tmp_path):
                                         "pkg/core/costs.py", 1)
     (tests / "test_torch_x.py").write_text("a_cost\n")
     assert repolint.run_repolint(pkg, tests) == []
+
+
+def test_repolint_span_gate_spares_spans_py_alone():
+    """``record_function`` is flagged wherever it is named (an import, a
+    bare name) but in the package's ``spans.py``; ``torch.profiler``
+    itself stays allowed."""
+    text = FIXTURES["span-gate"][1]
+    spans = Path("src/repro_torch/spans.py")
+    assert repolint.lint_source(spans, text) == []
+    other = Path("src/repro_torch/streaming/spans.py")
+    assert [f.rule for f in repolint.lint_source(other, text)] == [
+        "span-gate"]
+    imported = ("from torch.autograd.profiler import record_function\n"
+                "with record_function('x'):\n    pass\n")
+    assert [f.line for f in repolint.lint_source(Path("m.py"), imported)
+            if f.rule == "span-gate"] == [1, 2]
+    profiler = ("from torch.profiler import ProfilerActivity, profile\n"
+                "p = profile(activities=[ProfilerActivity.CPU])\n")
+    assert repolint.lint_source(Path("m.py"), profiler) == []
 
 
 def test_repo_is_clean():

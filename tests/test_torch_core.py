@@ -274,6 +274,34 @@ class TestIterations:
                                          device="cpu")
         assert torch.equal(a.W, b.W)          # seeded generator by default
 
+    @pytest.mark.parametrize("t_max,delta", [(50, 1e-3), (3, 0.0)])
+    def test_orthogonal_iteration_spans(self, t_max, delta):
+        """One ``repro_torch.ortho.step`` span an iteration, and one
+        ``repro_torch.stop_test`` span a counted host read (none before
+        the first step, none after the last of ``t_max``)."""
+        p, q = 40, 4
+        C = torch.from_numpy(_spectrum_matrix(10.0 * 0.7 ** np.arange(p),
+                                              5))
+        pim.reset_host_reads()
+        res, events = _profiled(lambda: pim.orthogonal_iteration(
+            lambda V: C @ V, p, q, v0=_ortho_init(5, p, q), t_max=t_max,
+            delta=delta, device="cpu"))
+        names = [e.name for e in events]
+        assert res.iterations > 1
+        assert names.count("repro_torch.ortho.step") == res.iterations
+        assert names.count("repro_torch.stop_test") == (
+            pim.HOST_READS["orthogonal_iteration"])
+        assert pim.HOST_READS["orthogonal_iteration"] == _reads(
+            [res.iterations], t_max)
+
+
+def _profiled(fn):
+    """``fn()`` under a CPU ``torch.profiler`` session, and its events."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, sorted(prof.events(), key=lambda e: e.time_range.start)
+
 
 # --------------------------------------------------------------------------
 def _fit_pair(kw, x, seed=0):
@@ -454,6 +482,23 @@ class TestProduction:
                                 torch.from_numpy(s["mean"]),
                                 torch.from_numpy(s["batch"]))
         np.testing.assert_allclose(_np(t), _np(r), rtol=1e-5, atol=1e-4)
+
+    def test_cov_update_step_emits_one_span(self, wsn_smoke):
+        """``cov_update_step`` inside one span of its own, every operation
+        of the step within it; ``transform_step`` opens none."""
+        s = wsn_smoke
+        st = cov.banded_init(s["p"], s["h"], device="cpu")
+        x = torch.from_numpy(s["batch"])
+        V, mean = torch.from_numpy(s["V"]), torch.from_numpy(s["mean"])
+        _, events = _profiled(lambda: prod.cov_update_step(st, x))
+        (sp,) = [e for e in events if e.name.startswith("repro_torch.")]
+        assert sp.name == "repro_torch.production.fold"
+        aten = [e for e in events if e.name.startswith("aten::")]
+        assert aten and all(
+            sp.time_range.start <= e.time_range.start
+            and e.time_range.end <= sp.time_range.end for e in aten)
+        _, events = _profiled(lambda: prod.transform_step(V, mean, x))
+        assert not [e for e in events if e.name.startswith("repro_torch.")]
 
 
 # --------------------------------------------------------------------------

@@ -753,3 +753,131 @@ class TestCopiesEqualReference:
     @pytest.mark.parametrize("u", [1e-5, 0.01, 0.3, 0.5, 0.9, 0.999])
     def test_norm_quantile(self, u):
         assert _norm_quantile(u) == ref_norm_quantile(u)
+
+
+class TestSpans:
+    """The driver's spans (``repro_torch.spans``) under ``torch.profiler``:
+    one fold and one decision a step, the four chunk spans in order around
+    every operation of a step, one stack a call; the refresh's host read
+    counted a decision; and nothing changed by the profiler."""
+
+    CHUNK = ("repro_torch.chunk.fold", "repro_torch.chunk.decide",
+             "repro_torch.chunk.stages", "repro_torch.chunk.books")
+    S, R, N, P, Q, H = 2, 4, 3, 12, 3, 2
+
+    def _cfg(self, body):
+        from repro_torch.streaming import CompressionConfig, DetectionConfig
+        stages = {} if body == "band" else dict(
+            compression=CompressionConfig(epsilon=0.5),
+            detection=DetectionConfig(alpha=1e-2, calib_rounds=1))
+        return StreamConfig(p=self.P, q=self.Q, halfwidth=self.H,
+                            warmup_rounds=1, fused=body == "fused", **stages)
+
+    def _data(self, seed=0):
+        g = torch.Generator().manual_seed(seed)
+        return torch.randn((self.S, self.R, self.N, self.P), generator=g)
+
+    def _init(self, cfg):
+        return batched_stream_init(cfg, self.S, seed=1, device="cpu")
+
+    @staticmethod
+    def _profiled(fn):
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            out = fn()
+        events = sorted(prof.events(), key=lambda e: e.time_range.start)
+        return out, events
+
+    def _named(self, events, names):
+        return [e for e in events if e.name in names]
+
+    def test_fused_call_emits_the_chunk_spans_in_order(self):
+        cfg = self._cfg("fused")
+        st, xs = self._init(cfg), self._data()
+        _, events = self._profiled(
+            lambda: batched_stream_run(cfg, st, xs, chunk=2))
+        chunks = [e.name for e in self._named(events, self.CHUNK)]
+        assert chunks == list(self.CHUNK) * (self.R // 2)
+        assert len(self._named(events, ("repro_torch.fleet.stack",))) == 1
+
+    def test_padded_call_stacks_twice(self):
+        """A tail shorter than the chunk: the padding and the final stack,
+        each under the call loop's span."""
+        cfg = self._cfg("fused")
+        st, xs = self._init(cfg), self._data()[:, :3]
+        _, events = self._profiled(
+            lambda: batched_stream_run(cfg, st, xs, chunk=2))
+        assert len(self._named(events, ("repro_torch.fleet.stack",))) == 2
+        assert len(self._named(events, ("repro_torch.chunk.decide",))) == 2
+
+    @pytest.mark.parametrize("body", ["fused", "split", "band", "round"])
+    def test_every_operation_of_a_step_lies_in_a_chunk_span(self, body):
+        cfg = self._cfg(body)
+        st, xs = self._init(cfg), self._data()
+        if body == "round":
+            x = xs[:, 0]
+            step = lambda: fleet_round_step(cfg, st, x)
+        else:
+            x = xs[:, :2]
+            step = lambda: fleet_chunk_step(cfg, st, x)
+        _, events = self._profiled(step)
+        spans = self._named(events, self.CHUNK)
+        count = lambda n: sum(e.name == n for e in spans)
+        assert count("repro_torch.chunk.fold") == 1
+        assert count("repro_torch.chunk.decide") == 1
+        if body == "fused":
+            assert [e.name for e in spans] == list(self.CHUNK)
+        elif body == "band":
+            assert count("repro_torch.chunk.stages") == 0
+        else:
+            assert count("repro_torch.chunk.stages") == 2  # one a stage
+        aten = [e for e in events if e.name.startswith("aten::")]
+        assert aten
+        outside = [e.name for e in aten if not any(
+            s.time_range.start <= e.time_range.start
+            and e.time_range.end <= s.time_range.end for s in spans)]
+        assert outside == []
+        # siblings: no chunk span inside another
+        for a, b in zip(spans, spans[1:]):
+            assert a.time_range.end <= b.time_range.start
+
+    @pytest.mark.parametrize("chunk,decisions", [(2, 2), (None, 4)])
+    def test_refresh_host_read_counted_a_decision(self, chunk, decisions):
+        from repro_torch.core import power_iteration as pim
+        cfg = self._cfg("fused" if chunk else "split")
+        st, xs = self._init(cfg), self._data()
+        before = dict(pim.HOST_READS)
+        batched_stream_run(cfg, st, xs, chunk=chunk)
+        assert pim.HOST_READS["ortho_refresh_evals"] == (
+            before["ortho_refresh_evals"] + decisions)
+        assert pim.HOST_READS["orthogonal_iteration"] == (
+            before["orthogonal_iteration"])
+
+    def test_span_is_the_shared_null_context_with_the_profiler_off(self):
+        from repro_torch import spans
+        assert spans.span("repro_torch.chunk.fold") is spans.OFF
+        assert spans.span("x") is spans.span("y")
+
+        def ranged():
+            s = spans.span("repro_torch.t")
+            with s:
+                pass
+            return s
+        s, events = self._profiled(ranged)
+        # under the profiler it is a range of its own, not the null one
+        assert s is not spans.OFF
+        assert len(self._named(events, ("repro_torch.t",))) == 1
+
+    @pytest.mark.parametrize("body", ["fused", "split"])
+    def test_a_call_is_bit_identical_under_the_profiler(self, body):
+        cfg = self._cfg(body)
+        xs = self._data()
+        plain = batched_stream_run(cfg, self._init(cfg), xs, chunk=2)
+        traced, _ = self._profiled(
+            lambda: batched_stream_run(cfg, self._init(cfg), xs, chunk=2))
+        leaves = []
+        for a, b in zip(plain, traced):
+            tree_map(lambda u, v: leaves.append((u, v)), a, b)
+        assert len(leaves) > 10
+        for a, b in leaves:
+            assert a.dtype == b.dtype and torch.equal(a, b)
