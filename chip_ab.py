@@ -28,11 +28,14 @@ With ``--fold`` each run is instead the band folds' probe of its tree
 own): kernels 1 (fp32 and bf16 tiles), 2, 3, 6, 7 and 7 with a dropout
 mask at the serving slice, and kernel 6 at the paper pipeline's two
 one-slot batches (the Berkeley fit's and wsn-1m's), on inputs drawn from
-one seed on the card.  The table gives each call's ms (CUDA events) and
-device ms (torch.profiler), and whether every output of a call has the
-same bits in every run of both trees (a SHA-256 of its bytes), beside
-torch.bmm's dense product at the Berkeley batch; each run's JSON also
-holds the device microseconds a call of each kernel it launched.
+one seed on the card; at those two batches also ``banded_update``'s fold,
+the delta added to a band and, in a tree that has it, kernel 6's
+accumulating form (``6 <batch> acc``, whose digest is the two steps').
+The table gives each call's ms (CUDA events) and device ms
+(torch.profiler), and whether every output of a call has the same bits
+in every run of both trees (a SHA-256 of its bytes), beside torch.bmm's
+dense product at the Berkeley batch; each run's JSON also holds the
+device microseconds a call of each kernel it launched.
 
 With ``--product`` each run is kernel 11's probe (:func:`product_probe`)
 in the same way: the banded C v at its three rows (the Berkeley fit's
@@ -211,6 +214,18 @@ def fold_probe(tree: Path) -> dict:
         "bmm Berkeley": (lambda: torch.bmm(xk.transpose(1, 2), xk), 200),
         "6 wsn-1m": (lambda: ops.cov_band_update_batched(xw, h), 10),
     }
+    # banded_update's fold at the two batches: the delta and the band's
+    # add, and kernel 6 adding into the band where the tree has that form
+    # (its digest equals the two steps' where the bits are kept)
+    bk, bw = rnd(31, 52), rnd(2 * h + 1, 1 << 20)
+    for name, xs, hs, band, iters in (("Berkeley", xk[0], 15, bk, 200),
+                                      ("wsn-1m", xw[0], h, bw, 10)):
+        calls[f"6 {name} band+delta"] = (
+            lambda x=xs, k=hs, b=band: b + ops.cov_band_update(x, k), iters)
+        if hasattr(ops, "cov_band_accumulate"):
+            calls[f"6 {name} acc"] = (
+                lambda x=xs, k=hs, b=band: ops.cov_band_accumulate(b, x, k),
+                iters)
     return time_calls(calls)
 
 

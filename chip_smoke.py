@@ -128,8 +128,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      both widths against their plain versions (by column window at 1M),
      with their times, bounds and one library call's: torch.bmm where the
      dense matrix fits, else cuSPARSE on the band's own pattern (SDDMM,
-     SpMM, SpMV) (``*_berkeley``, ``*_wsn1m``; launches under
-     ``paper_pipeline`` and ``wsn1m_production``);
+     SpMM, SpMV) (``*_berkeley``, ``*_wsn1m``); kernel 6's accumulating
+     form, what banded_update launches, at both batches into a random
+     band: against band_in + the plain delta, bit for bit band_in + the
+     delta form, band_in unchanged, its time beside the two steps'
+     (``band_round_acc_*``; the folds' launches under ``paper_pipeline``
+     and ``wsn1m_production`` are its, with one add in the kernel each);
  15. the six examples of repro_torch.examples (streaming_pca,
      faulty_fleet, compression_fleet, event_fleet, quickstart,
      event_detection) at their own configurations from their seeded
@@ -282,6 +286,12 @@ KERNELS = {
                                "src/repro/kernels/banded_matvec.py:52"),
     "band_round_wsn1m": ("src/repro_torch/kernels/csrc/band_fold.cu",
                          "src/repro/kernels/cov_update.py:53"),
+    # kernel 6's accumulating form (band_in + the round's sums), what
+    # banded_update launches, at the same two batches
+    "band_round_acc_berkeley": ("src/repro_torch/kernels/csrc/band_fold.cu",
+                                "src/repro/kernels/cov_update.py:53"),
+    "band_round_acc_wsn1m": ("src/repro_torch/kernels/csrc/band_fold.cu",
+                             "src/repro/kernels/cov_update.py:53"),
     "banded_matmul_wsn1m": ("src/repro_torch/kernels/csrc/banded.cu",
                             "src/repro/kernels/banded_matvec.py:85"),
     "banded_matvec_wsn1m": ("src/repro_torch/kernels/csrc/banded.cu",
@@ -968,8 +978,9 @@ def band_csr(band):
 
 
 def one_slot_fold(name, x, h, iters, plain_iters) -> dict:
-    """Kernel 6 on one (n, p) batch, as ``banded_update`` launches it:
-    against its plain version on the card (1e-4 / 1e-3, the fold
+    """Kernel 6's delta form on one (n, p) batch (``ops.cov_band_update``,
+    what the sharded fold and an fp64 state launch): against its plain
+    version on the card (1e-4 / 1e-3, the fold
     tolerance; by window at 1M), its band exactly symmetric and kernel 2's
     bits at K = 1, w = 1; its time beside the plain version's, its bound
     and, where the (p, p) product fits in ``DENSE_MAX_BYTES``, torch.bmm's
@@ -1025,6 +1036,64 @@ def one_slot_fold(name, x, h, iters, plain_iters) -> dict:
           f"{nbytes / 1e9:.4f} GB); {plan.segments} segments of "
           f"{ops.SEGMENT_ROWS} rows, shape {plan.shape}, grid {plan.blocks} "
           f"blocks (workspace {plan.workspace_bytes} B)")
+    return rec
+
+
+def one_slot_acc_fold(name, x, h, iters, plain_iters) -> dict:
+    """Kernel 6's accumulating form on one (n, p) batch, as
+    ``banded_update`` launches it (``ops.cov_band_accumulate``), into a
+    random band that is not symmetric, so every entry, the corners too, has
+    a value of its own: against band_in + the plain delta on the card (the
+    fold tolerance; by window at 1M), equal bits to band_in + the delta
+    form, band_in left as it was, one launch and one add in the kernel; its
+    time beside the two steps' (band_in + the delta form) and the plain
+    version's, and its bound (the delta form's bytes and a read of
+    band_in)."""
+    from repro_torch.kernels import ops, ref
+    n, p = x.shape
+    g = torch.Generator(device=x.device).manual_seed(n + p)
+    band_in = torch.randn((2 * h + 1, p), device=x.device, generator=g)
+    kept = band_in.clone()
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    out = ops.cov_band_accumulate(band_in, x, h)
+    torch.cuda.synchronize()
+    launched, plain_n = path_counts()
+    adds = ops.IN_KERNEL_ADDS["band_round"]
+    check(launched == {"band_round": 1} and adds == 1 and plain_n == 0,
+          f"{name}: launches {launched}, adds in the kernel {adds}, plain "
+          f"{plain_n}")
+    plain_fn = lambda: band_in + ref.cov_band_update(x, h)
+    plain = plain_fn()
+    err = compare(f"{name} n={n} p={p} h={h} (band_in + the plain delta)",
+                  out, plain, 1e-4, 1e-3)
+    windows(name, out, plain, 1)
+    del plain
+    two = lambda: band_in + ops.cov_band_update(x, h)
+    same, untouched = torch.equal(out, two()), torch.equal(band_in, kept)
+    print(f"   {name}: == band_in + the delta form (bit for bit) {same}; "
+          f"band_in unchanged {untouched}")
+    check(same and untouched, f"{name}: bits differ from band_in + the "
+          f"delta form, or band_in was written")
+    del kept, out
+    run = lambda: ops.cov_band_accumulate(band_in, x, h)
+    ms, two_ms = time_ms(run, iters), time_ms(two, iters)
+    plain_ms = time_ms(plain_fn, plain_iters, 1)
+    nbytes = 4.0 * (x.numel() + 2 * band_in.numel())
+    b_ms, b_by = bound(fold_flops(1, n, p, h), nbytes)
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=None, two_step_ms=two_ms)
+    if 4.0 * p * p <= DENSE_MAX_BYTES:
+        # at this width a call's event time is the wrapper's host time
+        rec["device_ms"], _ = device_ms(run, 50)
+        rec["two_step_device_ms"], _ = device_ms(two, 50)
+        print(f"   {name}: device time a call {rec['device_ms']:.4f} ms, "
+              f"band_in + the delta form's {rec['two_step_device_ms']:.4f} "
+              f"ms")
+    print(f"   {name} n={n} p={p} h={h}: kernel {ms:.4f} ms ({iters} "
+          f"calls), band_in + the delta form {two_ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
+          f"{nbytes / 1e9:.4f} GB)")
     return rec
 
 
@@ -1167,6 +1236,7 @@ def paper_pipeline(record, dev) -> None:
         res = DistributedPCA(device="cuda", **kw).fit(xtr)
         wall = time.perf_counter() - t
         launches, plain = path_counts()
+        adds = ops.IN_KERNEL_ADDS["band_round"]
         reads = sum(pim.HOST_READS.values())
         cpu = DistributedPCA(device="cpu", **kw).fit(xtr)
         it = np.asarray(res.iterations)
@@ -1184,8 +1254,10 @@ def paper_pipeline(record, dev) -> None:
               f"variance {rv:.6f} (float64 eigh {rv64:.6f}); {wall:.3f} s, "
               f"{reads} host reads of the loop test; launches {launches}, "
               f"plain calls {plain}")
-        check(plain == 0 and launches == want,
-              f"{label}: launches {launches} (want {want}), plain {plain}")
+        check(plain == 0 and launches == want
+              and adds == want.get("band_round", 0),
+              f"{label}: launches {launches} (want {want}), adds in the "
+              f"kernel {adds}, plain {plain}")
         check(np.array_equal(it, np.asarray(cpu.iterations))
               and np.array_equal(res.valid, cpu.valid),
               f"{label}: card and CPU differ in iterations or valid")
@@ -1228,7 +1300,7 @@ def paper_pipeline(record, dev) -> None:
           "detector's gate (examples/event_detection.py: > 0.8 detected, "
           "< 0.05 false)")
 
-    # kernels 6, 10, 11 at the Berkeley shapes
+    # kernels 6 (both forms), 10, 11 at the Berkeley shapes
     xb = torch.tensor(train[:, perm], dtype=torch.float32, device=dev)
     band = cov.banded_estimate(cov.banded_update(
         cov.banded_init(p, hb, device=dev), xb))
@@ -1236,13 +1308,18 @@ def paper_pipeline(record, dev) -> None:
                     generator=torch.Generator(device=dev).manual_seed(52))
     record["band_round_berkeley"] = one_slot_fold(
         "band_round_berkeley", xb, hb, 200, 20)
+    record["band_round_acc_berkeley"] = one_slot_acc_fold(
+        "band_round_acc_berkeley", xb, hb, 200, 20)
     record["banded_matmul_berkeley"] = one_slot_product(
         "banded_matmul_berkeley", band, V, 500, 20)
     record["banded_matvec_berkeley"] = one_slot_product(
         "banded_matvec_berkeley", band, V[:, 0].contiguous(), 500, 20)
-    for kernel in ("band_round", "banded_matmul", "banded_matvec"):
+    # banded_update launches the accumulating form: the fits' folds are
+    # its launches, the delta form's record has none on this path
+    record["band_round_berkeley"]["launches_by_path"] = {}
+    for kernel in ("band_round_acc", "banded_matmul", "banded_matvec"):
         record[f"{kernel}_berkeley"]["launches_by_path"] = {
-            "paper_pipeline": paths[kernel]}
+            "paper_pipeline": paths[kernel.removesuffix("_acc")]}
 
 
 def planted_field(p, q, n, dev, g):
@@ -1285,13 +1362,14 @@ def subspace_cos(U, V) -> float:
 def wsn1m_production(record, dev, p=WSN_P) -> None:
     """Phase 14, wsn-1m's production steps on one card at its full width
     (configs/wsn_1m.py: p = 1,048,576, h = 128, q = 32, 256-epoch
-    batches): four cov_update_steps (kernel 6) on the planted field and
-    banded_estimate; pim_block_step (kernel 10) to convergence (the
-    subspace moving less than 1e-4, at most 50 steps) and pim_deflated_step
-    (kernel 11) for the first 3 components (Algorithm 2's rule, d <= 1e-3,
-    at most 50 steps each); transform_step.  Checks: no plain call, one
-    launch a step; |V^T V - I|; the planted subspace recovered by both
-    iterations (largest principal angle, and each deflated component,
+    batches): four cov_update_steps (kernel 6, the band's add in its
+    write-out) on the planted field and banded_estimate; pim_block_step
+    (kernel 10) to convergence (the subspace moving less than 1e-4, at
+    most 50 steps) and pim_deflated_step (kernel 11) for the first 3
+    components (Algorithm 2's rule, d <= 1e-3, at most 50 steps each);
+    transform_step.  Checks: no plain call, one launch a step (and one add
+    in the kernel a fold); |V^T V - I|; the planted subspace recovered by
+    both iterations (largest principal angle, and each deflated component,
     within cos 1 - 1e-3); the scores against fp64; then kernels 6, 10 and
     11 at these shapes against their plain versions (by window) and the
     sharded steps on one NCCL rank equal to the unsharded ones."""
@@ -1317,8 +1395,10 @@ def wsn1m_production(record, dev, p=WSN_P) -> None:
     torch.cuda.synchronize()
     t_cov = time.perf_counter() - t
     launches_cov, plain = path_counts()
-    check(plain == 0 and launches_cov == {"band_round": 4},
-          f"cov_update_step launches {launches_cov}, plain {plain}")
+    adds = ops.IN_KERNEL_ADDS["band_round"]    # the band's add in kernel 6
+    check(plain == 0 and launches_cov == {"band_round": 4} and adds == 4,
+          f"cov_update_step launches {launches_cov}, adds in the kernel "
+          f"{adds}, plain {plain}")
 
     ops.reset_counts()
     t = time.perf_counter()
@@ -1383,11 +1463,14 @@ def wsn1m_production(record, dev, p=WSN_P) -> None:
     # the kernels at wsn-1m's shapes against their plain versions
     record["band_round_wsn1m"] = one_slot_fold("band_round_wsn1m", x0, h,
                                                10, 2)
+    record["band_round_acc_wsn1m"] = one_slot_acc_fold(
+        "band_round_acc_wsn1m", x0, h, 10, 2)
     record["banded_matmul_wsn1m"] = one_slot_product(
         "banded_matmul_wsn1m", est, V.contiguous(), 20, 2)
     record["banded_matvec_wsn1m"] = one_slot_product(
         "banded_matvec_wsn1m", est, v, 20, 2)
-    for kernel, n in (("band_round", launches_cov["band_round"]),
+    record["band_round_wsn1m"]["launches_by_path"] = {}
+    for kernel, n in (("band_round_acc", launches_cov["band_round"]),
                       ("banded_matmul", block_steps),
                       ("banded_matvec", sum(defl_steps))):
         record[f"{kernel}_wsn1m"]["launches_by_path"] = {
@@ -3769,7 +3852,8 @@ def main() -> int:
              plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
              bound_by=rec["bound_by"], library_ms=rec.get("library_ms"),
              **{k: rec[k] for k in ("cast_ms", "cast_bound_ms", "device_ms",
-                                    "library_device_ms", "launches_by_path")
+                                    "library_device_ms", "two_step_ms",
+                                    "two_step_device_ms", "launches_by_path")
                 if k in rec})
         for name, rec in record.items()]}))
     print(json.dumps({"ok": True, "device": {

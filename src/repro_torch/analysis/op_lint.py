@@ -67,7 +67,8 @@ _DATA_MOVEMENT = frozenset({
     "aten::lift_fresh"})
 # the kernel wrappers whose calls are recorded (each bumps exactly one
 # counter of kernels/ops.py); the others reach these through the module
-_WRAPPERS = ("cov_band_update_batched", "cov_band_update_chunk_batched",
+_WRAPPERS = ("cov_band_update_batched", "cov_band_accumulate",
+             "cov_band_update_chunk_batched",
              "fused_stream_update", "supervised_compress", "pca_monitor",
              "pca_project", "pca_reconstruct", "_banded")
 

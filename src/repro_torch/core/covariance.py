@@ -12,8 +12,9 @@ Two layouts, as in the reference:
   diagonals, ``band[k, i] = C[i, i + k - h]`` for ``k in [0, 2h]``;
   entries whose column ``i + k - h`` falls outside ``[0, p)`` are zero.
   :func:`banded_update` folds a batch with the per-round band-fold kernel
-  (kernel 6, :func:`repro_torch.kernels.ops.cov_band_update`), which
-  computes the reference's ``sum_t x[t, i] x[t, i + k - h]``.
+  (kernel 6), which computes the reference's ``sum_t x[t, i] x[t, i + k -
+  h]`` and, for an fp32 band on the card, adds it to the band in its
+  write-out (:func:`repro_torch.kernels.ops.cov_band_accumulate`).
 
 Both keep the sufficient statistics of Eq. (9)-(10): ``t``,
 ``S_i = sum_tau x_i[tau]`` and ``S_ij``, so ``c_ij = S_ij/t - S_i S_j/t^2``
@@ -99,15 +100,20 @@ def banded_init(p: int, halfwidth: int, dtype=torch.float32,
 
 
 def banded_update(state: BandedCovState, x) -> BandedCovState:
-    """Banded Eq. (10): ``band[k, i] += sum_t x[t, i] x[t, i + k - h]``,
-    the delta in one launch of kernel 6 (fp32)."""
+    """Banded Eq. (10): ``band[k, i] += sum_t x[t, i] x[t, i + k - h]``.
+    An fp32 band takes one launch of kernel 6 that adds the batch's sums
+    to it in the write-out (its plain version on the CPU); an fp64 state
+    adds kernel 6's fp32 delta.  Both give ``band + delta`` rounded once,
+    the same bits, in a new band."""
     # imported here: the kernels' plain versions import this module
     from repro_torch.kernels import ops
     x = as_tensor(x, state.s.dtype, state.s.device)
     h = state.halfwidth
-    delta = ops.cov_band_update(x, h)
+    band = (ops.cov_band_accumulate(state.band, x, h)
+            if state.band.dtype == torch.float32
+            else state.band + ops.cov_band_update(x, h))
     return BandedCovState(t=state.t + x.shape[0], s=state.s + x.sum(0),
-                          band=state.band + delta, halfwidth=h)
+                          band=band, halfwidth=h)
 
 
 def banded_estimate(state: BandedCovState) -> torch.Tensor:

@@ -48,8 +48,8 @@ __all__ = ["cov_update_step", "pim_block_step", "pim_deflated_step",
 def cov_update_step(state: cov.BandedCovState,
                     x: torch.Tensor) -> cov.BandedCovState:
     """Fold an (n, p) epoch batch into the banded sufficient statistics
-    (one launch of kernel 6)."""
-    # core production's fold: kernel 6, the band's add, the sums
+    (one launch of kernel 6, which on the card adds into the band)."""
+    # core production's fold: kernel 6 with the band's add, the sums
     with span("repro_torch.production.fold"):
         return cov.banded_update(state, x)
 

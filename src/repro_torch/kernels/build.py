@@ -45,6 +45,9 @@ SOURCES: dict[str, dict[str, list]] = {
         # (x, S, n, p, h, ws, band, stream) and (x, m, S, n, per_reading,
         # p, h, ws, band, stream): ws the split fold's workspace or null
         "band_round_f32": [_P, _I, _I, _I, _I, _P, _P, _P],
+        # (x, band_in, S, n, p, h, ws, band, stream): kernel 6 adding into
+        # band_in in its write-out
+        "band_round_acc_f32": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
         "band_round_masked_f32": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     },
     "banded": {

@@ -44,6 +44,15 @@
 //
 // A dropout mask is applied to the rows as they are staged, in all three.
 //
+// Kernel 6 has an accumulating form in each shape (band_round_acc_f32,
+// what banded_update launches): band = band_in + the round's sums, the
+// add in the write-out (band_syrk.cuh's ACC; the split fold's combine),
+// one __fadd_rn an entry, so its band has the bits of band_in + the delta
+// form's band, without the delta's write, its read and the add's pass.
+// Its kernels overload the delta form's by a third template argument and
+// a band_in operand: the delta form's functions keep their names and
+// code.
+//
 // Bound at the slice shape (p=1024, h=128, R=K*n=256 rows), per slot per
 // step: the band is symmetric (band[h-d, i] = band[h+d, i-d]), so the
 // function needs one multiply-add per row for each unique pair |i-j| <= h,
@@ -101,6 +110,22 @@ band_round_kernel(const float* __restrict__ x, const float* __restrict__ m,
       p, h, vec, blockIdx.x, band + s * (2 * h + 1) * p, syrk_smem);
 }
 
+// Kernel 6's accumulating form in the round's shape: band = band_in + the
+// round's sums, band_in (S, 2h+1, p).
+template <bool HAS_MASK, bool PER_READING, bool ACC>
+__global__ void __launch_bounds__(kSyrkThreads, 5)
+band_round_kernel(const float* __restrict__ x, const float* __restrict__ m,
+                  const float* __restrict__ band_in, int n, int p, int h,
+                  bool vec, float* __restrict__ band) {
+  extern __shared__ __align__(16) float syrk_smem[];
+  const size_t s = blockIdx.y, E = (size_t)(2 * h + 1) * p;
+  const size_t m_rows = PER_READING ? (size_t)n : 1;
+  band_syrk_tile<HAS_MASK, PER_READING, /*ROUND=*/true, float, false,
+                 /*UNIT=*/true, ACC>(
+      x + s * n * p, nullptr, HAS_MASK ? m + s * m_rows * p : nullptr, 1, n,
+      p, h, vec, blockIdx.x, band + s * E, syrk_smem, band_in + s * E);
+}
+
 // Kernels 6 and 7 at n > kLongRound on a full grid: kernel 2's tile (two
 // accumulator sets: the segment's and the round's) at K = 1 with unit
 // weight (UNIT: no weight read), on its grid.
@@ -115,6 +140,22 @@ band_long_kernel(const float* __restrict__ x, const float* __restrict__ m,
                  /*UNIT=*/true>(
       x + s * n * p, nullptr, HAS_MASK ? m + s * m_rows * p : nullptr, 1, n,
       p, h, vec, blockIdx.x, band + s * (2 * h + 1) * p, syrk_smem);
+}
+
+// Kernel 6's accumulating form on a full grid: band = band_in + the
+// round's sums, band_in (S, 2h+1, p).
+template <bool HAS_MASK, bool PER_READING, bool ACC>
+__global__ void __launch_bounds__(kSyrkThreads, 4)
+band_long_kernel(const float* __restrict__ x, const float* __restrict__ m,
+                 const float* __restrict__ band_in, int n, int p, int h,
+                 bool vec, float* __restrict__ band) {
+  extern __shared__ __align__(16) float syrk_smem[];
+  const size_t s = blockIdx.y, E = (size_t)(2 * h + 1) * p;
+  const size_t m_rows = PER_READING ? (size_t)n : 1;
+  band_syrk_tile<HAS_MASK, PER_READING, /*ROUND=*/false, float, false,
+                 /*UNIT=*/true, ACC>(
+      x + s * n * p, nullptr, HAS_MASK ? m + s * m_rows * p : nullptr, 1, n,
+      p, h, vec, blockIdx.x, band + s * E, syrk_smem, band_in + s * E);
 }
 
 // The split fold of a small band (kernels 6 and 7 at n > kLongRound on a
@@ -217,11 +258,15 @@ band_pair_kernel(const float* __restrict__ x, const float* __restrict__ m,
 // at once, before its chain reads them.
 constexpr int kCombineThreads = 256, kCombineSegs = 32;
 
-template <bool LIVE>
-__global__ void __launch_bounds__(kCombineThreads)
-band_pair_combine_kernel(const float* __restrict__ ws,
-                         const float* __restrict__ m, int G, int p, int h,
-                         float* __restrict__ band) {
+// One entry of the band a thread (the body of both combine kernels); ACC
+// adds band_in's entry, loaded before the partials' chain, by one
+// __fadd_rn (band_in + 0 outside the matrix).
+template <bool LIVE, bool ACC>
+__device__ __forceinline__ void pair_combine(const float* __restrict__ ws,
+                                             const float* __restrict__ m,
+                                             const float* __restrict__ band_in,
+                                             int G, int p, int h,
+                                             float* __restrict__ band) {
   __shared__ float parts[kCombineSegs * kCombineThreads];
   const int E = (2 * h + 1) * p, U = band_pairs(p, h), tid = threadIdx.x;
   const int e = blockIdx.x * kCombineThreads + tid;
@@ -229,8 +274,9 @@ band_pair_combine_kernel(const float* __restrict__ ws,
   const size_t s = blockIdx.y;
   const int i = e % p, d = e / p - h, j = i + d;
   float* out = band + s * E + e;
+  const float prior = ACC ? __ldg(band_in + s * E + e) : 0.0f;
   if (j < 0 || j >= p) {
-    *out = 0.0f;
+    *out = ACC ? __fadd_rn(prior, 0.0f) : 0.0f;
     return;
   }
   const int ad = d < 0 ? -d : d, lo = d < 0 ? j : i;
@@ -248,7 +294,26 @@ band_pair_combine_kernel(const float* __restrict__ ws,
     for (int q = 0; q < nseg; ++q)
       acc = __fmaf_rn(f, parts[q * kCombineThreads + tid], acc);
   }
-  *out = acc;
+  *out = ACC ? __fadd_rn(prior, acc) : acc;
+}
+
+template <bool LIVE>
+__global__ void __launch_bounds__(kCombineThreads)
+band_pair_combine_kernel(const float* __restrict__ ws,
+                         const float* __restrict__ m, int G, int p, int h,
+                         float* __restrict__ band) {
+  pair_combine<LIVE, false>(ws, m, nullptr, G, p, h, band);
+}
+
+// Kernel 6's accumulating form of the split fold's second kernel: band =
+// band_in + the folded partials, band_in (S, 2h+1, p).
+template <bool LIVE, bool ACC>
+__global__ void __launch_bounds__(kCombineThreads)
+band_pair_combine_kernel(const float* __restrict__ ws,
+                         const float* __restrict__ m,
+                         const float* __restrict__ band_in, int G, int p,
+                         int h, float* __restrict__ band) {
+  pair_combine<LIVE, ACC>(ws, m, band_in, G, p, h, band);
 }
 
 static bool aligned16(const void* ptr) {
@@ -284,33 +349,47 @@ static int launch_syrk(const float* x, const float* w, const float* m,
 // Kernels 6 and 7: one round of n rows a slot, in the shape its n and the
 // workspace choose (above).  ws: (S, ceil(n / kSegRows), band_pairs(p, h))
 // floats for the split fold of a round of n > kLongRound rows, or null.
-template <bool HAS_MASK, bool PER_READING>
-static int launch_round(const float* x, const float* m, int S, int n, int p,
-                        int h, float* ws, float* band, void* stream) {
+// ACC: kernel 6's accumulating form, band = band_in + the sums (band_in
+// (S, 2h+1, p), not band).
+template <bool HAS_MASK, bool PER_READING, bool ACC = false>
+static int launch_round(const float* x, const float* m, const float* band_in,
+                        int S, int n, int p, int h, float* ws, float* band,
+                        void* stream) {
   if (S < 1 || n < 1 || p < 1 || h < 0) return (int)cudaErrorInvalidValue;
   const bool vec = p % 4 == 0 && aligned16(x) && (!HAS_MASK || aligned16(m));
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   const int tiles = (p + kSyrkT - 1) / kSyrkT * syrk_offsets(p, h);
-  if (n <= kLongRound) {
-    constexpr size_t smem = sizeof(float) *
-        syrk_smem_floats<HAS_MASK && PER_READING, /*ROUND=*/true>();
-    auto kernel = band_round_kernel<HAS_MASK, PER_READING>;
+  // a tile kernel (the round's shape or the long one) on the tile grid,
+  // given band_in in ACC's form
+  auto tile_launch = [&](auto kernel, size_t smem) {
     if ((err = smem_attr((const void*)kernel, smem)) != cudaSuccess)
       return (int)err;
-    kernel<<<dim3(tiles, S), kSyrkThreads, smem, st>>>(x, m, n, p, h, vec,
-                                                      band);
+    if constexpr (ACC)
+      kernel<<<dim3(tiles, S), kSyrkThreads, smem, st>>>(x, m, band_in, n, p,
+                                                        h, vec, band);
+    else
+      kernel<<<dim3(tiles, S), kSyrkThreads, smem, st>>>(x, m, n, p, h, vec,
+                                                        band);
     return (int)cudaGetLastError();
+  };
+  if (n <= kLongRound) {
+    constexpr size_t smem = sizeof(float) *
+        syrk_smem_floats<HAS_MASK && PER_READING, /*ROUND=*/true, false,
+                         ACC>();
+    if constexpr (ACC)
+      return tile_launch(band_round_kernel<HAS_MASK, PER_READING, true>, smem);
+    else
+      return tile_launch(band_round_kernel<HAS_MASK, PER_READING>, smem);
   }
   if (ws == nullptr) {
     constexpr size_t smem =
-        sizeof(float) * syrk_smem_floats<HAS_MASK && PER_READING>();
-    auto kernel = band_long_kernel<HAS_MASK, PER_READING>;
-    if ((err = smem_attr((const void*)kernel, smem)) != cudaSuccess)
-      return (int)err;
-    kernel<<<dim3(tiles, S), kSyrkThreads, smem, st>>>(x, m, n, p, h, vec,
-                                                      band);
-    return (int)cudaGetLastError();
+        sizeof(float) *
+        syrk_smem_floats<HAS_MASK && PER_READING, false, false, ACC>();
+    if constexpr (ACC)
+      return tile_launch(band_long_kernel<HAS_MASK, PER_READING, true>, smem);
+    else
+      return tile_launch(band_long_kernel<HAS_MASK, PER_READING>, smem);
   }
   const int G = (n + kSegRows - 1) / kSegRows;
   if (pair_threads(p, h) > kPairThreads || p > kPairMaxP)
@@ -325,10 +404,15 @@ static int launch_round(const float* x, const float* m, int S, int n, int p,
   // or the band is zero past p)
   const long long entries = (long long)(2 * h + 1) * p;
   if (entries > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  auto combine = band_pair_combine_kernel<HAS_MASK && !PER_READING>;
-  combine<<<dim3((unsigned)((entries + kCombineThreads - 1) /
-                             kCombineThreads), S),
-            kCombineThreads, 0, st>>>(ws, m, G, p, h, band);
+  const dim3 grid((unsigned)((entries + kCombineThreads - 1) /
+                             kCombineThreads), S);
+  constexpr bool LIVE = HAS_MASK && !PER_READING;
+  if constexpr (ACC)
+    band_pair_combine_kernel<LIVE, true><<<grid, kCombineThreads, 0, st>>>(
+        ws, m, band_in, G, p, h, band);
+  else
+    band_pair_combine_kernel<LIVE><<<grid, kCombineThreads, 0, st>>>(
+        ws, m, G, p, h, band);
   return (int)cudaGetLastError();
 }
 
@@ -362,8 +446,18 @@ int band_fold_masked_f32(const float* x, const float* w, const float* m,
 // at unit weight beyond).
 int band_round_f32(const float* x, int S, int n, int p, int h, float* ws,
                    float* band, void* stream) {
-  return repro_torch::launch_round<false, false>(x, nullptr, S, n, p, h, ws,
-                                                 band, stream);
+  return repro_torch::launch_round<false, false>(x, nullptr, nullptr, S, n,
+                                                 p, h, ws, band, stream);
+}
+
+// Kernel 6's accumulating form: as band_round_f32, with band = band_in +
+// the round's sums, each entry one fp32 add in the write-out (the bits of
+// band_in + band_round_f32's band).  band_in (S, 2h+1, p) is read only;
+// band is a separate output.
+int band_round_acc_f32(const float* x, const float* band_in, int S, int n,
+                       int p, int h, float* ws, float* band, void* stream) {
+  return repro_torch::launch_round<false, false, true>(
+      x, nullptr, band_in, S, n, p, h, ws, band, stream);
 }
 
 // Kernel 7: as band_round_f32 with a 0/1 mask: (S, p) liveness, or
@@ -372,10 +466,10 @@ int band_round_masked_f32(const float* x, const float* m, int S, int n,
                           int per_reading, int p, int h, float* ws,
                           float* band, void* stream) {
   if (per_reading)
-    return repro_torch::launch_round<true, true>(x, m, S, n, p, h, ws, band,
-                                                 stream);
-  return repro_torch::launch_round<true, false>(x, m, S, n, p, h, ws, band,
-                                                stream);
+    return repro_torch::launch_round<true, true>(x, m, nullptr, S, n, p, h,
+                                                 ws, band, stream);
+  return repro_torch::launch_round<true, false>(x, m, nullptr, S, n, p, h,
+                                                ws, band, stream);
 }
 
 }  // extern "C"

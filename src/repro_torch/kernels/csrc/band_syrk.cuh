@@ -124,10 +124,14 @@ __host__ __device__ inline int syrk_offsets(int p, int h) {
 // dropout mask, the mask at I and J), each (kSyrkRows, kSyrkT), or for a
 // round kRoundStages of kRoundRows; the (T, T) output tile reuses them.
 // WIDE (bf16 rows) adds the ring of raw rows, half the size in floats.
-template <bool STAGED_MASK, bool ROUND = false, bool WIDE = false>
+// ACC adds the band_in prefetch past the ring: (T, T) floats, and a second
+// (T, T) for a round, whose ring has no stage slot of that size to spare.
+template <bool STAGED_MASK, bool ROUND = false, bool WIDE = false,
+          bool ACC = false>
 constexpr int syrk_smem_floats() {
   return (ROUND ? kRoundStages * kRoundRows : kSyrkStages * kSyrkRows) *
-         ((STAGED_MASK ? 4 : 2) + (WIDE ? 1 : 0)) * kSyrkT;
+             ((STAGED_MASK ? 4 : 2) + (WIDE ? 1 : 0)) * kSyrkT +
+         (ACC ? (ROUND ? 2 : 1) * kSyrkT * kSyrkT : 0);
 }
 static_assert(syrk_smem_floats<false>() >= kSyrkT * kSyrkT &&
                   syrk_smem_floats<false, true>() >= kSyrkT * kSyrkT,
@@ -137,27 +141,108 @@ static_assert(kSyrkT % kSyrkWR == 0 && kSyrkT % kSyrkWC == 0 &&
               kSyrkThreads % kSyrkT == 0,
               "warps of 4 x 8 lanes tile the tile; float4 operands");
 
+// The accumulating form (ACC).  A thread writes the entries of the plain
+// write-outs below: row ii = tid % T of the tile, columns jj = (ii + tid /
+// T + k NT / T) mod T for k < kAccEntries, each band[h + d, i] and its
+// mirror band[h - d, j] (d = j - i).  Their band_in values come into
+// shared memory by cp.async ahead of the write-out, slot k NT + tid of a
+// buffer of T T floats each (the thread reads back what it copied): those
+// at band[h + d, i] with the first stage's rows, into a buffer of their
+// own past the ring, the mirrors as the last stage's arithmetic starts,
+// into the ring slot it leaves free (a round, whose ring has no slot to
+// spare, takes both with its first stage's rows), so the loads' latency
+// hides behind the arithmetic (acc_prefetch; on the H100 at wsn-1m's
+// batch, the direct values with the last stage's rows, or both halves
+// with the first stage's in a buffer of 32 KB, three blocks an SM, ran
+// slower, PERF.md).  Then each entry is band_in + v by one __fadd_rn
+// (never contracted into the sum's last fma), so the band carries the bits
+// of band_in + the delta form's band, the out-of-range zeros as band_in +
+// 0 (band_tile_accumulate).
+constexpr int kAccEntries = kSyrkT * kSyrkT / kSyrkThreads;
+
+__device__ __forceinline__ int acc_column(int tid, int k) {
+  return (tid % kSyrkT + tid / kSyrkT + k * (kSyrkThreads / kSyrkT)) &
+         (kSyrkT - 1);
+}
+
+// band_in at the thread's entries (or their mirrors) into dst; zero-filled
+// where the pair is outside the band or the matrix (never written)
+__device__ __forceinline__ void acc_prefetch(
+    float* dst, const float* __restrict__ band_in, int i0, int j0, int p,
+    int h, bool mirror) {
+  const int tid = threadIdx.x, ii = tid % kSyrkT, i = i0 + ii;
+#pragma unroll 8
+  for (int k = 0; k < kAccEntries; ++k) {
+    const int jj = acc_column(tid, k), d = j0 + jj - i, j = j0 + jj;
+    const bool in = d >= (mirror ? 1 : 0) && d <= h && j < p;
+    const ptrdiff_t at = mirror ? (ptrdiff_t)(h - d) * p + j
+                                : (ptrdiff_t)(h + d) * p + i;
+    cp_async4(dst + k * kSyrkThreads + tid, band_in + (in ? at : 0),
+              in ? 4 : 0);
+  }
+}
+
+// The write-out once the tile's sums stand in cs (T, T) and the
+// prefetches (up: band[h + d, i]; mirror: band[h - d, j]) have landed.
+__device__ __forceinline__ void band_tile_accumulate(
+    const float* cs, const float* up, const float* mirror,
+    const float* __restrict__ band_in, float* __restrict__ band, int i0,
+    int j0, bool diag, int p, int h) {
+  constexpr int TT = kSyrkT, NT = kSyrkThreads;
+  const int tid = threadIdx.x, ii = tid % TT, i = i0 + ii;
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kAccEntries; ++k) {
+    const int jj = acc_column(tid, k), d = j0 + jj - i, j = j0 + jj;
+    if (d < 0 || d > h || j >= p) continue;
+    const float v = cs[ii * TT + jj];
+    band[(size_t)(h + d) * p + i] = __fadd_rn(up[k * NT + tid], v);
+    if (d > 0)
+      band[(size_t)(h - d) * p + j] = __fadd_rn(mirror[k * NT + tid], v);
+  }
+  // the zeros of the tile's rows, as band_syrk_tile writes them
+  if (diag && (i0 < h || min(i0 + TT, p) - 1 + h >= p)) {
+    for (int f = tid; f < h * TT; f += NT) {
+      const int d = 1 + f / TT, r = i0 + f % TT;
+      if (r >= p) continue;
+      if (r < d) {
+        const size_t at = (size_t)(h - d) * p + r;
+        band[at] = __fadd_rn(__ldg(band_in + at), 0.0f);
+      }
+      if (r + d >= p) {
+        const size_t at = (size_t)(h + d) * p + r;
+        band[at] = __fadd_rn(__ldg(band_in + at), 0.0f);
+      }
+    }
+  }
+}
+
 // One tile (blockIdx-free: ``tile`` = I * syrk_offsets(p, h) + (J - I)) of
 // one slot: x (R, p), w (K) (unread with ROUND, which takes K = 1 and
 // n <= kSegRows), m
 // (K, p), or (R, p) with PER_READING, or null, band (2h+1, p).  vec: x and
 // m may be copied 16 bytes at a time (p a multiple of 16 bytes' worth of
 // T, both aligned).  smem: syrk_smem_floats<HAS_MASK && PER_READING,
-// ROUND, WIDE>() floats, 16-byte aligned.  x is fp32 or, for the chunk
+// ROUND, WIDE, ACC>() floats, 16-byte aligned.  x is fp32 or, for the chunk
 // fold without a dropout mask, bf16 (WIDE: widened as it is staged).
 // MASK_AT_FLUSH (kernel 1) loads a round's liveness values as the round
 // ends instead of as its last stage starts: 12 registers fewer through the
 // stage's multiply-adds, for a tile that is a called function (whose
 // calling convention leaves it fewer registers than a kernel's own body).
 // UNIT (kernels 6 and 7 past one segment: K = 1, unit weight, w unread)
-// keeps the chunk's shape; ROUND implies it.
+// keeps the chunk's shape; ROUND implies it.  ACC (kernel 6's accumulating
+// form) writes band = band_in + the sums (above): band_in (2h+1, p), read
+// once, never band itself.
 template <bool HAS_MASK, bool PER_READING, bool ROUND = false,
-          typename T = float, bool MASK_AT_FLUSH = false, bool UNIT = ROUND>
+          typename T = float, bool MASK_AT_FLUSH = false, bool UNIT = ROUND,
+          bool ACC = false>
 __device__ __forceinline__ void band_syrk_tile(
     const T* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ m, int K, int n, int p, int h, bool vec,
-    int tile, float* __restrict__ band, float* __restrict__ smem) {
+    int tile, float* __restrict__ band, float* __restrict__ smem,
+    const float* __restrict__ band_in = nullptr) {
   constexpr bool WIDE = !std::is_same<T, float>::value;
+  static_assert(!(ACC && WIDE), "the accumulating form folds fp32 rows");
   static_assert(!WIDE || (std::is_same<T, __nv_bfloat16>::value && !ROUND &&
                           !PER_READING),
                 "bf16 rows: the chunk fold without a dropout mask");
@@ -358,9 +443,20 @@ __device__ __forceinline__ void band_syrk_tile(
   };
 
   const int stages = (R + RB - 1) / RB;
+  // ACC: band_in's values past the ring (and, for a round, their mirrors
+  // after them; else in the ring slot the last stage leaves free)
+  [[maybe_unused]] float* acc_up = smem + ST * STAGE;
+  [[maybe_unused]] float* acc_mirror =
+      ROUND ? acc_up + TT * TT : smem + stages % ST * STAGE;
 #pragma unroll
   for (int st = 0; st < ST - 1; ++st) {
     if (st < stages) stage(st);
+    if constexpr (ACC) {
+      if (st == 0) {
+        acc_prefetch(acc_up, band_in, i0, j0, p, h, false);
+        if (ROUND) acc_prefetch(acc_mirror, band_in, i0, j0, p, h, true);
+      }
+    }
     cp_async_commit();
   }
   for (int st = 0; st < stages; ++st) {
@@ -371,6 +467,10 @@ __device__ __forceinline__ void band_syrk_tile(
     }
     __syncthreads();   // stage st landed; stage st - 1's slot is free
     if (st + ST - 1 < stages) stage(st + ST - 1);
+    if constexpr (ACC && !ROUND) {
+      if (st == stages - 1)
+        acc_prefetch(acc_mirror, band_in, i0, j0, p, h, true);
+    }
     cp_async_commit();
     if (!active) continue;
     const float* ar = smem + (st % ST) * STAGE + ri;
@@ -400,7 +500,8 @@ __device__ __forceinline__ void band_syrk_tile(
   // the tile's sums through shared memory, out along wrapped diagonals
   cp_async_wait<0>();
   __syncthreads();     // every stage consumed: the ring is free
-  float* cs = smem;    // (T, T)
+  // (T, T); ACC: in the last stage's slot, beside the mirrors
+  float* cs = smem + (ACC && !ROUND ? (stages - 1) % ST * STAGE : 0);
   float(&out)[RM][CM] = ROUND ? s : acc;
   if (active) {
 #pragma unroll
@@ -410,6 +511,11 @@ __device__ __forceinline__ void band_syrk_tile(
         *reinterpret_cast<float4*>(cs + (ri + a) * TT + cj + b) =
             make_float4(out[a][b], out[a][b + 1], out[a][b + 2],
                         out[a][b + 3]);
+  }
+  if constexpr (ACC) {
+    band_tile_accumulate(cs, acc_up, acc_mirror, band_in, band, i0, j0, diag,
+                         p, h);
+    return;
   }
   __syncthreads();
   if constexpr (ROUND) {

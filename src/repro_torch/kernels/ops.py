@@ -6,7 +6,9 @@ launches the hand-written kernel (``csrc/``) or raises; a CPU tensor takes
 the kernel's plain PyTorch version (:mod:`repro_torch.kernels.ref`).  There
 is no fallback from one to the other.  Each launch adds one to
 ``LAUNCHES[kernel]`` and each plain call one to ``PLAIN_CALLS[kernel]``, so
-a run can show which path it took (:func:`reset_counts`).
+a run can show which path it took (:func:`reset_counts`); a launch that
+also adds its result to a state in the kernel's write-out adds one to
+``IN_KERNEL_ADDS[kernel]`` besides.
 
 Kernels launch on PyTorch's current stream, do not synchronise, and
 allocate nothing: the wrapper allocates every output with ``torch.empty``.
@@ -32,10 +34,12 @@ from torch._subclasses.fake_tensor import FakeTensor
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import load_library
 
-__all__ = ["LAUNCHES", "PLAIN_CALLS", "PLANNED", "reset_counts",
+__all__ = ["LAUNCHES", "PLAIN_CALLS", "IN_KERNEL_ADDS", "PLANNED",
+           "reset_counts",
            "SEGMENT_ROWS", "LONG_ROUND_ROWS", "RoundPlan", "band_pairs",
            "band_round_plan", "MatvecPlan", "banded_matvec_plan",
            "cov_band_update", "cov_band_update_batched",
+           "cov_band_accumulate",
            "cov_band_update_chunk", "cov_band_update_chunk_batched",
            "fused_tiles", "fused_stream_update",
            "fused_stream_stages_blocked",
@@ -48,6 +52,8 @@ _KERNELS = ("fused_stream", "fused_stream_bf16", "band_fold",
             "pca_reconstruct", "banded_matmul", "banded_matvec")
 LAUNCHES = dict.fromkeys(_KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(_KERNELS, 0)
+# folds whose add to the state ran in the kernel (cov_band_accumulate)
+IN_KERNEL_ADDS = {"band_round": 0}
 
 _MAX_SLOTS = 65535              # grid y
 
@@ -56,7 +62,7 @@ PLANNED: list = []
 
 
 def reset_counts() -> None:
-    for d in (LAUNCHES, PLAIN_CALLS):
+    for d in (LAUNCHES, PLAIN_CALLS, IN_KERNEL_ADDS):
         for k in d:
             d[k] = 0
     PLANNED.clear()
@@ -309,6 +315,47 @@ def cov_band_update(x: torch.Tensor, halfwidth: int, *,
         raise ValueError(f"expected (n, p), got {tuple(x.shape)}")
     return cov_band_update_batched(
         x[None], halfwidth, mask=None if mask is None else mask[None])[0]
+
+
+def cov_band_accumulate(band: torch.Tensor, x: torch.Tensor,
+                        halfwidth: int) -> torch.Tensor:
+    """``band + cov_band_update(x, halfwidth)`` in ONE launch of kernel 6:
+    one network's (n, p) round folded into its (2h+1, p) fp32 band, the add
+    done in the kernel's write-out (``band_round_acc_f32``), each entry one
+    fp32 add of the sum the delta form computes, so the two-step form's
+    bits.  Returns a new band; ``band`` is left as it was.  Counts under
+    ``LAUNCHES["band_round"]`` and ``IN_KERNEL_ADDS["band_round"]``; on the
+    CPU the two steps, under ``PLAIN_CALLS["band_round"]``."""
+    if x.dim() != 2:
+        raise ValueError(f"expected (n, p), got {tuple(x.shape)}")
+    n, p = x.shape
+    h = int(halfwidth)
+    if tuple(band.shape) != (2 * h + 1, p):
+        raise ValueError(f"band shape {tuple(band.shape)} is not "
+                         f"{(2 * h + 1, p)}")
+    if isinstance(x, FakeTensor) or isinstance(band, FakeTensor):
+        return _planned("band_round", {"band": band, "x": x},
+                        {"halfwidth": h}, band.new_empty(
+                            band.shape, dtype=torch.float32))
+    if not x.is_cuda:
+        PLAIN_CALLS["band_round"] += 1
+        return band + ref.cov_band_update(x, h)
+    dev = x.device
+    if band.device != dev or band.dtype != torch.float32:
+        raise ValueError(f"band {band.dtype} on {band.device}: the kernel "
+                         f"adds into an fp32 band on {dev}")
+    xx, prior = _cuda_operand(x, dev), band.contiguous()
+    out = torch.empty_like(prior)
+    plan = band_round_plan(1, n, p, h, _sms(dev))
+    ws = (torch.empty(plan.workspace_bytes // 4, device=dev,
+                      dtype=torch.float32) if plan.shape == "split" else None)
+    ret = load_library("band_fold").band_round_acc_f32(
+        xx.data_ptr(), prior.data_ptr(), 1, n, p, h, _ptr(ws),
+        out.data_ptr(), _stream())
+    _check(ret, "band_round")
+    LAUNCHES["band_round"] += 1
+    IN_KERNEL_ADDS["band_round"] += 1
+    return out
 
 
 def cov_band_update_chunk_batched(xs: torch.Tensor, weights: torch.Tensor,

@@ -232,7 +232,7 @@ def test_bound_helpers():
 
 def test_every_kernel_call_moves_one_pass():
     rows = resources.check_traffic("cpu")
-    assert len(rows) == len(ops.LAUNCHES)
+    assert len(rows) == len(ops.LAUNCHES) + len(resources.CASE_COUNTERS)
     assert all(r.ok for r in rows), [r.line() for r in rows if not r.ok]
 
 

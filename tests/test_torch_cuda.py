@@ -930,6 +930,63 @@ class TestCudaRoundAndBandedKernels:
         assert torch.equal(Y, ref.banded_matmul(band, V))
 
 
+@pytest.mark.cuda
+class TestCudaBandAccumulate:
+    """Kernel 6's accumulating form (``ops.cov_band_accumulate``): the band
+    it writes is ``band_in + `` the delta form's band bit for bit, in each
+    of its shapes, every entry of a random non-symmetric ``band_in`` (the
+    out-of-range corners too) checked, ``band_in`` left as it was."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+
+    @pytest.mark.parametrize("n,p,h,shape", [
+        (32, 1024, 128, "round"), (256, 4096, 128, "long"),
+        (1440, 52, 15, "split"), (13, 37, 3, "round"), (64, 65, 200, "round"),
+        (65, 1021, 130, "long"), (129, 37, 44, "split"), (70, 1024, 0, "long"),
+        (256, 16384, 128, "long")])
+    def test_band_in_plus_delta_bit_for_bit(self, n, p, h, shape):
+        assert ops.band_round_plan(1, n, p, h).shape == shape
+        g = torch.Generator(device="cuda").manual_seed(n + p + h)
+        band_in = torch.randn((2 * h + 1, p), device="cuda", generator=g)
+        x = torch.randn((n, p), device="cuda", generator=g)
+        before = band_in.clone()
+        ops.reset_counts()
+        out = ops.cov_band_accumulate(band_in, x, h)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["band_round"] == 1
+        assert sum(ops.LAUNCHES.values()) == 1
+        assert ops.IN_KERNEL_ADDS["band_round"] == 1
+        assert sum(ops.PLAIN_CALLS.values()) == 0
+        assert torch.equal(band_in, before)
+        assert torch.equal(out, band_in + ops.cov_band_update(x, h))
+        assert torch.equal(out, ops.cov_band_accumulate(band_in, x, h))
+
+    @pytest.mark.parametrize("n,p,h", [(32, 1024, 128), (256, 4096, 128),
+                                       (1440, 52, 15)])
+    def test_banded_update_keeps_its_bits(self, n, p, h):
+        """``banded_update`` on the card (one launch, the add in it) gives
+        the two-step form's state: ``band + delta``, ``s + x.sum(0)``."""
+        from repro_torch.core import covariance as cov
+        g = torch.Generator(device="cuda").manual_seed(n * p + h)
+        state = cov.BandedCovState(
+            t=torch.tensor(7.0, device="cuda"),
+            s=torch.randn((p,), device="cuda", generator=g),
+            band=torch.randn((2 * h + 1, p), device="cuda", generator=g),
+            halfwidth=h)
+        x = torch.randn((n, p), device="cuda", generator=g)
+        ops.reset_counts()
+        new = cov.banded_update(state, x)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["band_round"] == 1
+        assert ops.IN_KERNEL_ADDS["band_round"] == 1
+        assert torch.equal(new.band, state.band + ops.cov_band_update(x, h))
+        assert torch.equal(new.s, state.s + x.sum(0))
+        assert float(new.t) == 7.0 + n
+
+
 def _matvec_shape(band, v, shape):
     """Kernel 11 in ``shape``: "auto" through ``ops.banded_matvec`` (the
     plan's choice), "slot" or "thread" through that shape's C entry point;

@@ -473,6 +473,106 @@ class TestBandRoundPlainVsReference:
             ops.cov_band_update(torch.zeros((2, 4, 8)), 1)
 
 
+def _band_and_round(n, p, h, seed):
+    """A non-symmetric (2h+1, p) band, every entry drawn (its out-of-range
+    corners too), and an (n, p) round, on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn((2 * h + 1, p), generator=g),
+            torch.randn((n, p), generator=g))
+
+
+class TestBandAccumulatePlain:
+    """``ops.cov_band_accumulate`` (kernel 6 adding into a band) on the
+    CPU: the two steps it replaces on the card, bit for bit."""
+
+    @pytest.mark.parametrize("n,p,h", [(32, 64, 3), (6, 37, 3), (13, 31, 0),
+                                       (65, 24, 30), (256, 52, 15)])
+    def test_plain_path_is_band_plus_delta(self, n, p, h):
+        band, x = _band_and_round(n, p, h, n + p + h)
+        before = band.clone()
+        ops.reset_counts()
+        out = ops.cov_band_accumulate(band, x, h)
+        assert {k: v for k, v in ops.PLAIN_CALLS.items() if v} == {
+            "band_round": 1}
+        assert sum(ops.LAUNCHES.values()) == 0
+        assert ops.IN_KERNEL_ADDS == {"band_round": 0}
+        assert torch.equal(out, band + ref.cov_band_update(x, h))
+        assert torch.equal(band, before)      # a new band; the input kept
+        assert out.data_ptr() != band.data_ptr()
+
+    def test_banded_update_on_the_cpu_is_unchanged(self):
+        """``banded_update`` off the card keeps the delta and the add."""
+        from repro_torch.core import covariance as cov
+        band, x = _band_and_round(20, 40, 5, 7)
+        state = cov.BandedCovState(t=torch.tensor(3.0), s=torch.randn(40),
+                                   band=band, halfwidth=5)
+        ops.reset_counts()
+        new = cov.banded_update(state, x)
+        assert ops.PLAIN_CALLS["band_round"] == 1
+        assert ops.IN_KERNEL_ADDS["band_round"] == 0
+        assert torch.equal(new.band, band + ops.cov_band_update(x, 5))
+        assert torch.equal(new.s, state.s + x.sum(0))
+        assert float(new.t) == 23.0
+
+    def test_fake_tensors_plan_the_band(self):
+        """On fake tensors (the dry run) the call is planned, not run: an
+        output of the band's shape and dtype, one PLANNED entry under
+        ``band_round`` whose bytes the work model counts with the band
+        read once more."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        from repro_torch.analysis import op_lint, resources
+        ops.reset_counts()
+        with FakeTensorMode():
+            band = torch.empty((9, 4096), device="cuda")
+            out = ops.cov_band_accumulate(band, torch.empty((256, 4096),
+                                                            device="cuda"), 4)
+        assert out.shape == band.shape and out.dtype == torch.float32
+        assert sum(ops.LAUNCHES.values()) + sum(
+            ops.PLAIN_CALLS.values()) == 0
+        (call,) = ops.PLANNED
+        assert call[0] == "band_round" and call[2] == {"halfwidth": 4}
+        assert call[1] == {"band": ((9, 4096), torch.float32),
+                           "x": ((256, 4096), torch.float32)}
+        d, model, got = resources.call_work(op_lint.KernelCall(*call))
+        assert d["accumulate"] and model == got == 4 * (256 * 4096
+                                                        + 2 * 9 * 4096)
+        ops.reset_counts()
+
+    @pytest.mark.parametrize("dtype,device,form", [
+        (torch.float32, "cuda", "acc"), (torch.float64, "cuda", "delta"),
+        (torch.float32, "cpu", "acc")])
+    def test_banded_update_takes_the_acc_form_for_an_fp32_card_band(
+            self, dtype, device, form, monkeypatch):
+        """``banded_update`` hands an fp32 band to the accumulating form
+        (on (fake) card tensors and on the CPU, where the wrapper takes its
+        plain version), and keeps the delta and the add for an fp64 state:
+        its choice rests on the band it is given."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        from repro_torch.core import covariance as cov
+        took = []
+        monkeypatch.setattr(ops, "cov_band_accumulate", lambda b, x, h: (
+            took.append("acc"), torch.empty_like(b))[1])
+        monkeypatch.setattr(ops, "cov_band_update", lambda x, h: (
+            took.append("delta"), x.new_empty((2 * h + 1, x.shape[1]),
+                                              dtype=torch.float32))[1])
+        with FakeTensorMode():
+            on = dict(dtype=dtype, device=device)
+            state = cov.BandedCovState(
+                t=torch.zeros((), **on), s=torch.zeros((64,), **on),
+                band=torch.zeros((7, 64), **on), halfwidth=3)
+            new = cov.banded_update(state, torch.empty((32, 64),
+                                                       device=device))
+        assert took == [form]
+        assert new.band.shape == (7, 64) and new.band.dtype == dtype
+
+    def test_bad_shapes_rejected(self):
+        band, x = _band_and_round(8, 16, 2, 0)
+        with pytest.raises(ValueError, match="expected"):
+            ops.cov_band_accumulate(band, x[None], 2)
+        with pytest.raises(ValueError, match="band shape"):
+            ops.cov_band_accumulate(band, x, 3)
+
+
 def _header_constants(*names: str, files=("band_syrk.cuh", "band_fold.cu"),
                       ) -> dict[str, int]:
     """``constexpr int NAME = VALUE;`` of the band folds' headers (or of
